@@ -86,3 +86,27 @@ def ddim_step(tables: DDIMTables, model_output: torch.Tensor, t: int, prev_t: in
     if tables.clip_sample:
         x0 = x0.clamp(-1.0, 1.0)
     return torch.sqrt(a_prev) * x0 + torch.sqrt(1.0 - a_prev) * eps
+
+
+def _alphas(tables: DDIMTables, timesteps: torch.Tensor, ndim: int) -> torch.Tensor:
+    """alphas_cumprod[timesteps] (fp32, on the timesteps' device), shaped to
+    broadcast over samples of ``ndim`` dimensions."""
+
+    a = torch.as_tensor(tables.alphas_cumprod, device=timesteps.device)[timesteps.long()]
+    return a.reshape(a.shape + (1,) * (ndim - a.ndim))
+
+
+def add_noise(tables: DDIMTables, samples: torch.Tensor, noise: torch.Tensor,
+              timesteps: torch.Tensor) -> torch.Tensor:
+    """q(x_t | x_0) = sqrt(a_t) x0 + sqrt(1 - a_t) noise (the training forward), fp32."""
+
+    a = _alphas(tables, timesteps, samples.ndim)
+    return torch.sqrt(a) * samples.float() + torch.sqrt(1.0 - a) * noise.float()
+
+
+def velocity_target(tables: DDIMTables, samples: torch.Tensor, noise: torch.Tensor,
+                    timesteps: torch.Tensor) -> torch.Tensor:
+    """v = sqrt(a_t) noise - sqrt(1 - a_t) x0 (for prediction_type 'v_prediction'), fp32."""
+
+    a = _alphas(tables, timesteps, samples.ndim)
+    return torch.sqrt(a) * noise.float() - torch.sqrt(1.0 - a) * samples.float()

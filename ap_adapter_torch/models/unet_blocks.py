@@ -4,8 +4,10 @@ Counterpart of ``ap_adapter_tpu/models/unet_blocks.py``. Convolutional blocks
 work on NCHW tensors; the transformer blocks on ``[B, S, C]`` tokens. Every
 transformer block routes its three pre-LN sub-layers to the fused ops:
 self-attention (attn1, and attn2 of double-self-attention groups) to K1,
-cross-attention to K2 over K/V that are either hoisted (``models/hoist.py``)
-or projected here, and the GEGLU feed-forward to K3.
+cross-attention to K2 over hoisted K/V (``models/hoist.py``, inference) or
+to K4, which projects them from the context (training, unhoisted calls),
+and the GEGLU feed-forward to K3. K1, K3 and K4 go through their autograd
+Functions, whose backwards are K7, K9 and K8.
 """
 
 from __future__ import annotations
@@ -16,9 +18,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ap_adapter_torch.ops.fused_block import fused_ln_self_attention
-from ap_adapter_torch.ops.fused_cross import fused_ln_cross_attention_kv
-from ap_adapter_torch.ops.fused_ff import fused_ln_geglu_ff
+from ap_adapter_torch.ops.fused_block import fused_ln_self_attention_vjp
+from ap_adapter_torch.ops.fused_cross import fused_ln_cross_attention_kv, fused_ln_cross_attention_vjp
+from ap_adapter_torch.ops.fused_ff import fused_ln_geglu_ff_vjp
 
 # (k, v, k_ip, v_ip) for one cross-attention site; k_ip/v_ip are None where
 # the site has no adapter tokens
@@ -119,21 +121,29 @@ class CrossAttention(nn.Module):
         v = F.linear(ctx, self.to_v.weight)
         if ip is None:
             return k, v, None, None
-        return (k, v, F.linear(ip, self.processor.to_k_ip.weight),
-                F.linear(ip, self.processor.to_v_ip.weight))
+        # the adapter weights may be fp32 trainable copies in a bf16 UNet
+        return (k, v, F.linear(ip, self.processor.to_k_ip.weight.to(ip.dtype)),
+                F.linear(ip, self.processor.to_v_ip.weight.to(ip.dtype)))
 
     def forward(self, x: torch.Tensor, norm: nn.LayerNorm,
                 context: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
                 ip_scale: float = 0.0, kv: Optional[KV] = None) -> torch.Tensor:
         out = self.to_out[0]
         if not self.is_cross:
-            return fused_ln_self_attention(
+            return fused_ln_self_attention_vjp(
                 x, norm.weight, norm.bias, self.to_q.weight, self.to_k.weight,
                 self.to_v.weight, out.weight, out.bias, self.heads, norm.eps)
-        k, v, ki, vi = kv if kv is not None else self.project_kv(context)
-        return fused_ln_cross_attention_kv(
-            x, k, v, norm.weight, norm.bias, self.to_q.weight, out.weight, out.bias,
-            self.heads, ki=ki, vi=vi, ip_scale=ip_scale, bias=bias, eps=norm.eps)
+        if kv is not None:
+            k, v, ki, vi = kv
+            return fused_ln_cross_attention_kv(
+                x, k, v, norm.weight, norm.bias, self.to_q.weight, out.weight, out.bias,
+                self.heads, ki=ki, vi=vi, ip_scale=ip_scale, bias=bias, eps=norm.eps)
+        ip = self.processor if self.processor is not None and context.shape[1] > self.num_ip_tokens else None
+        return fused_ln_cross_attention_vjp(
+            x, context, norm.weight, norm.bias, self.to_q.weight, self.to_k.weight, self.to_v.weight,
+            out.weight, out.bias, self.heads, wk_ip=None if ip is None else ip.to_k_ip.weight,
+            wv_ip=None if ip is None else ip.to_v_ip.weight, ip_scale=ip_scale,
+            num_ip_tokens=self.num_ip_tokens, bias=bias, eps=norm.eps)
 
 
 class GEGLU(nn.Module):
@@ -152,8 +162,8 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
         proj, out = self.net[0].proj, self.net[2]
-        return fused_ln_geglu_ff(x, norm.weight, norm.bias, proj.weight, proj.bias,
-                                 out.weight, out.bias, norm.eps)
+        return fused_ln_geglu_ff_vjp(x, norm.weight, norm.bias, proj.weight, proj.bias,
+                                     out.weight, out.bias, norm.eps)
 
 
 class BasicTransformerBlock(nn.Module):

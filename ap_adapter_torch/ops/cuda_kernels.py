@@ -19,14 +19,14 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, List, Sequence
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ap_adapter_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -34,6 +34,12 @@ _SIGNATURES = {
     "apk_fused_ln_cross_attention_kv": [_P] * 8 + [_I, _P, _P, _P, _I, _F, _P, _P, _P]
     + [_I] * 4 + [_F, _P],
     "apk_fused_ln_geglu_ff": [_P] * 9 + [_I] * 4 + [_F, _P],
+    "apk_fused_ln_cross_attention": [_P, _P, _I, _I, _I] + [_P] * 9 + [_F] + [_P] * 8
+    + [_I] * 4 + [_F, _P],
+    "apk_fused_ln_self_attention_bwd_dx": [_P] * 19 + [_I] * 4 + [_F, _P],
+    "apk_fused_ln_cross_attention_bwd": [_P, _P, _P, _I, _I, _I] + [_P] * 8 + [_F] + [_P] * 14
+    + [_I] * 4 + [_F, _P],
+    "apk_fused_ln_geglu_ff_bwd_dx": [_P] * 11 + [_I] * 4 + [_F, _P],
 }
 
 # Launch counts per op, incremented by each wrapper right after its kernels
@@ -42,6 +48,10 @@ LAUNCHES: Dict[str, int] = {
     "fused_ln_self_attention": 0,
     "fused_ln_cross_attention_kv": 0,
     "fused_ln_geglu_ff": 0,
+    "fused_ln_cross_attention": 0,
+    "fused_ln_self_attention_bwd_dx": 0,
+    "fused_ln_cross_attention_bwd": 0,
+    "fused_ln_geglu_ff_bwd_dx": 0,
 }
 
 _lock = threading.Lock()
@@ -73,20 +83,40 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile ``csrc/*.cu`` into the shared library if it is not built yet.
-    The compiler's output (``-Xptxas -v``: registers, shared memory, spills)
-    is kept beside the library as ``nvcc.log``."""
+    """Compile ``csrc/*.cu`` into the shared library if it is not built yet:
+    one ``nvcc -c`` per source, all started together, then one link. The
+    compilers' output (``-Xptxas -v``: registers, shared memory, spills) is
+    kept beside the library as ``nvcc.log``."""
 
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "nvcc.log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                                text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        stdout, stderr = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{stderr[-4000:]}")
+    if not failed:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(f"link ({res.returncode}):\n{res.stderr[-4000:]}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    (BUILD_DIR / "nvcc.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)
     return out
 
@@ -121,6 +151,31 @@ def launch(op: str, *args) -> None:
 
 def ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def check_no_grad(op: str, **tensors: torch.Tensor | None) -> None:
+    """Raise when autograd would need a gradient through this raw op: its
+    kernel writes into fresh buffers and records no graph, so a caller that
+    differentiates must go through the op's ``torch.autograd.Function``."""
+
+    if not torch.is_grad_enabled():
+        return
+    needs = [name for name, t in tensors.items() if t is not None and t.requires_grad]
+    if needs:
+        raise RuntimeError(f"{op}: operands {needs} require grad under grad mode; the raw op records "
+                           f"no graph: call {op}_vjp (its autograd Function) instead")
+
+
+def plain_vjp(fn: Callable, args: Sequence, needs: Sequence[bool], grad: torch.Tensor) -> List:
+    """Gradients of ``fn(*args)`` against ``grad`` for the tensor arguments
+    flagged in ``needs`` (None elsewhere), by autograd over a recomputation
+    with ``fn``, a plain PyTorch version."""
+
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_(bool(n)) if torch.is_tensor(a) else a for a, n in zip(args, needs)]
+        wanted = [leaf for leaf, n in zip(leaves, needs) if n]
+        grads = iter(torch.autograd.grad(fn(*leaves), wanted, grad, allow_unused=True))
+    return [next(grads) if n else None for n in needs]
 
 
 def check_contiguous(op: str, **tensors: torch.Tensor | None) -> None:

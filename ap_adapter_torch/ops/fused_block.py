@@ -1,6 +1,7 @@
-"""K1: fused pre-LN self-attention block, ``x + Wo·MHA(LN(x)Wq, LN(x)Wk, LN(x)Wv) + bo``.
+"""K1: fused pre-LN self-attention block, ``x + Wo·MHA(LN(x)Wq, LN(x)Wk, LN(x)Wv) + bo``,
+and K7, its input gradient.
 
-Replaces ``ap_adapter_tpu/ops/pallas_fused_block.py::fused_ln_self_attention``
+K1 replaces ``ap_adapter_tpu/ops/pallas_fused_block.py::fused_ln_self_attention``
 (the TPU kernel and its ``_kernel_pipe``/``_kernel_t``/``_kernel_kt``
 reorderings compute this one function). It runs at every UNet
 self-attention site: attn1 of every transformer block and attn2 of the
@@ -12,14 +13,23 @@ normalised rows rounded to bf16 on their way into shared memory, the three
 weight matrices as three grid slices), a streamed online-softmax attention
 (one block per 64 queries x head x batch, K/V tiles of 64 keys), and an out
 GEMM with bias and residual in its epilogue. What bounds it on an H100: at
-S <= 1000 and C <= 640 it is latency- and shared-memory-bound, not HBM- or
+S <= 1024 and C <= 640 it is latency- and shared-memory-bound, not HBM- or
 tensor-core-bound; q/k/v and the attention output make one round trip
 through device memory (the TPU kernel kept them in VMEM), which later work
 can remove by fusing the projections into the attention block.
 
+K7 replaces ``pallas_fused_block.py::fused_ln_self_attention_bwd_dx``
+(``csrc/train_blocks.cu``, ``apk_fused_ln_self_attention_bwd_dx``): q/k/v
+recomputed by the LN+QKV GEMM, ``gattn = g·Wo``, a dq pass per query tile
+(row log-sum-exp, D = rowsum(P·dP), dq) and a dk/dv pass per key tile over
+all query tiles, ``gxn = dq·Wq + dk·Wk + dv·Wv`` in fp32, and the LayerNorm
+backward with the residual per row. It is bound by shared-memory traffic
+and its eight launches, like K1.
+
 The softmax is max-subtracted (the TPU kernel's is clamp-50 and max-free;
-the two agree to fp32 rounding for logits in (-86, 50)). The plain version
-follows the JAX ``_xla_reference``.
+the two agree to fp32 rounding for logits in (-86, 50)); K7 recomputes the
+probabilities as exp(s - lse) of the same logits. The plain versions follow
+the JAX ``_xla_reference`` and autograd over it.
 """
 
 from __future__ import annotations
@@ -46,17 +56,23 @@ def fused_ln_self_attention_plain(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads: int,
     return x + F.linear(attn, wo, bo).to(x.dtype)
 
 
+def _check_weights(op: str, c: int, **weights) -> None:
+    for name, w in weights.items():
+        if w.shape != (c, c):
+            raise ValueError(f"{op}: {name} must be [{c}, {c}], got {tuple(w.shape)}")
+
+
 def fused_ln_self_attention(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads: int,
                             eps: float = 1e-5) -> torch.Tensor:
-    """K1 on a CUDA tensor (bf16), the plain version on a CPU tensor."""
+    """K1 on a CUDA tensor (bf16), the plain version on a CPU tensor. Records
+    no autograd graph: differentiable callers use ``fused_ln_self_attention_vjp``."""
 
     op = "fused_ln_self_attention"
     b, s, c = x.shape
-    for name, w in (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)):
-        if w.shape != (c, c):
-            raise ValueError(f"{op}: {name} must be [{c}, {c}], got {tuple(w.shape)}")
+    _check_weights(op, c, wq=wq, wk=wk, wv=wv, wo=wo)
     operands = dict(x=x, ln_w=ln_w, ln_b=ln_b, wq=wq, wk=wk, wv=wv, wo=wo, bo=bo)
     ck.check_contiguous(op, **operands)
+    ck.check_no_grad(op, **operands)
     if x.device.type == "cpu":
         return fused_ln_self_attention_plain(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads, eps)
     ck.check_heads(op, c, heads)
@@ -66,3 +82,73 @@ def fused_ln_self_attention(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads: int,
               wv.data_ptr(), wo.data_ptr(), bo.data_ptr(), q.data_ptr(), k.data_ptr(),
               v.data_ptr(), attn.data_ptr(), out.data_ptr(), b, s, c, heads, eps)
     return out
+
+
+def fused_ln_self_attention_bwd_dx_plain(x, g, ln_w, ln_b, wq, wk, wv, wo, heads: int,
+                                         eps: float = 1e-5) -> torch.Tensor:
+    """Plain version of K7: dx of K1's plain version for the output gradient g."""
+
+    bo = wo.new_zeros(wo.shape[0])
+    return ck.plain_vjp(lambda *a: fused_ln_self_attention_plain(*a, heads, eps),
+                        (x, ln_w, ln_b, wq, wk, wv, wo, bo), (True,) + (False,) * 7, g)[0]
+
+
+def fused_ln_self_attention_bwd_dx(x, g, ln_w, ln_b, wq, wk, wv, wo, heads: int,
+                                   eps: float = 1e-5) -> torch.Tensor:
+    """K7 on a CUDA tensor (bf16 x and g), the plain version on a CPU tensor."""
+
+    op = "fused_ln_self_attention_bwd_dx"
+    b, s, c = x.shape
+    if g.shape != x.shape:
+        raise ValueError(f"{op}: g must be {tuple(x.shape)}, got {tuple(g.shape)}")
+    _check_weights(op, c, wq=wq, wk=wk, wv=wv, wo=wo)
+    operands = dict(x=x, g=g, ln_w=ln_w, ln_b=ln_b, wq=wq, wk=wk, wv=wv, wo=wo)
+    ck.check_contiguous(op, **operands)
+    ck.check_no_grad(op, **operands)
+    if x.device.type == "cpu":
+        return fused_ln_self_attention_bwd_dx_plain(x, g, ln_w, ln_b, wq, wk, wv, wo, heads, eps)
+    ck.check_heads(op, c, heads)
+    ck.check_operands(op, x, **operands)
+    q, k, v, gattn, dq, dk, dv, dx = (torch.empty_like(x) for _ in range(8))
+    lse, dsum = (x.new_empty(b, heads, s, dtype=torch.float32) for _ in range(2))
+    gxn = x.new_empty(b, s, c, dtype=torch.float32)
+    ck.launch(op, x.data_ptr(), g.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wq.data_ptr(),
+              wk.data_ptr(), wv.data_ptr(), wo.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              gattn.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+              dsum.data_ptr(), gxn.data_ptr(), dx.data_ptr(), b, s, c, heads, eps)
+    return dx
+
+
+class _FusedLnSelfAttention(torch.autograd.Function):
+    """Forward K1, backward K7 for dx; any other input that needs a gradient
+    gets it from autograd over the plain version, recomputed (in adapter
+    training every weight here is frozen, so only K7 runs)."""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, wq, wk, wv, wo, bo, heads, eps):
+        ctx.save_for_backward(x, ln_w, ln_b, wq, wk, wv, wo, bo)
+        ctx.heads, ctx.eps = heads, eps
+        return fused_ln_self_attention(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:8]
+        g = g.contiguous()
+        grads = [None] * 8
+        if needs[0]:
+            grads[0] = fused_ln_self_attention_bwd_dx(saved[0], g, *saved[1:7], ctx.heads, ctx.eps)
+        if any(needs[1:]):
+            rest = ck.plain_vjp(lambda *a: fused_ln_self_attention_plain(*a, ctx.heads, ctx.eps),
+                                saved, (False,) + tuple(needs[1:]), g)
+            grads[1:] = rest[1:]
+        return (*grads, None, None)
+
+
+def fused_ln_self_attention_vjp(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads: int,
+                                eps: float = 1e-5) -> torch.Tensor:
+    """K1 as a differentiable op (the JAX ``fused_ln_self_attention_vjp``)."""
+
+    if not torch.is_grad_enabled():   # inference: the raw op, no autograd node
+        return fused_ln_self_attention(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads, eps)
+    return _FusedLnSelfAttention.apply(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads, eps)

@@ -1,11 +1,14 @@
-"""K2: fused pre-LN cross-attention over precomputed K/V,
-``x + Wo·[softmax(q·kᵀ + bias)·v + s·softmax(q·k_ipᵀ)·v_ip] + bo``, ``q = LN(x)Wq``.
+"""Fused pre-LN cross-attention,
+``x + Wo·[softmax(q·kᵀ + bias)·v + s·softmax(q·k_ipᵀ)·v_ip] + bo``, ``q = LN(x)Wq``:
+K2 over precomputed K/V, K4 projecting them from the context, and K8, K4's
+backward.
 
-Replaces ``ap_adapter_tpu/ops/pallas_fused_cross.py::fused_ln_cross_attention_kv``
-(``_kernel_kv``). It runs at every UNet cross-attention site: the GPT-2 +
-AudioMAE stream with the adapter's second K/V set, and the T5 stream with
-its padding bias. The conditioning K/V are projected once per generate
-(``models/hoist.py``) and arrive in the natural ``[B, Sk, heads*d]`` layout.
+K2 replaces ``ap_adapter_tpu/ops/pallas_fused_cross.py::fused_ln_cross_attention_kv``
+(``_kernel_kv``). It runs at every UNet cross-attention site of the edit
+path: the GPT-2 + AudioMAE stream with the adapter's second K/V set, and the
+T5 stream with its padding bias. The conditioning K/V are projected once per
+generate (``models/hoist.py``) and arrive in the natural ``[B, Sk, heads*d]``
+layout.
 
 Kernel (``csrc/fused_blocks.cu``, ``apk_fused_ln_cross_attention_kv``): an
 LN+Q GEMM, the streamed online-softmax attention run over the text K/V (with
@@ -14,6 +17,25 @@ the fp32 key bias) and then over the adapter K/V, combined as
 bias and residual in its epilogue. Contexts are short (8 + 128 or 64 keys),
 so on an H100 the cost is the two [S, C]x[C, C] projections and the launch
 latency; the attention itself is one key tile per set.
+
+K4 replaces ``pallas_fused_cross.py::fused_ln_cross_attention`` (``_kernel``):
+the cross site when K/V are not hoisted, as in training. The kernel
+(``csrc/train_blocks.cu``, ``apk_fused_ln_cross_attention``) projects the
+text K/V from the first ``num_ip_tokens`` context rows and the adapter K/V
+from the rest with the repo's GEMM routine (the rows gathered from the
+strided context in place), then runs K2's chain. The projections are
+[B·Sk, Dc]x[Dc, C] with Dc = 768 or 1024 and Sk up to 520; at pool 1 they
+are as large as the query projection.
+
+K8 replaces ``pallas_fused_cross.py::fused_ln_cross_attention_bwd``
+(``apk_fused_ln_cross_attention_bwd``): the projections recomputed,
+``gattn = g·Wo``, a dq pass per query tile over both key sets (the adapter's
+with its share ``s·gattn`` of the gradient), a dk/dv pass per adapter key
+tile over every query tile, which gives the per-position ``dk_ip``/``dv_ip``
+in fp32, then ``gxn = dq·Wq`` and the LayerNorm backward. The text branch
+needs only dq, never dk/dv. The adapter weight gradients
+``dW = dk_ipᵀ·ctx_ip`` are one ``torch.matmul`` outside the kernel, as the
+JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -50,12 +72,19 @@ def fused_ln_cross_attention_kv_plain(
     return x + F.linear(out.reshape(b, s, c), wo, bo).to(x.dtype)
 
 
+def _check_wq_wo(op: str, c: int, wq, wo) -> None:
+    if wq.shape != (c, c) or wo.shape != (c, c):
+        raise ValueError(f"{op}: wq/wo must be [{c}, {c}]")
+
+
 def fused_ln_cross_attention_kv(
     x, k, v, ln_w, ln_b, wq, wo, bo, heads: int, *,
     ki: Optional[torch.Tensor] = None, vi: Optional[torch.Tensor] = None,
     ip_scale: float = 0.0, bias: Optional[torch.Tensor] = None, eps: float = 1e-5,
 ) -> torch.Tensor:
-    """K2 on a CUDA tensor (bf16; ``bias`` fp32), the plain version on a CPU tensor."""
+    """K2 on a CUDA tensor (bf16; ``bias`` fp32), the plain version on a CPU
+    tensor. Inference only: it records no autograd graph and has no backward
+    (the JAX package's K2 has none either)."""
 
     op = "fused_ln_cross_attention_kv"
     b, s, c = x.shape
@@ -69,10 +98,10 @@ def fused_ln_cross_attention_kv(
         raise ValueError(f"{op}: ki/vi must be [{b}, Sk_ip>0, {c}]")
     if bias is not None and bias.shape != (b, sk):
         raise ValueError(f"{op}: bias must be [{b}, {sk}], got {tuple(bias.shape)}")
-    if wq.shape != (c, c) or wo.shape != (c, c):
-        raise ValueError(f"{op}: wq/wo must be [{c}, {c}]")
+    _check_wq_wo(op, c, wq, wo)
     operands = dict(x=x, k=k, v=v, ln_w=ln_w, ln_b=ln_b, wq=wq, wo=wo, bo=bo, ki=ki, vi=vi, bias=bias)
     ck.check_contiguous(op, **operands)
+    ck.check_no_grad(op, **operands)
     if x.device.type == "cpu":
         return fused_ln_cross_attention_kv_plain(
             x, k, v, ln_w, ln_b, wq, wo, bo, heads, ki=ki, vi=vi, ip_scale=ip_scale,
@@ -85,3 +114,222 @@ def fused_ln_cross_attention_kv(
               sk_ip, float(ip_scale), q.data_ptr(), attn.data_ptr(), out.data_ptr(), b, s, c, heads,
               eps)
     return out
+
+
+# -- K4 and K8: the context-projecting form and its backward -------------------
+
+
+def _split_context(context, wk_ip, num_ip_tokens: int):
+    """(text rows, adapter rows or None) of ``context``."""
+
+    if wk_ip is None:
+        return context, None
+    return context[:, :num_ip_tokens], context[:, num_ip_tokens:]
+
+
+def fused_ln_cross_attention_plain(
+    x, context, ln_w, ln_b, wq, wk, wv, wo, bo, heads: int, *,
+    wk_ip=None, wv_ip=None, ip_scale: float = 0.0, num_ip_tokens: int = 8,
+    bias: Optional[torch.Tensor] = None, eps: float = 1e-5,
+) -> torch.Tensor:
+    """Plain PyTorch version of K4 (the JAX ``_xla_reference``): context
+    [B, Sk, Dc]; the adapter K/V (wk_ip/wv_ip [C, Dc], cast to the context's
+    dtype) come from the rows past ``num_ip_tokens``; bias [B, Sk_text]."""
+
+    text, ip = _split_context(context, wk_ip, num_ip_tokens)
+    k, v = F.linear(text, wk), F.linear(text, wv)
+    ki = vi = None
+    if ip is not None:
+        ki, vi = F.linear(ip, wk_ip.to(ip.dtype)), F.linear(ip, wv_ip.to(ip.dtype))
+    return fused_ln_cross_attention_kv_plain(x, k, v, ln_w, ln_b, wq, wo, bo, heads, ki=ki, vi=vi,
+                                             ip_scale=ip_scale, bias=bias, eps=eps)
+
+
+def _check_cross(op: str, x, context, wk, wv, wq, wo, wk_ip, wv_ip, num_ip_tokens: int, bias):
+    """-> (sk_text, sk_ip) after the shape checks K4 and K8 share."""
+
+    b, s, c = x.shape
+    if context.dim() != 3 or context.shape[0] != b:
+        raise ValueError(f"{op}: context must be [{b}, Sk, Dc], got {tuple(context.shape)}")
+    sk, dc = context.shape[1], context.shape[2]
+    if (wk_ip is None) != (wv_ip is None):
+        raise ValueError(f"{op}: wk_ip and wv_ip go together")
+    for name, w in (("wk", wk), ("wv", wv), ("wk_ip", wk_ip), ("wv_ip", wv_ip)):
+        if w is not None and w.shape != (c, dc):
+            raise ValueError(f"{op}: {name} must be [{c}, {dc}], got {tuple(w.shape)}")
+    _check_wq_wo(op, c, wq, wo)
+    sk_text, sk_ip = (sk, 0) if wk_ip is None else (num_ip_tokens, sk - num_ip_tokens)
+    if sk_text <= 0 or (wk_ip is not None and sk_ip <= 0):
+        raise ValueError(f"{op}: context of {sk} rows leaves no text or adapter keys "
+                         f"(num_ip_tokens={num_ip_tokens})")
+    if bias is not None and bias.shape != (b, sk_text):
+        raise ValueError(f"{op}: bias must be [{b}, {sk_text}], got {tuple(bias.shape)}")
+    return sk_text, sk_ip
+
+
+def _check_cuda_cross(op: str, x, context, heads: int, operands) -> None:
+    ck.check_heads(op, x.shape[-1], heads)
+    if context.shape[-1] % 32:
+        raise ValueError(f"{op}: kernel needs the context width % 32 == 0, got {context.shape[-1]}")
+    ck.check_operands(op, x, **operands)
+
+
+def fused_ln_cross_attention(
+    x, context, ln_w, ln_b, wq, wk, wv, wo, bo, heads: int, *,
+    wk_ip=None, wv_ip=None, ip_scale: float = 0.0, num_ip_tokens: int = 8,
+    bias: Optional[torch.Tensor] = None, eps: float = 1e-5,
+) -> torch.Tensor:
+    """K4 on a CUDA tensor (bf16 operands, ``bias`` fp32), the plain version
+    on a CPU tensor. Records no autograd graph: differentiable callers use
+    ``fused_ln_cross_attention_vjp``."""
+
+    op = "fused_ln_cross_attention"
+    b, s, c = x.shape
+    sk_text, sk_ip = _check_cross(op, x, context, wk, wv, wq, wo, wk_ip, wv_ip, num_ip_tokens, bias)
+    operands = dict(x=x, context=context, ln_w=ln_w, ln_b=ln_b, wq=wq, wk=wk, wv=wv, wo=wo, bo=bo,
+                    wk_ip=wk_ip, wv_ip=wv_ip, bias=bias)
+    ck.check_contiguous(op, **operands)
+    ck.check_no_grad(op, **operands)
+    if x.device.type == "cpu":
+        return fused_ln_cross_attention_plain(
+            x, context, ln_w, ln_b, wq, wk, wv, wo, bo, heads, wk_ip=wk_ip, wv_ip=wv_ip,
+            ip_scale=ip_scale, num_ip_tokens=num_ip_tokens, bias=bias, eps=eps)
+    _check_cuda_cross(op, x, context, heads, operands)
+    q, attn, out = (torch.empty_like(x) for _ in range(3))
+    k, v = (x.new_empty(b, sk_text, c) for _ in range(2))
+    ki = vi = None
+    if sk_ip:
+        ki, vi = (x.new_empty(b, sk_ip, c) for _ in range(2))
+    ck.launch(op, x.data_ptr(), context.data_ptr(), context.shape[1], context.shape[2], sk_text,
+              ln_w.data_ptr(), ln_b.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
+              ck.ptr(wk_ip), ck.ptr(wv_ip), wo.data_ptr(), bo.data_ptr(), float(ip_scale), ck.ptr(bias),
+              q.data_ptr(), k.data_ptr(), v.data_ptr(), ck.ptr(ki), ck.ptr(vi), attn.data_ptr(),
+              out.data_ptr(), b, s, c, heads, eps)
+    return out
+
+
+def fused_ln_cross_attention_bwd_plain(
+    x, g, context, ln_w, ln_b, wq, wk, wv, wo, heads: int, *,
+    wk_ip=None, wv_ip=None, ip_scale: float = 0.0, num_ip_tokens: int = 8,
+    bias: Optional[torch.Tensor] = None, eps: float = 1e-5,
+):
+    """Plain version of K8: (dx, dki, dvi) of K4's plain version for the
+    output gradient g; dki/dvi [B, Sk_ip, C] fp32 are the gradients of the
+    adapter's projected K/V (None without an adapter branch)."""
+
+    text, ip = _split_context(context, wk_ip, num_ip_tokens)
+    k, v = F.linear(text, wk), F.linear(text, wv)
+    bo = wo.new_zeros(wo.shape[0])
+    if ip is None:
+        fn = lambda x_: fused_ln_cross_attention_kv_plain(x_, k, v, ln_w, ln_b, wq, wo, bo, heads,
+                                                          bias=bias, eps=eps)
+        return ck.plain_vjp(fn, (x,), (True,), g)[0], None, None
+    ki, vi = F.linear(ip, wk_ip.to(ip.dtype)), F.linear(ip, wv_ip.to(ip.dtype))
+    fn = lambda x_, ki_, vi_: fused_ln_cross_attention_kv_plain(
+        x_, k, v, ln_w, ln_b, wq, wo, bo, heads, ki=ki_, vi=vi_, ip_scale=ip_scale, bias=bias, eps=eps)
+    dx, dki, dvi = ck.plain_vjp(fn, (x, ki, vi), (True, True, True), g)
+    return dx, dki.float(), dvi.float()
+
+
+def fused_ln_cross_attention_bwd(
+    x, g, context, ln_w, ln_b, wq, wk, wv, wo, heads: int, *,
+    wk_ip=None, wv_ip=None, ip_scale: float = 0.0, num_ip_tokens: int = 8,
+    bias: Optional[torch.Tensor] = None, eps: float = 1e-5,
+):
+    """K8 on a CUDA tensor (bf16 operands, ``bias`` fp32), the plain version
+    on a CPU tensor: (dx, dki, dvi)."""
+
+    op = "fused_ln_cross_attention_bwd"
+    b, s, c = x.shape
+    sk_text, sk_ip = _check_cross(op, x, context, wk, wv, wq, wo, wk_ip, wv_ip, num_ip_tokens, bias)
+    if g.shape != x.shape:
+        raise ValueError(f"{op}: g must be {tuple(x.shape)}, got {tuple(g.shape)}")
+    operands = dict(x=x, g=g, context=context, ln_w=ln_w, ln_b=ln_b, wq=wq, wk=wk, wv=wv, wo=wo,
+                    wk_ip=wk_ip, wv_ip=wv_ip, bias=bias)
+    ck.check_contiguous(op, **operands)
+    ck.check_no_grad(op, **operands)
+    if x.device.type == "cpu":
+        return fused_ln_cross_attention_bwd_plain(
+            x, g, context, ln_w, ln_b, wq, wk, wv, wo, heads, wk_ip=wk_ip, wv_ip=wv_ip,
+            ip_scale=ip_scale, num_ip_tokens=num_ip_tokens, bias=bias, eps=eps)
+    _check_cuda_cross(op, x, context, heads, operands)
+    q, gattn, dq, dx = (torch.empty_like(x) for _ in range(4))
+    k, v = (x.new_empty(b, sk_text, c) for _ in range(2))
+    lse, dsum = (x.new_empty(2, b, heads, s, dtype=torch.float32) for _ in range(2))
+    gxn = x.new_empty(b, s, c, dtype=torch.float32)
+    ki = vi = dki = dvi = None
+    if sk_ip:
+        ki, vi = (x.new_empty(b, sk_ip, c) for _ in range(2))
+        dki, dvi = (x.new_empty(b, sk_ip, c, dtype=torch.float32) for _ in range(2))
+    ck.launch(op, x.data_ptr(), g.data_ptr(), context.data_ptr(), context.shape[1], context.shape[2],
+              sk_text, ln_w.data_ptr(), ln_b.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
+              ck.ptr(wk_ip), ck.ptr(wv_ip), wo.data_ptr(), float(ip_scale), ck.ptr(bias), q.data_ptr(),
+              k.data_ptr(), v.data_ptr(), ck.ptr(ki), ck.ptr(vi), gattn.data_ptr(), dq.data_ptr(),
+              lse.data_ptr(), dsum.data_ptr(), gxn.data_ptr(), dx.data_ptr(), ck.ptr(dki), ck.ptr(dvi),
+              b, s, c, heads, eps)
+    return dx, dki, dvi
+
+
+class _FusedLnCrossAttention(torch.autograd.Function):
+    """Forward K4, backward K8: dx, and the adapter weight gradients
+    ``dW_k_ip = dk_ipᵀ·ctx_ip`` / ``dW_v_ip`` in fp32 (returned in the
+    adapter weights' own dtype, fp32 in training). Any other input that
+    needs a gradient gets it from autograd over the plain version,
+    recomputed; the context is frozen input and gets none unless asked."""
+
+    @staticmethod
+    def forward(ctx, x, context, ln_w, ln_b, wq, wk, wv, wo, bo, wk_ip, wv_ip, bias,
+                heads, ip_scale, num_ip_tokens, eps):
+        ctx.save_for_backward(x, context, ln_w, ln_b, wq, wk, wv, wo, bo, wk_ip, wv_ip, bias)
+        ctx.args = (heads, ip_scale, num_ip_tokens, eps)
+        wki = None if wk_ip is None else wk_ip.to(x.dtype)
+        wvi = None if wv_ip is None else wv_ip.to(x.dtype)
+        return fused_ln_cross_attention(x, context, ln_w, ln_b, wq, wk, wv, wo, bo, heads, wk_ip=wki,
+                                        wv_ip=wvi, ip_scale=ip_scale, num_ip_tokens=num_ip_tokens,
+                                        bias=bias, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, context, ln_w, ln_b, wq, wk, wv, wo, bo, wk_ip, wv_ip, bias = saved = ctx.saved_tensors
+        heads, ip_scale, num_ip_tokens, eps = ctx.args
+        needs = ctx.needs_input_grad[:12]
+        g = g.contiguous()
+        grads = [None] * 12
+        if needs[0] or needs[9] or needs[10]:
+            wki = None if wk_ip is None else wk_ip.to(x.dtype)
+            wvi = None if wv_ip is None else wv_ip.to(x.dtype)
+            dx, dki, dvi = fused_ln_cross_attention_bwd(
+                x, g, context, ln_w, ln_b, wq, wk, wv, wo, heads, wk_ip=wki, wv_ip=wvi,
+                ip_scale=ip_scale, num_ip_tokens=num_ip_tokens, bias=bias, eps=eps)
+            grads[0] = dx if needs[0] else None
+            if wk_ip is not None:
+                ip = context[:, num_ip_tokens:].float()
+                if needs[9]:
+                    grads[9] = torch.einsum("bkc,bkd->cd", dki, ip).to(wk_ip.dtype)
+                if needs[10]:
+                    grads[10] = torch.einsum("bkc,bkd->cd", dvi, ip).to(wv_ip.dtype)
+        rest = [n if i not in (0, 9, 10) else False for i, n in enumerate(needs)]
+        if any(rest):
+            fn = lambda x_, c_, lw, lb, q_, k_, v_, o_, bo_, ki_, vi_, bias_: fused_ln_cross_attention_plain(
+                x_, c_, lw, lb, q_, k_, v_, o_, bo_, heads, wk_ip=ki_, wv_ip=vi_, ip_scale=ip_scale,
+                num_ip_tokens=num_ip_tokens, bias=bias_, eps=eps)
+            for i, gr in enumerate(ck.plain_vjp(fn, saved, rest, g)):
+                if rest[i]:
+                    grads[i] = gr
+        return (*grads, None, None, None, None)
+
+
+def fused_ln_cross_attention_vjp(
+    x, context, ln_w, ln_b, wq, wk, wv, wo, bo, heads: int, *,
+    wk_ip=None, wv_ip=None, ip_scale: float = 0.0, num_ip_tokens: int = 8,
+    bias: Optional[torch.Tensor] = None, eps: float = 1e-5,
+) -> torch.Tensor:
+    """K4 as a differentiable op (the JAX ``fused_ln_cross_attention_vjp``)."""
+
+    if not torch.is_grad_enabled():   # inference: the raw op (adapter weights in x's dtype), no autograd node
+        return fused_ln_cross_attention(
+            x, context, ln_w, ln_b, wq, wk, wv, wo, bo, heads,
+            wk_ip=None if wk_ip is None else wk_ip.to(x.dtype), wv_ip=None if wv_ip is None else wv_ip.to(x.dtype),
+            ip_scale=ip_scale, num_ip_tokens=num_ip_tokens, bias=bias, eps=eps)
+    return _FusedLnCrossAttention.apply(x, context, ln_w, ln_b, wq, wk, wv, wo, bo, wk_ip, wv_ip, bias,
+                                        heads, float(ip_scale), num_ip_tokens, eps)

@@ -1,8 +1,8 @@
 """K3: fused pre-LN GEGLU feed-forward, ``x + W2·(a ⊙ gelu_erf(g)) + b2`` with
-``[a‖g] = LN(x)W1 + b1``.
+``[a‖g] = LN(x)W1 + b1``, and K9, its input gradient.
 
-Replaces ``ap_adapter_tpu/ops/pallas_fused_ff.py::fused_ln_geglu_ff``. It runs
-at the norm3 + feed-forward of every UNet transformer block.
+K3 replaces ``ap_adapter_tpu/ops/pallas_fused_ff.py::fused_ln_geglu_ff``. It
+runs at the norm3 + feed-forward of every UNet transformer block.
 
 Kernel (``csrc/fused_blocks.cu``, ``apk_fused_ln_geglu_ff``): an LN+W1 GEMM
 whose blocks accumulate the value and the gate halves of one output tile
@@ -14,8 +14,17 @@ it well below the tensor-core peak, which is the first thing later work on
 this kernel should change. The [S, 4C] product makes one round trip through
 device memory.
 
-The TPU kernel used an Abramowitz-Stegun erf (error <= 1.5e-7); the CUDA
-kernel uses ``erff`` and the plain version the exact GELU.
+K9 replaces ``pallas_fused_ff.py::fused_ln_geglu_ff_bwd_dx``
+(``csrc/train_blocks.cu``, ``apk_fused_ln_geglu_ff_bwd_dx``), row-local like
+the forward: ``gh = g·W2`` (fp32), the LN+W1 GEMM recomputed with a GEGLU
+backward epilogue (exact-erf derivative ``Phi(g) + g·phi(g)``) writing
+``[gh·gelu(g) ‖ gh·a·gelu'(g)]`` in bf16, ``gxn = gy1·W1`` (K = 8C) in fp32,
+and the LayerNorm backward with the residual per row. The TPU ran its kernel
+only where the weights fit VMEM (not at C = 640); this one runs at every
+width. Three GEMMs of the forward's size, the same bounds as K3.
+
+The TPU kernels used an Abramowitz-Stegun erf (error <= 1.5e-7); the CUDA
+kernels use ``erff`` and the plain versions the exact GELU.
 """
 
 from __future__ import annotations
@@ -36,24 +45,102 @@ def fused_ln_geglu_ff_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5) ->
     return x + F.linear(y, w2, b2).to(x.dtype)
 
 
-def fused_ln_geglu_ff(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5) -> torch.Tensor:
-    """K3 on a CUDA tensor (bf16), the plain version on a CPU tensor."""
-
-    op = "fused_ln_geglu_ff"
-    b, s, c = x.shape
+def _check_shapes(op: str, x, w1, w2) -> int:
+    c = x.shape[-1]
     inner = w2.shape[1]
     if w1.shape != (2 * inner, c) or w2.shape != (c, inner):
         raise ValueError(f"{op}: w1 must be [2*inner, C], w2 [C, inner] "
                          f"(got x {tuple(x.shape)}, w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)})")
-    operands = dict(x=x, ln_w=ln_w, ln_b=ln_b, w1=w1, b1=b1, w2=w2, b2=b2)
-    ck.check_contiguous(op, **operands)
-    if x.device.type == "cpu":
-        return fused_ln_geglu_ff_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+    return inner
+
+
+def _check_widths(op: str, c: int, inner: int) -> None:
     if c % 64 or inner % 64:
         raise ValueError(f"{op}: kernel needs C % 64 == 0 and inner % 64 == 0 (C={c}, inner={inner})")
+
+
+def fused_ln_geglu_ff(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5) -> torch.Tensor:
+    """K3 on a CUDA tensor (bf16), the plain version on a CPU tensor. Records
+    no autograd graph: differentiable callers use ``fused_ln_geglu_ff_vjp``."""
+
+    op = "fused_ln_geglu_ff"
+    b, s, c = x.shape
+    inner = _check_shapes(op, x, w1, w2)
+    operands = dict(x=x, ln_w=ln_w, ln_b=ln_b, w1=w1, b1=b1, w2=w2, b2=b2)
+    ck.check_contiguous(op, **operands)
+    ck.check_no_grad(op, **operands)
+    if x.device.type == "cpu":
+        return fused_ln_geglu_ff_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+    _check_widths(op, c, inner)
     ck.check_operands(op, x, **operands)
     y = x.new_empty(b, s, inner)
     out = torch.empty_like(x)
     ck.launch(op, x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
               w2.data_ptr(), b2.data_ptr(), y.data_ptr(), out.data_ptr(), b, s, c, inner, eps)
     return out
+
+
+def fused_ln_geglu_ff_bwd_dx_plain(x, g, ln_w, ln_b, w1, b1, w2, eps: float = 1e-5) -> torch.Tensor:
+    """Plain version of K9: dx of K3's plain version for the output gradient g."""
+
+    b2 = w2.new_zeros(w2.shape[0])
+    return ck.plain_vjp(lambda *a: fused_ln_geglu_ff_plain(*a, eps),
+                        (x, ln_w, ln_b, w1, b1, w2, b2), (True,) + (False,) * 6, g)[0]
+
+
+def fused_ln_geglu_ff_bwd_dx(x, g, ln_w, ln_b, w1, b1, w2, eps: float = 1e-5) -> torch.Tensor:
+    """K9 on a CUDA tensor (bf16 x and g), the plain version on a CPU tensor."""
+
+    op = "fused_ln_geglu_ff_bwd_dx"
+    b, s, c = x.shape
+    inner = _check_shapes(op, x, w1, w2)
+    if g.shape != x.shape:
+        raise ValueError(f"{op}: g must be {tuple(x.shape)}, got {tuple(g.shape)}")
+    operands = dict(x=x, g=g, ln_w=ln_w, ln_b=ln_b, w1=w1, b1=b1, w2=w2)
+    ck.check_contiguous(op, **operands)
+    ck.check_no_grad(op, **operands)
+    if x.device.type == "cpu":
+        return fused_ln_geglu_ff_bwd_dx_plain(x, g, ln_w, ln_b, w1, b1, w2, eps)
+    _check_widths(op, c, inner)
+    ck.check_operands(op, x, **operands)
+    gh = x.new_empty(b, s, inner, dtype=torch.float32)
+    gy1 = x.new_empty(b, s, 2 * inner)
+    gxn = x.new_empty(b, s, c, dtype=torch.float32)
+    dx = torch.empty_like(x)
+    ck.launch(op, x.data_ptr(), g.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
+              b1.data_ptr(), w2.data_ptr(), gh.data_ptr(), gy1.data_ptr(), gxn.data_ptr(),
+              dx.data_ptr(), b, s, c, inner, eps)
+    return dx
+
+
+class _FusedLnGegluFF(torch.autograd.Function):
+    """Forward K3, backward K9 for dx; any other input that needs a gradient
+    gets it from autograd over the plain version, recomputed."""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps):
+        ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2, b2)
+        ctx.eps = eps
+        return fused_ln_geglu_ff(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:7]
+        g = g.contiguous()
+        grads = [None] * 7
+        if needs[0]:
+            grads[0] = fused_ln_geglu_ff_bwd_dx(saved[0], g, *saved[1:6], ctx.eps)
+        if any(needs[1:]):
+            rest = ck.plain_vjp(lambda *a: fused_ln_geglu_ff_plain(*a, ctx.eps), saved,
+                                (False,) + tuple(needs[1:]), g)
+            grads[1:] = rest[1:]
+        return (*grads, None)
+
+
+def fused_ln_geglu_ff_vjp(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5) -> torch.Tensor:
+    """K3 as a differentiable op (the JAX ``fused_ln_geglu_ff_vjp``)."""
+
+    if not torch.is_grad_enabled():   # inference: the raw op, no autograd node
+        return fused_ln_geglu_ff(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+    return _FusedLnGegluFF.apply(x, ln_w, ln_b, w1, b1, w2, b2, eps)

@@ -85,7 +85,7 @@ class PipelineModules(nn.Module):
         return self.unet.conv_in.weight.dtype
 
     @torch.no_grad()
-    def init_random(self, seed: int = 0, device="cpu", dtype: Optional[torch.dtype] = None
+    def init_random(self, seed: int = 0, device="cuda", dtype: Optional[torch.dtype] = None
                     ) -> "PipelineModules":
         """Random weights, drawn on ``device`` from a seeded ``torch.Generator``:
         ones for norm scales and the sos/eos embeddings, zeros for biases,
@@ -105,11 +105,10 @@ class PipelineModules(nn.Module):
                     p.normal_(0.0, 0.02, generator=gen)
         return self
 
-    def load_state_dicts(self, state_dicts: Mapping[str, Mapping[str, object]], device="cpu",
+    def load_state_dicts(self, state_dicts: Mapping[str, Mapping[str, object]], device="cuda",
                          dtype: Optional[torch.dtype] = None) -> "PipelineModules":
         """Load ``{submodel name: HF/diffusers state dict}`` (numpy arrays or
-        tensors) strictly; the VAE encoder's weights, which the decode-only VAE
-        does not hold, are skipped."""
+        tensors) strictly, the VAE's encoder and decoder both."""
 
         dtype = dtype or self.config.dtype
         for name in self.NAMES:
@@ -117,9 +116,6 @@ class PipelineModules(nn.Module):
             own = set(module.state_dict())
             sd = {k: torch.as_tensor(np.asarray(v)) for k, v in state_dicts[name].items()}
             extra = [k for k in sd if k not in own]
-            if name == "vae":
-                extra = [k for k in extra if not k.startswith(("encoder.", "quant_conv."))]
-                sd = {k: v for k, v in sd.items() if k in own}
             if extra:
                 raise KeyError(f"{name}: unexpected keys {extra[:5]}")
             module.load_state_dict(sd, strict=True, assign=True)
@@ -204,7 +200,7 @@ class AudioLDM2Pipeline:
         self.modules = modules
 
     @classmethod
-    def from_random(cls, config: PipelineConfig, seed: int = 0, device="cpu",
+    def from_random(cls, config: PipelineConfig, seed: int = 0, device="cuda",
                     dtype: Optional[torch.dtype] = None) -> "AudioLDM2Pipeline":
         return cls(config, PipelineModules(config).init_random(seed, device, dtype))
 

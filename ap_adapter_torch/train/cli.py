@@ -1,0 +1,120 @@
+"""Training CLI with the reference launchers' flags (train.sh / finetune.sh).
+
+    python -m ap_adapter_torch.train.cli \\
+        --train-manifest $DATA_DIR/manifest.json \\
+        --random-weights --no-validation \\
+        --output-dir $OUTPUT_DIR \\
+        --train-batch-size 8 --gradient-accumulation-steps 4 \\
+        --learning-rate 1e-4 --max-train-steps 35000
+
+``--checkpoint-dir`` names a directory of HF/diffusers state dicts, one
+``<submodel>.npz`` per submodel (clap, t5, gpt2, projection, audiomae, unet,
+vae, vocoder); ``--random-weights`` draws random weights from ``--seed``
+instead. Resume from a flat adapter checkpoint with
+``--resume-from-checkpoint``; without it the adapter starts as each site's
+copy of its frozen to_k/to_v. Runs on the card (``--device``, default
+``cuda``). Not ported yet, and refused: ``--remat``, ``--use-8bit-adam``,
+validation sampling (pass ``--no-validation``) and the tensorboard/wandb
+backends.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="AP-adapter finetuning (PyTorch)")
+    p.add_argument("--train-manifest", required=True, help="AudioSet-style JSON manifest")
+    p.add_argument("--data-root", default="")
+    p.add_argument("--checkpoint-dir", default="", help="directory of <submodel>.npz state dicts")
+    p.add_argument("--output-dir", default="ap_adapter_output")
+    p.add_argument("--train-batch-size", type=int, default=8)
+    p.add_argument("--dataloader-prefetch", type=int, default=2,
+                   help="background-thread prefetch depth (0 disables)")
+    p.add_argument("--gradient-accumulation-steps", type=int, default=4)
+    p.add_argument("--learning-rate", type=float, default=1e-4)
+    p.add_argument("--lr-scheduler", default="constant",
+                   choices=["constant", "constant_with_warmup", "linear", "cosine"])
+    p.add_argument("--lr-warmup-steps", type=int, default=500)
+    p.add_argument("--scale-lr", action="store_true")
+    p.add_argument("--adam-beta1", type=float, default=0.9)
+    p.add_argument("--adam-beta2", type=float, default=0.999)
+    p.add_argument("--adam-weight-decay", type=float, default=1e-2)
+    p.add_argument("--adam-epsilon", type=float, default=1e-8)
+    p.add_argument("--use-8bit-adam", action="store_true", help="not ported: refused")
+    p.add_argument("--max-grad-norm", type=float, default=1.0)
+    p.add_argument("--max-train-steps", type=int, default=35_000)
+    p.add_argument("--checkpointing-steps", type=int, default=3000)
+    p.add_argument("--validation-steps", type=int, default=3000)
+    p.add_argument("--duration", type=float, default=10.0)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--snr-gamma", type=float, default=None)
+    p.add_argument("--resume-from-checkpoint", default=None, help="flat adapter dict (.npz)")
+    p.add_argument("--random-weights", action="store_true", help="random base weights from --seed")
+    p.add_argument("--remat", action="store_true", help="not ported: refused")
+    p.add_argument("--num-validation-audio-files", type=int, default=3)
+    p.add_argument("--report-to", default="jsonl", choices=["jsonl", "tensorboard", "wandb"])
+    p.add_argument("--no-validation", action="store_true", help="disable validation sampling")
+    p.add_argument("--device", default="cuda")
+    return p
+
+
+def main(argv=None):
+    """Run the CLI at the full width of ``PipelineConfig()``. Returns the
+    final ``TrainState`` and the modules."""
+
+    args = build_parser().parse_args(argv)
+    for flag, on in (("--remat", args.remat), ("--use-8bit-adam", args.use_8bit_adam),
+                     ("validation sampling (pass --no-validation)", not args.no_validation),
+                     (f"--report-to {args.report_to}", args.report_to != "jsonl")):
+        if on:
+            raise NotImplementedError(f"{flag} is not ported to ap_adapter_torch yet")
+
+    import numpy as np
+
+    from ap_adapter_torch.adapter.params import import_flat_adapter, init_adapter_from_text_kv
+    from ap_adapter_torch.configs import PipelineConfig
+    from ap_adapter_torch.pipeline.pipeline import PipelineModules
+    from ap_adapter_torch.train.data import AudioSetDataset, DeviceCollate, data_loader, prefetch
+    from ap_adapter_torch.train.loop import train
+    from ap_adapter_torch.train.trainer import TrainConfig
+    from ap_adapter_torch.utils.checkpoint import load_flat_adapter
+
+    modules = PipelineModules(PipelineConfig())
+    if args.checkpoint_dir:
+        sds = {}
+        for name in PipelineModules.NAMES:
+            with np.load(os.path.join(args.checkpoint_dir, f"{name}.npz")) as f:
+                sds[name] = {k: f[k] for k in f.files}
+        modules.load_state_dicts(sds, device=args.device)
+    elif args.random_weights:
+        modules.init_random(args.seed, device=args.device)
+    else:
+        raise SystemExit("give --checkpoint-dir or --random-weights")
+    if args.resume_from_checkpoint:
+        import_flat_adapter(modules.unet, load_flat_adapter(args.resume_from_checkpoint))
+    else:
+        init_adapter_from_text_kv(modules.unet)
+
+    lr = args.learning_rate
+    if args.scale_lr:  # the reference multiplies by world size (1 here) and accumulation
+        lr *= args.gradient_accumulation_steps * args.train_batch_size
+    tc = TrainConfig(
+        learning_rate=lr, lr_scheduler=args.lr_scheduler, lr_warmup_steps=args.lr_warmup_steps,
+        adam_beta1=args.adam_beta1, adam_beta2=args.adam_beta2, adam_weight_decay=args.adam_weight_decay,
+        adam_epsilon=args.adam_epsilon, max_grad_norm=args.max_grad_norm,
+        gradient_accumulation_steps=args.gradient_accumulation_steps, max_train_steps=args.max_train_steps,
+        checkpointing_steps=args.checkpointing_steps, seed=args.seed, snr_gamma=args.snr_gamma)
+
+    dataset = AudioSetDataset(args.train_manifest, args.data_root, duration_s=args.duration, seed=args.seed)
+    collate = DeviceCollate(modules, duration_s=args.duration, seed=args.seed)
+    batches = data_loader(dataset, args.train_batch_size, collate, seed=args.seed)
+    if args.dataloader_prefetch > 0:
+        batches = prefetch(batches, depth=args.dataloader_prefetch)
+    return train(modules, batches, tc, args.output_dir), modules
+
+
+if __name__ == "__main__":
+    main()

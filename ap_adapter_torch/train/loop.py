@@ -1,0 +1,88 @@
+"""Training loop: optimizer steps, rotating checkpoints, resume, the flat
+adapter export and JSONL metrics.
+
+Counterpart of ``ap_adapter_tpu/train/loop.py`` on one device. ``step``
+counts optimizer steps (the reference's global_step); each takes
+``gradient_accumulation_steps`` batches from the loader.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Dict, Iterable, Optional
+
+import torch
+
+from ap_adapter_torch.adapter.params import export_flat_adapter
+from ap_adapter_torch.train.trainer import TrainConfig, make_optimizer, split_unet_params, train_step
+from ap_adapter_torch.utils.checkpoint import TrainCheckpointer, save_flat_adapter
+from ap_adapter_torch.utils.logging import MetricsLogger
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int                                    # optimizer steps taken
+    adapter: Dict[str, torch.nn.Parameter]       # flat key -> trainable fp32 parameter
+    optimizer: torch.optim.Optimizer
+    history: list                                # the metrics of this run's steps
+
+
+def step_generator(tc: TrainConfig, step: int, device) -> torch.Generator:
+    """The noise stream of one optimizer step, from (seed, step) alone, so a
+    resumed run draws what an uninterrupted one would."""
+
+    return torch.Generator(device=device).manual_seed(tc.seed * 1_000_003 + step)
+
+
+def train(modules, batches: Iterable, tc: TrainConfig, output_dir: str, max_steps: Optional[int] = None,
+          log_every: int = 50) -> TrainState:
+    """Finetune the adapter of ``modules`` on ``batches`` (collated batches on
+    the modules' device). Writes ``checkpoints/step_*.pt`` (rotating) and
+    the flat adapter ``pytorch_model.npz`` every ``checkpointing_steps`` and
+    at the last step, and ``metrics.jsonl``. A run restarted in the same
+    ``output_dir`` restores the newest checkpoint (adapter, optimizer, step)
+    and continues; the data order restarts, as the reference's does."""
+
+    os.makedirs(output_dir, exist_ok=True)
+    max_steps = max_steps or tc.max_train_steps
+    adapter = split_unet_params(modules.unet)
+    optimizer = make_optimizer(tc, adapter.values())
+    ckpt = TrainCheckpointer(os.path.join(output_dir, "checkpoints"))
+    step = 0
+    if ckpt.latest_step() is not None:
+        saved = ckpt.restore()
+        with torch.no_grad():
+            for k, p in adapter.items():
+                p.copy_(saved["adapter"][k])
+        optimizer.load_state_dict(saved["optimizer"])
+        step = saved["step"]
+
+    dev = modules.device
+    cuda = dev.type == "cuda"
+    logger = MetricsLogger(os.path.join(output_dir, "metrics.jsonl"))
+    history = []
+    it = iter(batches)
+    start = step
+    while step < max_steps:
+        micro = [next(it) for _ in range(tc.gradient_accumulation_steps)]
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        metrics = train_step(modules, tc, adapter, optimizer, step, micro, step_generator(tc, step + 1, dev))
+        step += 1
+        m = {"step": step, "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+             "lr": metrics["lr"], "seconds": time.perf_counter() - t0}
+        if cuda:
+            m["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+        history.append(m)
+        if step % log_every == 0 or step == start + 1 or step == max_steps:
+            logger.log(m)
+        if step % tc.checkpointing_steps == 0 or step == max_steps:
+            ckpt.save(step, {"step": step, "adapter": {k: p.detach().cpu() for k, p in adapter.items()},
+                             "optimizer": optimizer.state_dict()})
+            save_flat_adapter(os.path.join(output_dir, "pytorch_model.npz"), export_flat_adapter(modules.unet))
+    logger.close()
+    return TrainState(step, adapter, optimizer, history)

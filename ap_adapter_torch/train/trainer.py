@@ -1,0 +1,180 @@
+"""Adapter finetuning: the loss, the adapter-only gradient and the AdamW step.
+
+Counterpart of ``ap_adapter_tpu/train/trainer.py`` (the reference trainer,
+train_apadapter_v2.py:546-1044): VAE-encode the mel, add DDPM noise at
+random timesteps, run the UNet with adapter scale 1.0, take the MSE to the
+epsilon (or v) target, and step AdamW on the 64 adapter matrices only, after
+a clip of the global gradient norm at 1.0.
+
+Every UNet weight is frozen (``requires_grad`` False, the compute dtype)
+except the ``to_k_ip``/``to_v_ip`` matrices, which are fp32 like the Flax
+params and are cast to the compute dtype where the kernels use them; their
+AdamW moments are fp32 too. The backward runs through the fused ops'
+autograd Functions, whose backwards are the K7/K8/K9 kernels on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, Mapping, Optional, Sequence
+
+import torch
+
+from ap_adapter_torch.adapter.params import adapter_parameters
+from ap_adapter_torch.diffusion.ddim import add_noise, make_tables, velocity_target
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The reference's train.sh / argparse defaults: lr 1e-4 constant,
+    AdamW(0.9, 0.999, wd 1e-2, eps 1e-8), grad clip 1.0, effective batch 32
+    (8 x accumulation 4; the micro-batch size is the loader's)."""
+
+    learning_rate: float = 1e-4
+    # HF get_scheduler semantics; warmup counts optimizer steps
+    lr_scheduler: str = "constant"  # constant|constant_with_warmup|linear|cosine
+    lr_warmup_steps: int = 500
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_weight_decay: float = 1e-2
+    adam_epsilon: float = 1e-8
+    max_grad_norm: float = 1.0
+    gradient_accumulation_steps: int = 4
+    max_train_steps: int = 35_000
+    checkpointing_steps: int = 3000
+    seed: int = 42
+    snr_gamma: Optional[float] = None  # min-SNR weighting (off by default)
+
+
+def make_lr_schedule(tc: TrainConfig) -> Callable[[int], float]:
+    """lr as a function of the optimizer steps taken so far (optax's count):
+    the four HF schedules, with a linear warmup from 0 over ``lr_warmup_steps``
+    (except plain constant), then constant, linear to 0 at
+    ``max_train_steps``, or a half cosine to 0."""
+
+    lr, w, total = tc.learning_rate, tc.lr_warmup_steps, tc.max_train_steps
+    if tc.lr_scheduler == "constant":
+        return lambda count: lr
+    if tc.lr_scheduler not in ("constant_with_warmup", "linear", "cosine"):
+        raise ValueError(f"unknown lr_scheduler: {tc.lr_scheduler!r}")
+    span = max(total - w, 1)
+
+    def schedule(count: int) -> float:
+        if count < w:
+            return lr * min(count, max(w, 1)) / max(w, 1)
+        t = min(count - w, span) / span
+        if tc.lr_scheduler == "linear":
+            return lr * (1.0 - t)
+        if tc.lr_scheduler == "cosine":
+            return lr * 0.5 * (1.0 + math.cos(math.pi * t))
+        return lr
+
+    return schedule
+
+
+def split_unet_params(unet) -> Dict[str, torch.nn.Parameter]:
+    """Freeze every UNet weight and make the adapter matrices trainable fp32
+    parameters (in place). Returns {flat adapter key: parameter}."""
+
+    unet.requires_grad_(False)
+    adapter = adapter_parameters(unet)
+    for p in adapter.values():
+        p.data = p.data.float()
+        p.requires_grad_(True)
+    return adapter
+
+
+def make_optimizer(tc: TrainConfig, params) -> torch.optim.AdamW:
+    """AdamW over the adapter; ``optimizer_step`` sets the lr of each step."""
+
+    return torch.optim.AdamW(list(params), lr=tc.learning_rate, betas=(tc.adam_beta1, tc.adam_beta2),
+                             eps=tc.adam_epsilon, weight_decay=tc.adam_weight_decay)
+
+
+def sample_noise(modules, batch: Mapping[str, torch.Tensor], generator: torch.Generator) -> Dict:
+    """The loss's random inputs for one micro-batch, drawn from ``generator``
+    on the batch's device: the VAE posterior noise, the DDPM noise (both
+    latent-shaped, fp32) and the timesteps in [0, num_train_timesteps)."""
+
+    cfg = modules.config
+    mel = batch["mel"]
+    sf = cfg.vae.scale_factor
+    shape = (mel.shape[0], mel.shape[1] // sf, mel.shape[2] // sf, cfg.vae.latent_channels)
+    kw = dict(generator=generator, device=mel.device)
+    return {"vae_noise": torch.randn(shape, **kw), "noise": torch.randn(shape, **kw),
+            "timesteps": torch.randint(0, cfg.scheduler.num_train_timesteps, (mel.shape[0],), **kw)}
+
+
+def compute_loss(modules, tc: TrainConfig, batch: Mapping[str, torch.Tensor], *, vae_noise: torch.Tensor,
+                 noise: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+    """The reference objective for one micro-batch (fp32 scalar).
+
+    ``batch``: mel [B, T, F, 1], generated_prompt_embeds [B, 8 + n_audio, D0]
+    (GPT-2 ‖ pooled AudioMAE), prompt_embeds [B, S1, D1] (T5), attention_mask
+    [B, S1]."""
+
+    cfg = modules.config
+    tables = make_tables(cfg.scheduler)
+    dtype = modules.dtype
+    with torch.no_grad():
+        latents = modules.vae.encode(batch["mel"].to(dtype), vae_noise).float()
+    noisy = add_noise(tables, latents, noise, timesteps)
+    pred = modules.unet(noisy.to(dtype), timesteps.float(), batch["generated_prompt_embeds"],
+                        batch["prompt_embeds"], batch.get("attention_mask"), ip_scale=1.0).float()
+    if cfg.scheduler.prediction_type == "epsilon":
+        target = noise.float()
+    elif cfg.scheduler.prediction_type == "v_prediction":
+        target = velocity_target(tables, latents, noise, timesteps)
+    else:
+        raise ValueError(cfg.scheduler.prediction_type)
+    err = (pred - target).square()
+    if tc.snr_gamma is not None:
+        a = torch.as_tensor(tables.alphas_cumprod, device=timesteps.device)[timesteps.long()]
+        snr = a / (1.0 - a)
+        err = err * (torch.clamp(snr, max=tc.snr_gamma) / snr)[:, None, None, None]
+    return err.mean()
+
+
+@torch.no_grad()
+def optimizer_step(tc: TrainConfig, adapter: Mapping[str, torch.nn.Parameter], optimizer: torch.optim.Optimizer,
+                   count: int) -> Dict[str, torch.Tensor]:
+    """Clip the adapter's gradients (``.grad``) to global norm
+    ``max_grad_norm`` as optax does (scaled by max/‖g‖ only when ‖g‖ exceeds
+    it), then one AdamW step at the schedule's lr for ``count`` optimizer
+    steps taken so far. Returns the norm before the clip and the lr."""
+
+    grads = [p.grad for p in adapter.values()]
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    torch._foreach_mul_(grads, torch.clamp(tc.max_grad_norm / norm, max=1.0))
+    lr = make_lr_schedule(tc)(count)
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    optimizer.step()
+    return {"grad_norm": norm, "lr": lr}
+
+
+def train_step(modules, tc: TrainConfig, adapter: Mapping[str, torch.nn.Parameter],
+               optimizer: torch.optim.Optimizer, count: int, micro_batches: Sequence[Mapping],
+               generator: torch.Generator) -> Dict:
+    """One optimizer step over K micro-batches: the gradient is the mean of
+    the K micro-batch gradients, the reported loss the mean of their losses.
+    The random inputs come from ``generator`` (``compute_loss`` also takes
+    them as tensors, as the tests pass them)."""
+
+    for p in adapter.values():
+        p.grad = None
+    losses = []
+    for mb in micro_batches:
+        loss = compute_loss(modules, tc, mb, **sample_noise(modules, mb, generator))
+        loss.backward()
+        losses.append(loss.detach())
+    k = len(micro_batches)
+    for key, p in adapter.items():
+        if p.grad is None:
+            raise RuntimeError(f"adapter weight {key} got no gradient: the backward did not reach its site")
+        if k > 1:
+            p.grad.div_(k)
+    metrics = optimizer_step(tc, adapter, optimizer, count)
+    metrics["loss"] = torch.stack(losses).mean()
+    return metrics

@@ -3,29 +3,46 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Phases, each of which fails the run:
+Run from the root of a checkout. Phases, each of which fails the run and
+prints its seconds:
 
 1. the card: prints ``nvidia-smi --query-gpu=name,power.limit`` (exits
    non-zero without a CUDA device);
 2. build: compiles the hand-written kernels (``ap_adapter_torch/csrc``) with
-   nvcc into ``build/`` and prints the build time and the compiler's
-   register / spill report;
-3. kernels: K1, K2 (adapter on; T5 with its bias) and K3 at each main-path
+   nvcc into ``build/``, one process per source, and prints the build time
+   and the compiler's register / spill report;
+3. kernels: K1, K2 (adapter on; T5 with its bias) and K3 at each edit-path
    shape, B=2, bf16 inputs from a seeded generator: max abs and relative
    error against the plain PyTorch version (limit 2e-2 of max|plain|) and
    both times (CUDA events, median of 20 after warm-up);
-4. reference: one full-width UNet forward (hoisted K/V, a short latent) with
+4. training kernels: K4 (forward; adapter context 8 + 512 tokens, T5 with
+   its bias), K7, K8 (dx, dk_ip/dv_ip and the adapter weight gradients) and
+   K9 (dx) at the three training levels, B=8, against the plain version and
+   autograd over it (limits 2e-2 of max|plain| forward, 5e-2 gradients);
+5. reference: one full-width UNet forward (hoisted K/V, a short latent) with
    the kernels in bf16 against the plain path in fp32 on the CPU, same weights;
-5. slice: the full-width ``PipelineConfig()`` in bf16 with random weights
+6. edit slice: the full-width ``PipelineConfig()`` in bf16 with random weights
    (seed 0) serves 2 requests through ``AudioLDM2Pipeline.generate`` at batch
    1 with the timbre_transfer settings (ap_scale 0.5, pool 2/2, guidance 7.5,
    10 s, 50 DDIM steps); checks each waveform ([1, 160000], finite, not
    constant) and that the kernel launch counts moved by exactly one per
-   routed site per UNet forward; prints seconds and peak memory per request.
+   routed site per UNet forward; prints seconds and peak memory per request;
+7. training reference: the training loss and its adapter gradient at full
+   width on a 16x16 latent, B=2, no hoisting, with the bf16 kernels on the
+   card against the plain path in fp32 on the CPU (same weights, noise and
+   timesteps): loss within 5e-2 relative, gradient cosine >= 0.99 and norm
+   ratio in [0.95, 1.05];
+8. training slice: ``ap_adapter_torch.train.cli`` on 16 seeded synthetic
+   10 s wavs at full width, batch 8, accumulation 2, 3 optimizer steps:
+   finite losses and gradient norms, every adapter matrix moved and every
+   frozen weight bit-identical, the exported flat adapter reloads to the
+   trained tensors, and the launch counts are exactly (forward + backward)
+   per micro-step; prints each step's seconds and peak memory.
 
 Two lines before the last is a JSON object with one entry per kernel
-(``launches``: the count over the slice's requests; ``ms``/``plain_ms``: the
-sum over the main-path shapes and variants, each one listed under
+(``launches``: the count over its path's run, the edit requests for K1-K3
+and the training steps for K4 and K7-K9; ``ms``/``plain_ms``/``bound_ms``:
+the sum over the path's shapes and variants, each one listed under
 ``cases``), then the card's ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -41,9 +58,15 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 2e-2          # kernel vs plain, fraction of max|plain| (bf16 rounding points differ)
+GRAD_TOL = 5e-2     # backward kernels vs autograd over the plain version, fraction of max|plain|
 UNET_TOL = 5e-2     # full UNet, bf16 kernels vs fp32 plain, fraction of max|ref|
-SHAPES = [(1000, 256), (252, 384), (64, 640)]   # (S, C) of the three UNet levels, 8 heads
+LOSS_TOL = 5e-2     # training loss, bf16 kernels vs fp32 plain, relative
+SHAPES = [(1000, 256), (252, 384), (64, 640)]   # (S, C) of the three UNet levels at the edit path's B=2
+TRAIN_SHAPES = [(1024, 256), (256, 384), (64, 640)]   # the same levels of a 10 s training clip, B=8
+TRAIN_B = 8
 HEADS = 8
+PEAK_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
+PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 KERNELS = {
     "fused_ln_self_attention": ("ap_adapter_torch/csrc/fused_blocks.cu",
                                 "ap_adapter_tpu/ops/pallas_fused_block.py:508"),
@@ -51,7 +74,18 @@ KERNELS = {
                                     "ap_adapter_tpu/ops/pallas_fused_cross.py:288"),
     "fused_ln_geglu_ff": ("ap_adapter_torch/csrc/fused_blocks.cu",
                           "ap_adapter_tpu/ops/pallas_fused_ff.py:70"),
+    "fused_ln_cross_attention": ("ap_adapter_torch/csrc/train_blocks.cu",
+                                 "ap_adapter_tpu/ops/pallas_fused_cross.py:150"),
+    "fused_ln_self_attention_bwd_dx": ("ap_adapter_torch/csrc/train_blocks.cu",
+                                       "ap_adapter_tpu/ops/pallas_fused_block.py:740"),
+    "fused_ln_cross_attention_bwd": ("ap_adapter_torch/csrc/train_blocks.cu",
+                                     "ap_adapter_tpu/ops/pallas_fused_cross.py:517"),
+    "fused_ln_geglu_ff_bwd_dx": ("ap_adapter_torch/csrc/train_blocks.cu",
+                                 "ap_adapter_tpu/ops/pallas_fused_ff.py:175"),
 }
+EDIT_KERNELS = ("fused_ln_self_attention", "fused_ln_cross_attention_kv", "fused_ln_geglu_ff")
+TRAIN_KERNELS = ("fused_ln_cross_attention", "fused_ln_self_attention_bwd_dx", "fused_ln_cross_attention_bwd",
+                 "fused_ln_geglu_ff_bwd_dx")
 
 
 def log(msg: str) -> None:
@@ -73,6 +107,45 @@ def time_ms(fn, iters: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations over
+    the bf16 tensor-core peak and the bytes (each input read once, each
+    output written once) over the HBM rate."""
+
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def work(name: str, b: int, s: int, c: int, sk: int = 0, sk_ip: int = 0, dc: int = 0) -> dict:
+    """Operations and bytes of one call of kernel ``name`` on [b, s, c]
+    activations (sk/sk_ip text and adapter keys, dc the context width), as
+    the function needs them: K7-K9 count the forward recompute that their
+    TPU counterparts do too."""
+
+    m, mc = b * s, b * s * c
+    attn = 2 * b * s * c            # one [S, d] x [d, Sk] product per key, all heads
+    if name == "fused_ln_self_attention":          # QKV, QK^T + PV, out
+        return bound(8 * mc * c + 2 * attn * s, 2 * (2 * mc + 4 * c * c + 3 * c))
+    if name == "fused_ln_cross_attention_kv":      # Q, two key sets, out
+        return bound(4 * mc * c + 2 * attn * (sk + sk_ip),
+                     2 * (2 * mc + 2 * c * c + 2 * c + 2 * b * (sk + sk_ip) * c) + 4 * b * sk)
+    if name == "fused_ln_geglu_ff":                # W1 [C, 8C], W2 [4C, C]
+        return bound(24 * mc * c, 2 * (2 * mc + 12 * c * c + 11 * c))
+    proj = 2 * b * (sk + sk_ip) * dc * 2 * c       # the context K/V projections
+    ctx_bytes = 2 * (b * (sk + sk_ip) * dc + (4 if sk_ip else 2) * c * dc) + 4 * b * sk
+    if name == "fused_ln_cross_attention":
+        return bound(proj + 4 * mc * c + 2 * attn * (sk + sk_ip), ctx_bytes + 2 * (2 * mc + 2 * c * c + 3 * c))
+    if name == "fused_ln_self_attention_bwd_dx":   # QKV, gattn, 5 attention products, gxn
+        return bound(14 * mc * c + 5 * attn * s, 2 * (3 * mc + 4 * c * c + 2 * c))
+    if name == "fused_ln_cross_attention_bwd":     # proj, Q, gattn, text 3 and adapter 5 products, gxn
+        return bound(proj + 6 * mc * c + attn * (3 * sk + 5 * sk_ip),
+                     ctx_bytes + 2 * (3 * mc + 2 * c * c + 2 * c) + 2 * 4 * b * sk_ip * c)
+    if name == "fused_ln_geglu_ff_bwd_dx":         # gh, recomputed h, gxn
+        return bound(40 * mc * c, 2 * (3 * mc + 12 * c * c + 10 * c))
+    raise KeyError(name)
 
 
 def card_line() -> str:
@@ -110,7 +183,7 @@ def kernel_phase(device) -> dict:
     def r(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=device) * scale).to(torch.bfloat16)
 
-    results = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "cases": []} for name in KERNELS}
+    results = new_results(EDIT_KERNELS)
     for s, c in SHAPES:
         x = r(2, s, c)
         ln_w, ln_b = 1 + r(c, scale=0.1), r(c, scale=0.1)
@@ -124,40 +197,132 @@ def kernel_phase(device) -> dict:
         k_txt, v_txt, k_ip, v_ip = r(2, 8, c), r(2, 8, c), r(2, 128, c), r(2, 128, c)
         k_t5, v_t5 = r(2, 64, c), r(2, 64, c)
         cases = [
-            ("fused_ln_self_attention", "self",
+            ("fused_ln_self_attention", "self", {},
              lambda: fused_ln_self_attention(x, ln_w, ln_b, wq, wk, wv, wo, bo, HEADS),
              lambda: fused_ln_self_attention_plain(x, ln_w, ln_b, wq, wk, wv, wo, bo, HEADS)),
-            ("fused_ln_cross_attention_kv", "adapter",
+            ("fused_ln_cross_attention_kv", "adapter", dict(sk=8, sk_ip=128),
              lambda: fused_ln_cross_attention_kv(x, k_txt, v_txt, ln_w, ln_b, wq, wo, bo, HEADS,
                                                  ki=k_ip, vi=v_ip, ip_scale=0.5),
              lambda: fused_ln_cross_attention_kv_plain(x, k_txt, v_txt, ln_w, ln_b, wq, wo, bo, HEADS,
                                                        ki=k_ip, vi=v_ip, ip_scale=0.5)),
-            ("fused_ln_cross_attention_kv", "t5+bias",
+            ("fused_ln_cross_attention_kv", "t5+bias", dict(sk=64),
              lambda: fused_ln_cross_attention_kv(x, k_t5, v_t5, ln_w, ln_b, wq, wo, bo, HEADS, bias=t5_bias),
              lambda: fused_ln_cross_attention_kv_plain(x, k_t5, v_t5, ln_w, ln_b, wq, wo, bo, HEADS,
                                                        bias=t5_bias)),
-            ("fused_ln_geglu_ff", "geglu",
+            ("fused_ln_geglu_ff", "geglu", {},
              lambda: fused_ln_geglu_ff(x, ln_w, ln_b, w1, b1, w2, b2),
              lambda: fused_ln_geglu_ff_plain(x, ln_w, ln_b, w1, b1, w2, b2)),
         ]
-        for name, variant, kernel, plain in cases:
-            got, want = kernel(), plain()
-            torch.cuda.synchronize()
-            if got.shape != want.shape or not torch.isfinite(got).all():
-                raise RuntimeError(f"{name}/{variant} S={s} C={c}: bad output {tuple(got.shape)}")
-            err = (got.float() - want.float()).abs().max().item()
-            peak = want.float().abs().max().item()
-            ms, plain_ms = time_ms(kernel), time_ms(plain)
-            log(f"kernel {name:28s} {variant:8s} S={s:4d} C={c} d={c // HEADS}: max_abs_err={err:.4g} "
-                f"rel={err / peak:.4g} (limit {TOL}) ms={ms:.4f} plain_ms={plain_ms:.4f}")
-            if not err <= TOL * peak:
-                raise RuntimeError(f"{name}/{variant} S={s} C={c}: error {err} > {TOL} * {peak}")
-            res = results[name]
-            res["max_abs_err"] = max(res["max_abs_err"], err)
-            res["ms"] += ms
-            res["plain_ms"] += plain_ms
-            res["cases"].append({"variant": variant, "S": s, "C": c, "max_abs_err": err,
-                                 "rel_err": err / peak, "ms": ms, "plain_ms": plain_ms})
+        for name, variant, keys, kernel, plain in cases:
+            run_case(results, name, variant, (2, s, c), keys, kernel, plain, TOL)
+    return results
+
+
+def new_results(names) -> dict:
+    return {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "cases": []}
+            for name in names}
+
+
+def run_case(results, name, variant, shape, keys, kernel, plain, tol) -> None:
+    """Compare ``kernel()`` with ``plain()`` (a tensor or a tuple of them,
+    each within ``tol`` of its own max|plain|), time both, add the bound."""
+
+    import torch
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    errs = []
+    for a, w in zip(got, want):
+        if a.shape != w.shape or not torch.isfinite(a).all():
+            raise RuntimeError(f"{name}/{variant} {shape}: bad output {tuple(a.shape)}")
+        err = (a.float() - w.float()).abs().max().item()
+        errs.append((err, err / w.float().abs().max().item()))
+    err, rel = max(e for e, _ in errs), max(r for _, r in errs)
+    ms, plain_ms = time_ms(kernel), time_ms(plain)
+    b, s, c = shape
+    bd = work(name, b, s, c, **keys)
+    log(f"kernel {name:30s} {variant:8s} B={b} S={s:4d} C={c}: max_abs_err={err:.4g} rel={rel:.4g} "
+        f"(limit {tol}) ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bd['bound_ms']:.4f} ({bd['bound_by']})")
+    if not rel <= tol:
+        raise RuntimeError(f"{name}/{variant} {shape}: error {errs} over {tol} of max|plain|")
+    res = results[name]
+    res["max_abs_err"] = max(res["max_abs_err"], err)
+    res["ms"] += ms
+    res["plain_ms"] += plain_ms
+    res["bound_ms"] += bd["bound_ms"]
+    res["cases"].append({"variant": variant, "B": b, "S": s, "C": c, **keys, "max_abs_err": err, "rel_err": rel,
+                         "ms": ms, "plain_ms": plain_ms, **bd})
+
+
+def train_kernel_phase(device) -> dict:
+    """K4 forward and K7/K8/K9 (dx; K8 also dk_ip/dv_ip and the adapter
+    weight gradients) at the training levels, B=8, against the plain
+    versions and autograd over them."""
+
+    import torch
+
+    from ap_adapter_torch.ops.fused_block import (
+        fused_ln_self_attention_bwd_dx, fused_ln_self_attention_bwd_dx_plain)
+    from ap_adapter_torch.ops.fused_cross import (
+        fused_ln_cross_attention, fused_ln_cross_attention_bwd, fused_ln_cross_attention_bwd_plain,
+        fused_ln_cross_attention_plain)
+    from ap_adapter_torch.ops.fused_ff import fused_ln_geglu_ff_bwd_dx, fused_ln_geglu_ff_bwd_dx_plain
+
+    gen = torch.Generator(device=device).manual_seed(3)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+    b, sk_ip = TRAIN_B, 512            # pool 1: the most adapter keys
+    results = new_results(TRAIN_KERNELS)
+    for s, c in TRAIN_SHAPES:
+        x, gy = r(b, s, c), r(b, s, c)
+        ln_w, ln_b = 1 + r(c, scale=0.1), r(c, scale=0.1)
+        wq, wk, wv, wo = (r(c, c, scale=c ** -0.5) for _ in range(4))
+        bo = r(c, scale=0.1)
+        w1, b1 = r(8 * c, c, scale=c ** -0.5), r(8 * c, scale=0.1)
+        w2 = r(c, 4 * c, scale=(4 * c) ** -0.5)
+        ctx = r(b, 8 + sk_ip, 768)
+        wkc, wvc, wki, wvi = (r(c, 768, scale=768 ** -0.5) for _ in range(4))
+        t5 = r(b, 64, 1024)
+        wk5, wv5 = (r(c, 1024, scale=1024 ** -0.5) for _ in range(2))
+        bias = torch.zeros(b, 64, device=device)
+        bias[::2, 20:] = -10000.0
+        ad = dict(wk_ip=wki, wv_ip=wvi, ip_scale=1.0)
+        ip = ctx[:, 8:].float()
+
+        def with_dw(fn):
+            def run():
+                dx, dki, dvi = fn()
+                return (dx, dki, dvi, torch.einsum("bkc,bkd->cd", dki, ip), torch.einsum("bkc,bkd->cd", dvi, ip))
+            return run
+
+        cases = [
+            ("fused_ln_cross_attention", "adapter", dict(sk=8, sk_ip=sk_ip, dc=768), TOL,
+             lambda: fused_ln_cross_attention(x, ctx, ln_w, ln_b, wq, wkc, wvc, wo, bo, HEADS, **ad),
+             lambda: fused_ln_cross_attention_plain(x, ctx, ln_w, ln_b, wq, wkc, wvc, wo, bo, HEADS, **ad)),
+            ("fused_ln_cross_attention", "t5+bias", dict(sk=64, dc=1024), TOL,
+             lambda: fused_ln_cross_attention(x, t5, ln_w, ln_b, wq, wk5, wv5, wo, bo, HEADS, bias=bias),
+             lambda: fused_ln_cross_attention_plain(x, t5, ln_w, ln_b, wq, wk5, wv5, wo, bo, HEADS, bias=bias)),
+            ("fused_ln_self_attention_bwd_dx", "dx", {}, GRAD_TOL,
+             lambda: fused_ln_self_attention_bwd_dx(x, gy, ln_w, ln_b, wq, wk, wv, wo, HEADS),
+             lambda: fused_ln_self_attention_bwd_dx_plain(x, gy, ln_w, ln_b, wq, wk, wv, wo, HEADS)),
+            ("fused_ln_cross_attention_bwd", "adapter", dict(sk=8, sk_ip=sk_ip, dc=768), GRAD_TOL,
+             with_dw(lambda: fused_ln_cross_attention_bwd(x, gy, ctx, ln_w, ln_b, wq, wkc, wvc, wo, HEADS, **ad)),
+             with_dw(lambda: fused_ln_cross_attention_bwd_plain(x, gy, ctx, ln_w, ln_b, wq, wkc, wvc, wo,
+                                                                HEADS, **ad))),
+            ("fused_ln_cross_attention_bwd", "t5+bias", dict(sk=64, dc=1024), GRAD_TOL,
+             lambda: fused_ln_cross_attention_bwd(x, gy, t5, ln_w, ln_b, wq, wk5, wv5, wo, HEADS, bias=bias)[0],
+             lambda: fused_ln_cross_attention_bwd_plain(x, gy, t5, ln_w, ln_b, wq, wk5, wv5, wo, HEADS,
+                                                        bias=bias)[0]),
+            ("fused_ln_geglu_ff_bwd_dx", "dx", {}, GRAD_TOL,
+             lambda: fused_ln_geglu_ff_bwd_dx(x, gy, ln_w, ln_b, w1, b1, w2),
+             lambda: fused_ln_geglu_ff_bwd_dx_plain(x, gy, ln_w, ln_b, w1, b1, w2)),
+        ]
+        for name, variant, keys, tol, kernel, plain in cases:
+            run_case(results, name, variant, (b, s, c), keys, kernel, plain, tol)
     return results
 
 
@@ -174,6 +339,30 @@ def expected_launches(unet_config) -> dict:
     return {"fused_ln_self_attention": groups * blocks * (len(c.cross_attention_dims) + n_self),
             "fused_ln_cross_attention_kv": groups * blocks * n_cross,
             "fused_ln_geglu_ff": groups * blocks * len(c.cross_attention_dims)}
+
+
+def expected_train_launches(unet_config) -> dict:
+    """Kernel calls per training micro-step (one UNet forward and backward,
+    no hoisting): the forward routes cross sites to K4 instead of K2; the
+    backward reaches every sub-layer from the first adapter site on (the
+    frozen layers before it get no gradient), and runs K7, K8 or K9 there."""
+
+    c = unet_config
+    groups = (sum(c.down_block_has_attn) * c.layers_per_block + 1
+              + sum(c.up_block_has_attn) * (c.layers_per_block + 1))
+    group = []
+    for dim in c.cross_attention_dims:
+        kind = "self" if dim is None else "adapter" if dim == c.adapter_cross_attention_dim else "cross"
+        group += ["self", kind, "ff"] * c.transformer_layers_per_block
+    order = group * groups
+    reached = order[order.index("adapter"):]
+    fwd = {"fused_ln_self_attention": order.count("self"),
+           "fused_ln_cross_attention": len(order) - order.count("self") - order.count("ff"),
+           "fused_ln_geglu_ff": order.count("ff")}
+    bwd = {"fused_ln_self_attention_bwd_dx": reached.count("self"),
+           "fused_ln_cross_attention_bwd": len(reached) - reached.count("self") - reached.count("ff"),
+           "fused_ln_geglu_ff_bwd_dx": reached.count("ff")}
+    return {**fwd, **bwd}
 
 
 def reference_phase(modules, device) -> float:
@@ -229,7 +418,7 @@ def slice_phase(pipe, device, requests: int = 2) -> list:
     neg = make_text_batch(c, [task.negative_text_prompts[0]])
     fbank = np.random.default_rng(0).standard_normal((1, *c.audiomae.img_size)).astype(np.float32)
     per_forward = expected_launches(c.unet)
-    want = {k: v * task.num_inference_steps for k, v in per_forward.items()}
+    want = {k: per_forward.get(k, 0) * task.num_inference_steps for k in cuda_kernels.LAUNCHES}
     samples = int(task.audio_length_in_s * c.vocoder.sampling_rate)
 
     cuda_kernels.reset_launch_counts()
@@ -260,6 +449,161 @@ def slice_phase(pipe, device, requests: int = 2) -> list:
     return runs
 
 
+def train_reference_phase(modules, device) -> dict:
+    """The training loss and its adapter gradient at full width (16x16
+    latent, B=2, ip_scale 1.0, no hoisting): bf16 kernels on the card against
+    the plain path in fp32 on the CPU, with the same weights, noise and
+    timesteps."""
+
+    import copy
+    import types
+
+    import torch
+
+    from ap_adapter_torch.train.trainer import TrainConfig, compute_loss, split_unet_params
+
+    c = modules.config
+    g = torch.Generator().manual_seed(4)
+    mask = torch.ones(2, 64, dtype=torch.long)
+    mask[0, 12:] = 0
+    batch = {"mel": torch.randn(2, 64, c.mel.num_mel_bins, 1, generator=g) - 4.0,
+             "generated_prompt_embeds": torch.randn(2, 8 + 128, c.unet.adapter_cross_attention_dim, generator=g),
+             "prompt_embeds": torch.randn(2, 64, c.t5.d_model, generator=g), "attention_mask": mask}
+    lat = (2, 16, c.mel.num_mel_bins // c.vae.scale_factor, c.vae.latent_channels)
+    noise = {"vae_noise": torch.randn(lat, generator=g), "noise": torch.randn(lat, generator=g),
+             "timesteps": torch.tensor([120, 730])}
+    tc = TrainConfig()
+
+    def run(mods, dev):
+        adapter = split_unet_params(mods.unet)
+        loss = compute_loss(mods, tc, {k: v.to(dev) for k, v in batch.items()},
+                            **{k: v.to(dev) for k, v in noise.items()})
+        grads = torch.autograd.grad(loss, list(adapter.values()))
+        return loss.item(), torch.cat([gr.float().flatten().cpu() for gr in grads])
+
+    got_loss, got = run(modules, device)
+    torch.cuda.synchronize()
+    ref = types.SimpleNamespace(config=c, dtype=torch.float32,
+                                unet=copy.deepcopy(modules.unet).to("cpu", torch.float32),
+                                vae=copy.deepcopy(modules.vae).to("cpu", torch.float32))
+    want_loss, want = run(ref, "cpu")
+    del ref
+    rel = abs(got_loss - want_loss) / abs(want_loss)
+    cos = torch.nn.functional.cosine_similarity(got.double(), want.double(), dim=0).item()
+    ratio = (got.norm() / want.norm()).item()
+    log(f"training reference: loss {got_loss:.6g} (card, bf16 kernels) vs {want_loss:.6g} (cpu fp32 plain), "
+        f"rel {rel:.4g} (limit {LOSS_TOL}); adapter gradient ({got.numel()} values) cosine {cos:.6f} "
+        f"(limit 0.99), norm ratio {ratio:.6f} (limit [0.95, 1.05]), |g| {want.norm().item():.4g}")
+    if not (rel <= LOSS_TOL and cos >= 0.99 and 0.95 <= ratio <= 1.05):
+        raise RuntimeError("training reference check failed")
+    return {"loss": got_loss, "ref_loss": want_loss, "loss_rel_err": rel, "grad_cosine": cos,
+            "grad_norm_ratio": ratio}
+
+
+def write_wavs(directory: str, n: int = 16, seconds: float = 10.0, sr: int = 16_000) -> str:
+    """n seeded synthetic clips (a few partials with vibrato and noise) and
+    their AudioSet-style manifest; returns the manifest's path."""
+
+    import numpy as np
+
+    from ap_adapter_torch.audio.io import save_wav
+
+    os.makedirs(directory, exist_ok=True)
+    rng = np.random.default_rng(5)
+    t = np.arange(int(seconds * sr)) / sr
+    labels = ["violin", "piano", "acoustic guitar", "flute", "drum kit", "cello", "trumpet", "organ"]
+    items = []
+    for i in range(n):
+        f0 = rng.uniform(110, 880)
+        wav = sum(rng.uniform(0.1, 0.4) / k * np.sin(2 * np.pi * k * f0 * t + 0.3 * np.sin(2 * np.pi * 5 * t))
+                  for k in range(1, 5)) + 0.01 * rng.standard_normal(t.size)
+        path = os.path.join(directory, f"clip_{i:02d}.wav")
+        save_wav(path, wav.astype(np.float32), sr)
+        items.append({"wav": path, "labels": labels[i % len(labels)]})
+    manifest = os.path.join(directory, "manifest.json")
+    with open(manifest, "w") as f:
+        json.dump({"data": items}, f)
+    return manifest
+
+
+def train_slice_phase(device, steps: int = 3, accum: int = 2) -> dict:
+    """Adapter training through the CLI at full width; checks what moved."""
+
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ap_adapter_torch.adapter.params import adapter_parameters, import_flat_adapter, init_adapter_from_text_kv
+    from ap_adapter_torch.configs import PipelineConfig
+    from ap_adapter_torch.ops import cuda_kernels
+    from ap_adapter_torch.pipeline.pipeline import PipelineModules
+    from ap_adapter_torch.train import cli
+    from ap_adapter_torch.train.trainer import split_unet_params
+    from ap_adapter_torch.utils.checkpoint import load_flat_adapter
+
+    work_dir = os.path.join(ROOT, "build", "train_smoke")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    manifest = write_wavs(os.path.join(work_dir, "data"))
+    out = os.path.join(work_dir, "out")
+    config = PipelineConfig()
+    per_micro = expected_train_launches(config.unet)
+    want = {k: 0 for k in cuda_kernels.LAUNCHES}
+    want.update({k: v * steps * accum for k, v in per_micro.items()})
+
+    cuda_kernels.reset_launch_counts()
+    state, trained = cli.main(["--train-manifest", manifest, "--random-weights", "--no-validation",
+                               "--train-batch-size", str(TRAIN_B), "--gradient-accumulation-steps", str(accum),
+                               "--max-train-steps", str(steps), "--output-dir", out])
+    torch.cuda.synchronize()
+    moved = dict(cuda_kernels.LAUNCHES)
+    for m in state.history:
+        log(f"train step {m['step']}: {m['seconds']:.3f} s, max_memory_allocated="
+            f"{m.get('max_memory_allocated', 0) / 2**30:.3f} GiB, loss {m['loss']:.6g}, grad_norm {m['grad_norm']:.6g}")
+    log(f"training launches over {steps} steps x {accum} micro-steps: {moved} (per micro-step {per_micro})")
+    if state.step != steps or len(state.history) != steps:
+        raise RuntimeError(f"training stopped at step {state.step}")
+    if not all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) and m["grad_norm"] > 0
+               for m in state.history):
+        raise RuntimeError(f"non-finite or zero training metrics: {state.history}")
+    if moved != want:
+        raise RuntimeError(f"training launch counts {moved} != expected {want}")
+    # weight decay moves every adapter matrix, so a moved weight does not show
+    # that its site got a gradient; the last step's (clipped) gradient does
+    grad_norms = {k: torch.linalg.vector_norm(p.grad).item() for k, p in state.adapter.items()}
+    if not all(np.isfinite(n) and n > 0 for n in grad_norms.values()):
+        raise RuntimeError(f"adapter matrices without a gradient: {grad_norms}")
+
+    # the same initial weights, drawn again: only the adapter may have moved
+    fresh = PipelineModules(config).init_random(42, device=device)
+    init_adapter_from_text_kv(fresh.unet)
+    keys = set(adapter_parameters(trained.unet))
+    before = dict(fresh.named_parameters())
+    n_frozen = 0
+    for name, p in trained.named_parameters():
+        key = name[len("unet."):] if name.startswith("unet.") else None
+        if key in keys:
+            if torch.equal(p.float(), before[name].float()):
+                raise RuntimeError(f"adapter weight {key} did not change")
+        else:
+            if p.dtype != before[name].dtype or not torch.equal(p, before[name]):
+                raise RuntimeError(f"frozen weight {name} changed")
+            n_frozen += 1
+    flat = load_flat_adapter(os.path.join(out, "pytorch_model.npz"))
+    split_unet_params(fresh.unet)            # fp32 adapter matrices, as the trainer holds them
+    import_flat_adapter(fresh.unet, flat)
+    for key, p in adapter_parameters(fresh.unet).items():
+        if set(flat) != keys or not torch.equal(p.float(), state.adapter[key].detach().float()):
+            raise RuntimeError(f"exported adapter {key} does not reload to the trained tensor")
+    log(f"training slice: {len(keys)} adapter matrices moved, each with a gradient (last step's norms "
+        f"{min(grad_norms.values()):.4g} to {max(grad_norms.values()):.4g}), {n_frozen} frozen tensors "
+        f"bit-identical, the flat adapter reloads exactly")
+    history = state.history
+    del fresh, trained, state
+    torch.cuda.empty_cache()
+    return {"launches": moved, "per_micro_step": per_micro, "steps": history}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "ap_adapter_torch")):
         print("chip_smoke: no ap_adapter_torch/ beside this script; run it from a checkout", file=sys.stderr)
@@ -285,8 +629,19 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    build_phase()
-    kernels = kernel_phase(device)
+    phases = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        phases[name] = time.perf_counter() - t0
+        log(f"phase {name}: {phases[name]:.1f} s")
+        return out
+
+    phase("build", build_phase)
+    kernels = phase("kernels", kernel_phase, device)
+    kernels.update(phase("training kernels", train_kernel_phase, device))
 
     config = PipelineConfig()
     if expected_launches(config.unet) != {"fused_ln_self_attention": 192,
@@ -296,17 +651,27 @@ def main() -> int:
     pipe = AudioLDM2Pipeline.from_random(config, seed=0, device=device, dtype=torch.bfloat16)
     n_params = sum(p.numel() for p in pipe.modules.parameters())
     log(f"random weights: {n_params / 1e6:.1f}M params in {time.perf_counter() - t0:.1f} s")
-    reference_phase(pipe.modules, device)
-    runs = slice_phase(pipe, device)
+    phase("reference", reference_phase, pipe.modules, device)
+    runs = phase("edit slice", slice_phase, pipe, device)
+    train_ref = phase("training reference", train_reference_phase, pipe.modules, device)
+    del pipe
+    torch.cuda.empty_cache()
+    training = phase("training slice", train_slice_phase, device)
 
-    total = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
+    total = {k: sum(r["launches"][k] for r in runs) for k in EDIT_KERNELS}
+    total.update({k: training["launches"][k] for k in TRAIN_KERNELS})
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu, "launches": total[name],
          "max_abs_err": kernels[name]["max_abs_err"], "ms": kernels[name]["ms"],
-         "plain_ms": kernels[name]["plain_ms"], "cases": kernels[name]["cases"]}
+         "plain_ms": kernels[name]["plain_ms"], "bound_ms": kernels[name]["bound_ms"],
+         "bound_by": ("operations" if sum(cs["flops"] for cs in kernels[name]["cases"]) / PEAK_FLOPS
+                      >= sum(cs["bytes"] for cs in kernels[name]["cases"]) / PEAK_BYTES else "bytes"),
+         "library_ms": None, "cases": kernels[name]["cases"]}
         for name, (src, tpu) in KERNELS.items()],
         "requests": [{"seconds": r["seconds"], "max_memory_allocated": r["max_memory_allocated"]}
-                     for r in runs]}
+                     for r in runs],
+        "training_launches": {k: training["launches"][k] for k in KERNELS},
+        "training_steps": training["steps"], "training_reference": train_ref, "phase_seconds": phases}
     if min(total.values()) <= 0 or set(cuda_kernels.LAUNCHES) != set(KERNELS):
         raise RuntimeError(f"a kernel of the path was not launched: {total}")
     print(json.dumps(report), flush=True)

@@ -1,5 +1,5 @@
-"""PyTorch port on the card: the hand-written CUDA kernels (K1-K3) against
-their plain PyTorch versions, and a full-width UNet forward through them.
+"""PyTorch port on the card: the hand-written CUDA kernels (K1-K4, K7-K9)
+against their plain PyTorch versions and autograd over them.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither jax nor the JAX package, so it also runs where JAX is absent:
@@ -11,14 +11,21 @@ import pytest
 import torch
 
 from ap_adapter_torch.ops import cuda_kernels
-from ap_adapter_torch.ops.fused_block import fused_ln_self_attention, fused_ln_self_attention_plain
-from ap_adapter_torch.ops.fused_cross import fused_ln_cross_attention_kv, fused_ln_cross_attention_kv_plain
-from ap_adapter_torch.ops.fused_ff import fused_ln_geglu_ff, fused_ln_geglu_ff_plain
+from ap_adapter_torch.ops.fused_block import (
+    fused_ln_self_attention, fused_ln_self_attention_bwd_dx, fused_ln_self_attention_bwd_dx_plain,
+    fused_ln_self_attention_plain, fused_ln_self_attention_vjp)
+from ap_adapter_torch.ops.fused_cross import (
+    fused_ln_cross_attention, fused_ln_cross_attention_bwd, fused_ln_cross_attention_bwd_plain,
+    fused_ln_cross_attention_kv, fused_ln_cross_attention_kv_plain, fused_ln_cross_attention_plain,
+    fused_ln_cross_attention_vjp)
+from ap_adapter_torch.ops.fused_ff import (
+    fused_ln_geglu_ff, fused_ln_geglu_ff_bwd_dx, fused_ln_geglu_ff_bwd_dx_plain, fused_ln_geglu_ff_plain)
 
 # bf16 kernels vs their plain versions: bf16 rounds q, k, v and the
 # probabilities at different points in the two, so the limit is a fraction
-# of max|plain|
+# of max|plain|; gradients pass through more bf16 roundings (P, dS, dq/dk/dv)
 TOL = 2e-2
+GRAD_TOL = 5e-2
 
 
 @pytest.fixture
@@ -32,11 +39,11 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _check(got, want):
+def _check(got, want, tol=TOL):
     torch.cuda.synchronize()
     assert got.shape == want.shape and torch.isfinite(got).all()
     err = (got.float() - want.float()).abs().max().item()
-    assert err <= TOL * want.float().abs().max().item(), err
+    assert err <= tol * want.float().abs().max().item(), err
 
 
 @pytest.mark.gpu
@@ -75,7 +82,9 @@ def test_kernels_match_plain(cuda_device, s, c):
            fused_ln_geglu_ff_plain(x, ln_w, ln_b, w1, b1, w2, b2))
 
     moved = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
-    assert moved == {"fused_ln_self_attention": 1, "fused_ln_cross_attention_kv": 2, "fused_ln_geglu_ff": 1}
+    assert moved == {"fused_ln_self_attention": 1, "fused_ln_cross_attention_kv": 2, "fused_ln_geglu_ff": 1,
+                     "fused_ln_cross_attention": 0, "fused_ln_self_attention_bwd_dx": 0,
+                     "fused_ln_cross_attention_bwd": 0, "fused_ln_geglu_ff_bwd_dx": 0}
 
 
 @pytest.mark.gpu
@@ -93,3 +102,90 @@ def test_kernels_refuse_what_they_cannot_take(cuda_device):
     b = torch.zeros(64, device=cuda_device)
     with pytest.raises(ValueError):           # fp32 operands
         fused_ln_self_attention(x, b, b, w, w, w, w, b, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,c,sk_ip", [(1024, 256, 512), (256, 384, 128), (64, 640, 8), (37, 128, 20)])
+def test_training_kernels_match_plain(cuda_device, s, c, sk_ip):
+    """K4 forward, K7/K8/K9 dx and K8's dk_ip/dv_ip at the training levels
+    (B=2; the GPT-2 + AudioMAE context at 8 + sk_ip tokens of 768, the T5
+    context at 64 tokens of 1024 with a padding bias) and one ragged size."""
+
+    heads, b = 8, 2
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=cuda_device) * scale).to(torch.bfloat16)
+
+    x, gy = r(b, s, c), r(b, s, c)
+    ln_w, ln_b = 1 + r(c, scale=0.1), r(c, scale=0.1)
+    wq, wk, wv, wo = (r(c, c, scale=c ** -0.5) for _ in range(4))
+    bo = r(c, scale=0.1)
+    before = dict(cuda_kernels.LAUNCHES)
+
+    _check(fused_ln_self_attention_bwd_dx(x, gy, ln_w, ln_b, wq, wk, wv, wo, heads),
+           fused_ln_self_attention_bwd_dx_plain(x, gy, ln_w, ln_b, wq, wk, wv, wo, heads), GRAD_TOL)
+
+    w1, b1 = r(8 * c, c, scale=c ** -0.5), r(8 * c, scale=0.1)
+    w2 = r(c, 4 * c, scale=(4 * c) ** -0.5)
+    _check(fused_ln_geglu_ff_bwd_dx(x, gy, ln_w, ln_b, w1, b1, w2),
+           fused_ln_geglu_ff_bwd_dx_plain(x, gy, ln_w, ln_b, w1, b1, w2), GRAD_TOL)
+
+    ctx = r(b, 8 + sk_ip, 768)
+    wkc, wvc, wki, wvi = (r(c, 768, scale=768 ** -0.5) for _ in range(4))
+    kw = dict(wk_ip=wki, wv_ip=wvi, ip_scale=1.0)
+    _check(fused_ln_cross_attention(x, ctx, ln_w, ln_b, wq, wkc, wvc, wo, bo, heads, **kw),
+           fused_ln_cross_attention_plain(x, ctx, ln_w, ln_b, wq, wkc, wvc, wo, bo, heads, **kw))
+    got = fused_ln_cross_attention_bwd(x, gy, ctx, ln_w, ln_b, wq, wkc, wvc, wo, heads, **kw)
+    want = fused_ln_cross_attention_bwd_plain(x, gy, ctx, ln_w, ln_b, wq, wkc, wvc, wo, heads, **kw)
+    for a, w in zip(got, want):
+        _check(a, w, GRAD_TOL)
+
+    t5 = r(b, 64, 1024)
+    wk5, wv5 = (r(c, 1024, scale=1024 ** -0.5) for _ in range(2))
+    bias = torch.zeros(b, 64, device=cuda_device)
+    bias[0, 12:] = -10000.0
+    _check(fused_ln_cross_attention(x, t5, ln_w, ln_b, wq, wk5, wv5, wo, bo, heads, bias=bias),
+           fused_ln_cross_attention_plain(x, t5, ln_w, ln_b, wq, wk5, wv5, wo, bo, heads, bias=bias))
+    got = fused_ln_cross_attention_bwd(x, gy, t5, ln_w, ln_b, wq, wk5, wv5, wo, heads, bias=bias)
+    want = fused_ln_cross_attention_bwd_plain(x, gy, t5, ln_w, ln_b, wq, wk5, wv5, wo, heads, bias=bias)
+    assert got[1] is None and want[1] is None
+    _check(got[0], want[0], GRAD_TOL)
+
+    moved = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
+    assert moved == {"fused_ln_self_attention": 0, "fused_ln_cross_attention_kv": 0, "fused_ln_geglu_ff": 0,
+                     "fused_ln_cross_attention": 2, "fused_ln_self_attention_bwd_dx": 1,
+                     "fused_ln_cross_attention_bwd": 2, "fused_ln_geglu_ff_bwd_dx": 1}
+
+
+@pytest.mark.gpu
+def test_autograd_functions_on_the_card(cuda_device):
+    """Gradients through the Functions: dx of K1 (K7) and the fp32 adapter
+    weight gradients of K4 (K8 + one matmul) against autograd over the plain
+    versions on the same bf16 inputs."""
+
+    heads, b, s, c = 8, 2, 256, 384
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=cuda_device) * scale).to(torch.bfloat16)
+
+    x = r(b, s, c).requires_grad_()
+    ln_w, ln_b = 1 + r(c, scale=0.1), r(c, scale=0.1)
+    wq, wk, wv, wo = (r(c, c, scale=c ** -0.5) for _ in range(4))
+    bo = r(c, scale=0.1)
+    ctx = r(b, 8 + 128, 768)
+    wkc, wvc = (r(c, 768, scale=768 ** -0.5) for _ in range(2))
+    wki, wvi = ((torch.randn(c, 768, generator=g, device=cuda_device) * 768 ** -0.5).requires_grad_()
+                for _ in range(2))
+
+    def run(self_attn, cross):
+        y = self_attn(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads)
+        y = cross(y, ctx, ln_w, ln_b, wq, wkc, wvc, wo, bo, heads, wk_ip=wki, wv_ip=wvi, ip_scale=1.0)
+        return torch.autograd.grad(y.float().square().mean(), [x, wki, wvi])
+
+    got = run(fused_ln_self_attention_vjp, fused_ln_cross_attention_vjp)
+    want = run(fused_ln_self_attention_plain, fused_ln_cross_attention_plain)
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype
+        _check(a, w, GRAD_TOL)

@@ -25,10 +25,12 @@ from ap_adapter_torch.configs import SchedulerConfig
 from ap_adapter_torch.diffusion import ddim
 from ap_adapter_torch.models import layers
 from ap_adapter_torch.ops import attention, cuda_kernels, pooling
-from ap_adapter_torch.ops.fused_block import fused_ln_self_attention, fused_ln_self_attention_plain
+from ap_adapter_torch.ops.fused_block import (
+    fused_ln_self_attention, fused_ln_self_attention_bwd_dx, fused_ln_self_attention_plain)
 from ap_adapter_torch.ops.fused_cross import (
-    fused_ln_cross_attention_kv, fused_ln_cross_attention_kv_plain)
-from ap_adapter_torch.ops.fused_ff import fused_ln_geglu_ff, fused_ln_geglu_ff_plain
+    fused_ln_cross_attention, fused_ln_cross_attention_bwd, fused_ln_cross_attention_kv,
+    fused_ln_cross_attention_kv_plain)
+from ap_adapter_torch.ops.fused_ff import fused_ln_geglu_ff, fused_ln_geglu_ff_bwd_dx, fused_ln_geglu_ff_plain
 from tests.torch_port_common import close, one_torch_thread  # noqa: F401 (autouse fixture)
 
 
@@ -183,6 +185,43 @@ def test_wrappers_refuse_strided_operands_on_cpu(rng):
     w2, b2 = _t(_mk(rng, 4 * c, c)).T, _t(_mk(rng, c))
     with pytest.raises(ValueError, match="contiguous"):
         fused_ln_geglu_ff(_t(x), ln_s, ln_b, w1, b1, w2, b2)
+
+
+def test_raw_wrappers_refuse_operands_that_require_grad(rng):
+    """The raw kernel wrappers (K1-K4, K7-K9) write into fresh buffers and
+    record no autograd graph, so under grad mode an operand that requires
+    grad raises, on the CPU path too; under no_grad the same calls run.
+    Differentiable callers go through the ``*_vjp`` Functions."""
+
+    b, s, c, heads, dc = 1, 6, 64, 4, 32
+    x, ln_s, ln_b, ws, bo = _block_inputs(rng, b, s, c)
+    x, ln_s, ln_b, bo = map(_t, (x, ln_s, ln_b, bo))
+    wq, wk, wv, wo = (_t(w.T) for w in ws)
+    g = _t(_mk(rng, b, s, c))
+    k = _t(_mk(rng, b, 5, c))
+    ctx = _t(_mk(rng, b, 8 + 4, dc))
+    wkc, wvc, wki, wvi = (_t(_mk(rng, c, dc, scale=0.1)) for _ in range(4))
+    w1, b1 = _t(_mk(rng, 8 * c, c, scale=0.1)), _t(_mk(rng, 8 * c))
+    w2, b2 = _t(_mk(rng, c, 4 * c, scale=0.1)), _t(_mk(rng, c))
+    wq.requires_grad_(True)       # a frozen weight asked for, in the attention ops
+    wki.requires_grad_(True)      # the adapter, in the cross ops
+    w1.requires_grad_(True)       # in the feed-forward ops
+    calls = {
+        "K1": lambda: fused_ln_self_attention(x, ln_s, ln_b, wq, wk, wv, wo, bo, heads),
+        "K2": lambda: fused_ln_cross_attention_kv(x, k, k, ln_s, ln_b, wq, wo, bo, heads),
+        "K3": lambda: fused_ln_geglu_ff(x, ln_s, ln_b, w1, b1, w2, b2),
+        "K4": lambda: fused_ln_cross_attention(x, ctx, ln_s, ln_b, wq, wkc, wvc, wo, bo, heads,
+                                               wk_ip=wki, wv_ip=wvi),
+        "K7": lambda: fused_ln_self_attention_bwd_dx(x, g, ln_s, ln_b, wq, wk, wv, wo, heads),
+        "K8": lambda: fused_ln_cross_attention_bwd(x, g, ctx, ln_s, ln_b, wq, wkc, wvc, wo, heads,
+                                                   wk_ip=wki, wv_ip=wvi),
+        "K9": lambda: fused_ln_geglu_ff_bwd_dx(x, g, ln_s, ln_b, w1, b1, w2),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="require grad"):
+            call()
+        with torch.no_grad():
+            call()
 
 
 # -- plain ops -------------------------------------------------------------

@@ -80,8 +80,8 @@ def test_init_random_rules():
     N(0, 0.02) for the rest, reproducible from the seed."""
 
     cfg = tiny_pipeline_config()
-    a = PipelineModules(cfg).init_random(seed=3)
-    b = PipelineModules(cfg).init_random(seed=3)
+    a = PipelineModules(cfg).init_random(seed=3, device="cpu")
+    b = PipelineModules(cfg).init_random(seed=3, device="cpu")
     for (name, p), (_, q) in zip(a.named_parameters(), b.named_parameters()):
         assert torch.equal(p, q), name
     weights = []
@@ -95,6 +95,22 @@ def test_init_random_rules():
                 weights.append(p.flatten())
     w = torch.cat(weights)
     assert abs(w.std().item() - 0.02) < 1e-3 and abs(w.mean().item()) < 1e-3
+
+
+def test_entry_points_default_to_cuda():
+    """The entry points run on the card unless the caller asks for the CPU
+    (the tests do), and nothing moves to the CPU quietly without a card."""
+
+    import inspect
+
+    from ap_adapter_torch.train.cli import build_parser
+
+    for fn in (PipelineModules.init_random, PipelineModules.load_state_dicts, AudioLDM2Pipeline.from_random):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
+    assert build_parser().parse_args(["--train-manifest", "m.json"]).device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            PipelineModules(tiny_pipeline_config()).init_random(seed=0)
 
 
 def test_port_imports_no_jax():

@@ -6,6 +6,7 @@ Built once per process: the JAX init dominates the set-up time."""
 from __future__ import annotations
 
 import functools
+import hashlib
 
 import jax
 import numpy as np
@@ -49,7 +50,71 @@ def port_tiny() -> PipelineModules:
     """The port's tiny PipelineModules on the CPU with the JAX tiny weights."""
 
     cfg = tiny_pipeline_config()
-    return PipelineModules(cfg).load_state_dicts(from_jax.pipeline_state_dicts(jax_tiny()[1], cfg))
+    return PipelineModules(cfg).load_state_dicts(from_jax.pipeline_state_dicts(jax_tiny()[1], cfg),
+                                                device="cpu")
+
+
+def param_fingerprints(params) -> dict:
+    """Every leaf of the ``unet`` and ``vae`` trees of ``params``: its path
+    (``fp_names``, "<tree>/<path>") and [sum, sum of |x|] in float64
+    (``fp_values``, one row per leaf)."""
+
+    names, values = [], []
+    for tree in ("unet", "vae"):
+        for path, leaf in jax.tree_util.tree_flatten_with_path(params[tree])[0]:
+            a = np.asarray(leaf, np.float64)
+            names.append("/".join([tree, *(str(getattr(k, "key", k)) for k in path)]))
+            values.append([a.sum(), np.abs(a).sum()])
+    return {"fp_names": np.array(names), "fp_values": np.array(values)}
+
+
+def jax_source_digest() -> str:
+    """sha256 of the JAX package's sources and of ``jax_train_loss``: what
+    computed a stored JAX reference, beside the weights it used."""
+
+    import inspect
+    from pathlib import Path
+
+    import ap_adapter_tpu
+
+    h = hashlib.sha256(inspect.getsource(jax_train_loss).encode())
+    root = Path(ap_adapter_tpu.__file__).parent
+    for path in sorted(root.rglob("*.py")):
+        h.update(str(path.relative_to(root)).encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()
+
+
+def jax_train_loss(mods, params, inputs):
+    """The training loss of one micro-batch assembled from the JAX package's
+    own pieces: ``AutoencoderKL.moments`` -> z = (mean + exp(logvar / 2) *
+    vae_noise) * scaling_factor -> ``add_noise`` -> ``unet.apply(...,
+    ip_scale=1.0)`` -> MSE to the noise. Returns (loss as a function of the
+    adapter subtree, that subtree), split by ``split_unet_params``."""
+
+    import jax.numpy as jnp
+
+    from ap_adapter_tpu.diffusion.ddim import add_noise, make_tables
+    from ap_adapter_tpu.models.vae import AutoencoderKL
+    from ap_adapter_tpu.train.trainer import merge_unet_params, split_unet_params
+
+    cfg = mods.config
+    adapter, frozen = split_unet_params(params["unet"])
+    tables = make_tables(cfg.scheduler)
+
+    def loss_fn(ad):
+        mean, logvar = mods.vae.apply({"params": params["vae"]}, jnp.asarray(inputs["mel"]),
+                                      method=AutoencoderKL.moments)
+        z = (mean + jnp.exp(0.5 * logvar) * inputs["vae_noise"]) * cfg.vae.scaling_factor
+        t = jnp.asarray(inputs["timesteps"])
+        noisy = add_noise(tables, z, jnp.asarray(inputs["noise"]), t)
+        pred = mods.unet.apply({"params": merge_unet_params(ad, frozen)}, noisy, t.astype(jnp.float32),
+                               jnp.asarray(inputs["generated_prompt_embeds"]),
+                               jnp.asarray(inputs["prompt_embeds"]), jnp.asarray(inputs["attention_mask"]),
+                               ip_scale=1.0)
+        return jnp.mean(jnp.square(pred - inputs["noise"]))
+
+    return loss_fn, adapter
 
 
 def close(got, want, atol: float = ATOL, rtol: float = 0.0) -> None:
