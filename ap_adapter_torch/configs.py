@@ -263,6 +263,11 @@ class UNetConfig:
     # class label concatenated with the time embedding)
     class_embed_dim: Optional[int] = None
     class_embeddings_concat: bool = False
+    # int8 W8A8 serving (ops/int8.py): every transformer site runs its int8
+    # kernel (K11a-c) on weights quantized once (models/unet.py
+    # quantize_unet_int8_). Inference only: the int8 kernels have no
+    # backward, so the trainer refuses this.
+    use_int8: bool = False
 
     @property
     def time_embed_dim(self) -> int:

@@ -15,7 +15,10 @@
 //   * attention_kernel: one block per (query tile of 64, head, batch); K/V
 //     streamed through shared memory in tiles of 64 keys with an online
 //     max-subtracted fp32 softmax; optional fp32 additive key bias [B, Sk];
-//     optional second K/V set combined as out + s * out_2 (the adapter).
+//     optional second K/V set combined as out + s * out_2 (the adapter);
+//     output in bf16, or in fp32 for the int8 kernels, which quantize it.
+//   * launch_ctx_proj: the K/V projections of a cross-attention site from
+//     the raw context rows (text or adapter), gathered in place.
 // Each TU that includes this header gets its own copy (anonymous namespace).
 
 #pragma once
@@ -354,14 +357,19 @@ __host__ __device__ inline AttnLayout attn_layout(int d, bool dual) {
   return L;
 }
 
+__device__ __forceinline__ void store_val(bf16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
+
 // out[b, i, h*d:(h+1)*d] = softmax(q_i k^T * scale + bias) v  (+ s2 * the same
-// over the second K/V set, unbiased). d % 16 == 0, d <= 128.
+// over the second K/V set, unbiased), combined in fp32 and stored as OutT.
+// d % 16 == 0, d <= 128.
+template <typename OutT>
 __global__ void __launch_bounds__(THREADS) attention_kernel(
     const bf16* __restrict__ q, int ldq_g, int Sq,
     const bf16* __restrict__ k, const bf16* __restrict__ v, int ldkv, int Sk,
     const float* __restrict__ bias,
     const bf16* __restrict__ k2, const bf16* __restrict__ v2, int ldkv2, int Sk2, float s2,
-    bf16* __restrict__ out, int ldo_g, int d, float sm_scale) {
+    OutT* __restrict__ out, int ldo_g, int d, float sm_scale) {
   extern __shared__ __align__(128) unsigned char dyn_smem[];
   const bool dual = k2 != nullptr;
   const AttnLayout L = attn_layout(d, dual);
@@ -492,29 +500,45 @@ __global__ void __launch_bounds__(THREADS) attention_kernel(
       } else {
         const float res = dual ? Fs[gr * L.ldo + c] + s2 * val : val;
         const int row = q0 + gr;
-        if (row < Sq) out[((size_t)b * Sq + row) * ldo_g + h * d + c] = __float2bfloat16(res);
+        if (row < Sq) store_val(out + ((size_t)b * Sq + row) * ldo_g + h * d + c, res);
       }
     }
     __syncwarp();
   }
 }
 
+// 1/sqrt(d), the softmax scale of unscaled queries
+inline float head_scale(int C, int heads) { return 1.f / sqrtf((float)(C / heads)); }
+
+template <typename OutT>
 int launch_attention(const bf16* q, int Sq, const bf16* k, const bf16* v, int Sk, const float* bias,
-                     const bf16* k2, const bf16* v2, int Sk2, float s2, bf16* out,
-                     int B, int C, int heads, cudaStream_t st) {
+                     const bf16* k2, const bf16* v2, int Sk2, float s2, OutT* out,
+                     int B, int C, int heads, float sm_scale, cudaStream_t st) {
   const int d = C / heads;
   const AttnLayout L = attn_layout(d, k2 != nullptr);
   static size_t configured = 0;
   if (L.bytes > configured) {
-    cudaError_t e = cudaFuncSetAttribute(attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t e = cudaFuncSetAttribute(attention_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L.bytes);
     if (e != cudaSuccess) return (int)e;
     configured = L.bytes;
   }
   dim3 grid((Sq + TQ - 1) / TQ, heads, B);
-  attention_kernel<<<grid, THREADS, L.bytes, st>>>(q, C, Sq, k, v, C, Sk, bias, k2, v2, C, Sk2, s2, out, C, d,
-                                                   1.f / sqrtf((float)d));
+  attention_kernel<OutT><<<grid, THREADS, L.bytes, st>>>(q, C, Sq, k, v, C, Sk, bias, k2, v2, C, Sk2, s2, out, C, d,
+                                                         sm_scale);
   return (int)cudaGetLastError();
+}
+
+// the context K/V projections of a cross-attention site: rows [row0, row0 + rows)
+// of each batch entry of ctx [B, Sk_total, Dc] times two Linear weights [C, Dc]
+int launch_ctx_proj(const void* ctx, int B, int Sk_total, int Dc, int row0, int rows, const void* w0,
+                    const void* w1, void* out0, void* out1, int C, cudaStream_t st) {
+  GemmArgs p = gemm_args((const bf16*)ctx + (size_t)row0 * Dc, B * rows, Dc, C);
+  p.a_rpb = rows;
+  p.a_bstride = (long long)Sk_total * Dc;
+  p.w[0] = (const bf16*)w0; p.w[1] = (const bf16*)w1;
+  p.c[0] = out0; p.c[1] = out1;
+  return launch_gemm<false, false, EPI_STORE>(p, 2, st);
 }
 
 }  // namespace

@@ -45,7 +45,7 @@ int apk_fused_ln_self_attention(const void* x, const void* ln_w, const void* ln_
   int e = launch_gemm<true, false, EPI_STORE>(qkv, 3, st);
   if (e) return e;
   e = launch_attention((const bf16*)q, S, (const bf16*)k, (const bf16*)v, S, nullptr, nullptr, nullptr, 0, 0.f,
-                       (bf16*)attn, B, C, heads, st);
+                       (bf16*)attn, B, C, heads, head_scale(C, heads), st);
   if (e) return e;
   GemmArgs o = gemm_args(attn, M, C, C);
   o.w[0] = (const bf16*)wo;
@@ -74,7 +74,8 @@ int apk_fused_ln_cross_attention_kv(const void* x, const void* ln_w, const void*
   int e = launch_gemm<true, false, EPI_STORE>(qs, 1, st);
   if (e) return e;
   e = launch_attention((const bf16*)q, S, (const bf16*)k, (const bf16*)v, Sk, (const float*)bias,
-                       (const bf16*)ki, (const bf16*)vi, Sk_ip, ip_scale, (bf16*)attn, B, C, heads, st);
+                       (const bf16*)ki, (const bf16*)vi, Sk_ip, ip_scale, (bf16*)attn, B, C, heads,
+                       head_scale(C, heads), st);
   if (e) return e;
   GemmArgs o = gemm_args(attn, M, C, C);
   o.w[0] = (const bf16*)wo;

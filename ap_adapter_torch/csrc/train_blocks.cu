@@ -399,18 +399,6 @@ int launch_gemm_wt(const void* A, int M, int K, const void* W, int N, void* out,
   return launch_gemm<false, true, EPI>(a, 1, st);
 }
 
-// the context K/V projections of a cross-attention site: rows [row0, row0 + rows)
-// of each batch entry of ctx [B, Sk_total, Dc] times two Linear weights [C, Dc]
-int launch_ctx_proj(const void* ctx, int B, int Sk_total, int Dc, int row0, int rows, const void* w0,
-                    const void* w1, void* out0, void* out1, int C, cudaStream_t st) {
-  GemmArgs p = gemm_args((const bf16*)ctx + (size_t)row0 * Dc, B * rows, Dc, C);
-  p.a_rpb = rows;
-  p.a_bstride = (long long)Sk_total * Dc;
-  p.w[0] = (const bf16*)w0; p.w[1] = (const bf16*)w1;
-  p.c[0] = out0; p.c[1] = out1;
-  return launch_gemm<false, false, EPI_STORE>(p, 2, st);
-}
-
 int launch_ln_proj(const void* x, int M, int C, const void* ln_w, const void* ln_b, float eps, const void* w,
                    void* out, cudaStream_t st) {
   GemmArgs a = gemm_args(x, M, C, C);
@@ -449,7 +437,7 @@ int apk_fused_ln_cross_attention(const void* x, const void* ctx, int Sk_total, i
   if (e) return e;
   e = launch_attention((const bf16*)q, S, (const bf16*)k, (const bf16*)v, sk_text, (const float*)bias,
                        sk_ip > 0 ? (const bf16*)ki : nullptr, sk_ip > 0 ? (const bf16*)vi : nullptr, sk_ip,
-                       ip_scale, (bf16*)attn, B, C, heads, st);
+                       ip_scale, (bf16*)attn, B, C, heads, head_scale(C, heads), st);
   if (e) return e;
   GemmArgs o = gemm_args(attn, M, C, C);
   o.w[0] = (const bf16*)wo;

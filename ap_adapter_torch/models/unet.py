@@ -19,7 +19,9 @@ import torch.nn.functional as F
 from ap_adapter_torch.configs import UNetConfig
 from ap_adapter_torch.models.layers import get_timestep_embedding
 from ap_adapter_torch.models.unet_blocks import (
+    CrossAttention,
     Downsample2D,
+    FeedForward,
     ResnetBlock2D,
     Transformer2DModel,
     Upsample2D,
@@ -69,7 +71,7 @@ class AudioLDM2UNet(nn.Module):
             return [Transformer2DModel(
                 channels, c.num_attention_heads, c.transformer_layers_per_block, dim,
                 use_adapter=dim is not None and dim == c.adapter_cross_attention_dim,
-                num_ip_tokens=c.adapter_num_tokens, groups=groups)
+                num_ip_tokens=c.adapter_num_tokens, groups=groups, use_int8=c.use_int8)
                 for dim in c.cross_attention_dims]
 
         self.conv_in = nn.Conv2d(c.in_channels, ch[0], c.conv_in_kernel,
@@ -150,6 +152,10 @@ class AudioLDM2UNet(nn.Module):
         dtype = self.conv_in.weight.dtype
         n = self._n_dims
 
+        if c.use_int8 and ctx_kv is not None:
+            # the int8 sites project K/V in the step; a hoisted bias would
+            # drop the T5 mask there (the JAX pipeline.py:272-277)
+            raise ValueError("a use_int8 UNet takes no hoisted K/V (ctx_kv)")
         # the T5 stream's padding bias [B, S1]; the GPT-2+AudioMAE stream is never masked
         if ctx_kv is not None:
             bias1 = ctx_kv["__bias1__"]
@@ -206,3 +212,20 @@ class AudioLDM2UNet(nn.Module):
 
         x = self.conv_out(F.silu(self.conv_norm_out(x)))
         return x.permute(0, 2, 3, 1)
+
+
+@torch.no_grad()
+def quantize_unet_int8_(unet: AudioLDM2UNet) -> AudioLDM2UNet:
+    """Quantize the int8 serving weights of every transformer site once, in
+    place: per-output-channel int8 copies of the q/out projections and of
+    both feed-forward weights, with their fp32 scales, as non-persistent
+    buffers (a checkpoint's keys do not change). The counterpart of the JAX
+    pipeline's "quant" collection (pipeline.py:374-445): the denoise step
+    never quantizes a weight. Re-run it after changing the float weights."""
+
+    if not unet.config.use_int8:
+        raise ValueError("quantize_unet_int8_: the UNet's config has use_int8 off")
+    for module in unet.modules():
+        if isinstance(module, (CrossAttention, FeedForward)):
+            module.quantize_int8_()
+    return unet

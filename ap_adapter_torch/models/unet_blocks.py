@@ -8,6 +8,14 @@ cross-attention to K2 over hoisted K/V (``models/hoist.py``, inference) or
 to K4, which projects them from the context (training, unhoisted calls),
 and the GEGLU feed-forward to K3. K1, K3 and K4 go through their autograd
 Functions, whose backwards are K7, K9 and K8.
+
+With ``UNetConfig.use_int8`` (serving only) every site routes to its int8
+kernel instead, as the JAX routes at unet_blocks.py:367-389, 458-497 and
+603-624 do: self-attention to K11b, cross-attention to K11c (K/V projected
+from the raw context, the T5 bias, the adapter split at ``num_ip_tokens``;
+never hoisted K/V) and the feed-forward to K11a. Their int8 weights are
+buffers that ``models/unet.py::quantize_unet_int8_`` registers once; a site
+without them raises rather than falling back to the bf16 kernels.
 """
 
 from __future__ import annotations
@@ -21,6 +29,8 @@ import torch.nn.functional as F
 from ap_adapter_torch.ops.fused_block import fused_ln_self_attention_vjp
 from ap_adapter_torch.ops.fused_cross import fused_ln_cross_attention_kv, fused_ln_cross_attention_vjp
 from ap_adapter_torch.ops.fused_ff import fused_ln_geglu_ff_vjp
+from ap_adapter_torch.ops.int8 import (
+    fused_ln_cross_attention_int8, fused_ln_geglu_ff_int8, fused_ln_self_attention_int8, quantize_weight)
 
 # (k, v, k_ip, v_ip) for one cross-attention site; k_ip/v_ip are None where
 # the site has no adapter tokens
@@ -77,6 +87,26 @@ class Upsample2D(nn.Module):
         return self.conv(F.interpolate(x, size=size, mode="nearest"))
 
 
+def _int8_buffers(module: nn.Module, names) -> list:
+    """The int8 weights and scales ``quantize_int8_`` registered on ``module``."""
+
+    found = [getattr(module, n, None) for n in names]
+    if any(t is None for t in found):
+        raise RuntimeError(f"{type(module).__name__}: a use_int8 site without its int8 weights; quantize "
+                           "the UNet once with models.unet.quantize_unet_int8_")
+    return found
+
+
+def _register_quantized(module: nn.Module, **weights: nn.Linear) -> None:
+    """Non-persistent int8 copy and fp32 scales of each Linear weight (a
+    checkpoint's keys do not change): ``<name>_int8`` and ``<name>_scale``."""
+
+    for name, linear in weights.items():
+        w8, scale = quantize_weight(linear.weight)
+        module.register_buffer(f"{name}_int8", w8, persistent=False)
+        module.register_buffer(f"{name}_scale", scale, persistent=False)
+
+
 class AdapterKV(nn.Module):
     """The adapter's decoupled audio K/V projections (diffusers keys
     ``attn2.processor.to_k_ip`` / ``to_v_ip``)."""
@@ -98,13 +128,14 @@ class CrossAttention(nn.Module):
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None, use_adapter: bool = False,
-                 num_ip_tokens: int = 8):
+                 num_ip_tokens: int = 8, use_int8: bool = False):
         super().__init__()
         inner = heads * dim_head
         kv_dim = cross_attention_dim or query_dim
         self.heads = heads
         self.is_cross = cross_attention_dim is not None
         self.num_ip_tokens = num_ip_tokens
+        self.use_int8 = use_int8
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(kv_dim, inner, bias=False)
         self.to_v = nn.Linear(kv_dim, inner, bias=False)
@@ -125,10 +156,26 @@ class CrossAttention(nn.Module):
         return (k, v, F.linear(ip, self.processor.to_k_ip.weight.to(ip.dtype)),
                 F.linear(ip, self.processor.to_v_ip.weight.to(ip.dtype)))
 
+    def quantize_int8_(self) -> None:
+        _register_quantized(self, wq=self.to_q, wo=self.to_out[0])
+
+    def _forward_int8(self, x, norm, context, bias, ip_scale) -> torch.Tensor:
+        wq8, sq, wo8, so = _int8_buffers(self, ("wq_int8", "wq_scale", "wo_int8", "wo_scale"))
+        w = (norm.weight, norm.bias, wq8, sq, self.to_k.weight, self.to_v.weight, wo8, so, self.to_out[0].bias)
+        if not self.is_cross:
+            return fused_ln_self_attention_int8(x, *w, self.heads, norm.eps)
+        ip = self.processor if self.processor is not None and context.shape[1] > self.num_ip_tokens else None
+        return fused_ln_cross_attention_int8(
+            x, context, *w, self.heads, wk_ip=None if ip is None else ip.to_k_ip.weight.to(x.dtype),
+            wv_ip=None if ip is None else ip.to_v_ip.weight.to(x.dtype), ip_scale=ip_scale,
+            num_ip_tokens=self.num_ip_tokens, bias=bias, eps=norm.eps)
+
     def forward(self, x: torch.Tensor, norm: nn.LayerNorm,
                 context: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
                 ip_scale: float = 0.0, kv: Optional[KV] = None) -> torch.Tensor:
         out = self.to_out[0]
+        if self.use_int8:      # the UNet refuses hoisted K/V under use_int8
+            return self._forward_int8(x, norm, context, bias, ip_scale)
         if not self.is_cross:
             return fused_ln_self_attention_vjp(
                 x, norm.weight, norm.bias, self.to_q.weight, self.to_k.weight,
@@ -156,12 +203,20 @@ class FeedForward(nn.Module):
     """GEGLU feed-forward (diffusers keys ``ff.net.0.proj`` and ``ff.net.2``),
     called with its preceding LayerNorm (``x + ff(LN(x))``)."""
 
-    def __init__(self, dim: int, mult: int = 4):
+    def __init__(self, dim: int, mult: int = 4, use_int8: bool = False):
         super().__init__()
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(), nn.Linear(dim * mult, dim)])
+        self.use_int8 = use_int8
+
+    def quantize_int8_(self) -> None:
+        _register_quantized(self, w1=self.net[0].proj, w2=self.net[2])
 
     def forward(self, x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
         proj, out = self.net[0].proj, self.net[2]
+        if self.use_int8:
+            w1q, s1, w2q, s2 = _int8_buffers(self, ("w1_int8", "w1_scale", "w2_int8", "w2_scale"))
+            return fused_ln_geglu_ff_int8(x, norm.weight, norm.bias, w1q, s1, proj.bias, w2q, s2, out.bias,
+                                          norm.eps)
         return fused_ln_geglu_ff_vjp(x, norm.weight, norm.bias, proj.weight, proj.bias,
                                      out.weight, out.bias, norm.eps)
 
@@ -171,15 +226,15 @@ class BasicTransformerBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None, use_adapter: bool = False,
-                 num_ip_tokens: int = 8):
+                 num_ip_tokens: int = 8, use_int8: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim)
-        self.attn1 = CrossAttention(dim, heads, dim_head)
+        self.attn1 = CrossAttention(dim, heads, dim_head, use_int8=use_int8)
         self.norm2 = nn.LayerNorm(dim)
         self.attn2 = CrossAttention(dim, heads, dim_head, cross_attention_dim,
-                                    use_adapter, num_ip_tokens)
+                                    use_adapter, num_ip_tokens, use_int8)
         self.norm3 = nn.LayerNorm(dim)
-        self.ff = FeedForward(dim)
+        self.ff = FeedForward(dim, use_int8=use_int8)
 
     def forward(self, x, context=None, bias=None, ip_scale: float = 0.0,
                 kv: Optional[KV] = None) -> torch.Tensor:
@@ -197,14 +252,14 @@ class Transformer2DModel(nn.Module):
 
     def __init__(self, channels: int, heads: int, num_layers: int,
                  cross_attention_dim: Optional[int] = None, use_adapter: bool = False,
-                 num_ip_tokens: int = 8, groups: int = 32):
+                 num_ip_tokens: int = 8, groups: int = 32, use_int8: bool = False):
         super().__init__()
         dim_head = channels // heads
         self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
         self.proj_in = nn.Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(channels, heads, dim_head, cross_attention_dim,
-                                  use_adapter, num_ip_tokens)
+                                  use_adapter, num_ip_tokens, use_int8)
             for _ in range(num_layers)])
         self.proj_out = nn.Conv2d(channels, channels, 1)
 

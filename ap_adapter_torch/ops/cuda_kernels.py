@@ -40,6 +40,10 @@ _SIGNATURES = {
     "apk_fused_ln_cross_attention_bwd": [_P, _P, _P, _I, _I, _I] + [_P] * 8 + [_F] + [_P] * 14
     + [_I] * 4 + [_F, _P],
     "apk_fused_ln_geglu_ff_bwd_dx": [_P] * 11 + [_I] * 4 + [_F, _P],
+    "apk_fused_ln_geglu_ff_int8": [_P] * 15 + [_I] * 4 + [_F, _P],
+    "apk_fused_ln_self_attention_int8": [_P] * 17 + [_I] * 4 + [_F, _F, _P],
+    "apk_fused_ln_cross_attention_int8": [_P, _P, _I, _I, _I] + [_P] * 11 + [_F] + [_P] * 10
+    + [_I] * 4 + [_F, _F, _P],
 }
 
 # Launch counts per op, incremented by each wrapper right after its kernels
@@ -52,6 +56,9 @@ LAUNCHES: Dict[str, int] = {
     "fused_ln_self_attention_bwd_dx": 0,
     "fused_ln_cross_attention_bwd": 0,
     "fused_ln_geglu_ff_bwd_dx": 0,
+    "fused_ln_geglu_ff_int8": 0,
+    "fused_ln_self_attention_int8": 0,
+    "fused_ln_cross_attention_int8": 0,
 }
 
 _lock = threading.Lock()
@@ -187,16 +194,18 @@ def check_contiguous(op: str, **tensors: torch.Tensor | None) -> None:
             raise ValueError(f"{op}: {name} must be contiguous, got strides {t.stride()}")
 
 
-def check_operands(op: str, ref: torch.Tensor, **tensors: torch.Tensor | None) -> None:
-    """Raise unless every operand is a 16-byte aligned bf16 CUDA tensor on
-    ``ref``'s device (fp32 for names starting with ``bias``)."""
+def check_operands(op: str, ref: torch.Tensor, dtypes: Dict[str, torch.dtype] | None = None,
+                   **tensors: torch.Tensor | None) -> None:
+    """Raise unless every operand is a 16-byte aligned CUDA tensor on
+    ``ref``'s device, of the type ``dtypes`` names for it, else fp32 for
+    names starting with ``bias`` and bf16 for the rest."""
 
     if ref.device.type != "cuda":
         raise RuntimeError(f"{op}: no kernel for device {ref.device}")
     for name, t in tensors.items():
         if t is None:
             continue
-        want = torch.float32 if name.startswith("bias") else torch.bfloat16
+        want = (dtypes or {}).get(name, torch.float32 if name.startswith("bias") else torch.bfloat16)
         if t.device != ref.device or t.dtype != want:
             raise ValueError(f"{op}: {name} must be {want} on {ref.device}, got {t.dtype} on {t.device}")
         if t.data_ptr() % 16:

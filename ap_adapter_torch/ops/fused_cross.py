@@ -167,11 +167,11 @@ def _check_cross(op: str, x, context, wk, wv, wq, wo, wk_ip, wv_ip, num_ip_token
     return sk_text, sk_ip
 
 
-def _check_cuda_cross(op: str, x, context, heads: int, operands) -> None:
+def _check_cuda_cross(op: str, x, context, heads: int, operands, dtypes=None) -> None:
     ck.check_heads(op, x.shape[-1], heads)
     if context.shape[-1] % 32:
         raise ValueError(f"{op}: kernel needs the context width % 32 == 0, got {context.shape[-1]}")
-    ck.check_operands(op, x, **operands)
+    ck.check_operands(op, x, dtypes, **operands)
 
 
 def fused_ln_cross_attention(

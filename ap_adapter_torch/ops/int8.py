@@ -1,0 +1,294 @@
+"""int8 (W8A8) serving variants of the fused transformer-block ops: K11a-c.
+
+K11a replaces ``ap_adapter_tpu/ops/pallas_int8.py::fused_ln_geglu_ff_int8``
+(:118), K11b ``fused_ln_self_attention_int8`` (:259) and K11c
+``fused_ln_cross_attention_int8`` (:410). They run at every UNet transformer
+site when ``UNetConfig.use_int8`` is set, on weights quantized once by
+``models/unet.py::quantize_unet_int8_``. Serving only: the TPU kernels
+define no VJP, and there is no autograd Function here either.
+
+Quantization is the TPU package's, operation for operation:
+
+* weights symmetric per output channel (``quantize_weight``, JAX :63):
+  ``scale = max(amax, 1e-8) / 127`` (a multiplication by fp32 ``1/127``, as
+  XLA compiles it) and ``w8 = round(w / scale)``;
+* activations per row, dynamically (``quant_rows``, JAX :80):
+  ``scale = max(amax, 1e-8) * (1/127)`` and ``q = round(x * (1/scale))``;
+* rounding half to even: ``torch.round`` here, ``__float2int_rn`` in the
+  kernels, as ``jnp.round`` does;
+* every quantized activation comes from fp32: the LayerNorm row (the TPU
+  kernels' ``_ln`` formula, ``ln_f32``), the fp32 attention output and the
+  fp32 GEGLU product. A bf16 round trip first would move values across int8
+  rounding boundaries.
+
+What is int8: the q and out projections of both attention ops and both
+GEGLU products. What stays in the activation dtype: the K/V projections and
+the QK/PV products (the TPU package measured those shapes losing under int8,
+and softmax probabilities do not fit an int8 grid). The integer products
+are exact in the plain versions: int32 on the CPU, float64 on the card
+(PyTorch has no int32 matmul there; ``|sum| <= 2560 * 127**2 < 2**53``).
+
+Unlike the TPU package, nothing pads heads: ``quantize_attention_weights``
+quantizes the Linear weights as they are (head dims 48 and 80 included).
+The TPU's padded columns and rows are zeros, so they change no scale and no
+int8 value of a real channel.
+
+Kernels (``csrc/int8_blocks.cu``): a row-wise LayerNorm + quantize kernel,
+an int8 tensor-core GEMM (``mma.sync`` m16n8k32, exact int32 sums) whose
+epilogue dequantizes by row and column scale and adds the bias and residual
+or forms the GEGLU product, and the shared bf16 GEMM and attention routines
+of ``csrc/common.cuh`` (attention output in fp32). On an H100 they are bound
+by launches and activation round trips through device memory, not by the
+int8 tensor-core rate; times and bounds are in ``PERF.md``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ap_adapter_torch.ops import cuda_kernels as ck
+from ap_adapter_torch.ops.fused_block import _check_weights
+from ap_adapter_torch.ops.fused_cross import _check_cross, _check_cuda_cross, _split_context
+from ap_adapter_torch.ops.fused_ff import _check_widths
+
+_INV127 = 1.0 / 127.0
+
+
+def quantize_weight(w: torch.Tensor):
+    """Linear weight [out, in] -> (int8 [out, in], fp32 scale [out]),
+    symmetric per output channel."""
+
+    wf = w.detach().float()
+    # max(amax, 1e-8) / 127 as XLA compiles the JAX division by a constant:
+    # a multiplication by the fp32 reciprocal (so does PyTorch's division by
+    # a Python scalar; written out so that it does not depend on that)
+    scale = torch.clamp(wf.abs().amax(dim=1, keepdim=True), min=1e-8) * _INV127
+    return torch.round(wf / scale).to(torch.int8), scale[:, 0].contiguous()
+
+
+def quant_rows(x32: torch.Tensor):
+    """fp32 [..., c] -> (int8 [..., c], fp32 per-row scale [...])."""
+
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) * _INV127
+    return torch.round(x32 * (1.0 / scale)).to(torch.int8), scale[..., 0]
+
+
+def quantize_attention_weights(wq, wk, wv, wo):
+    """-> (wq8, sq, wk, wv, wo8, so): the weight arguments of K11b/K11c, from
+    the Linear weights [out, in], with no head padding."""
+
+    wq8, sq = quantize_weight(wq)
+    wo8, so = quantize_weight(wo)
+    return wq8, sq, wk, wv, wo8, so
+
+
+def ln_f32(x, w, b, eps: float) -> torch.Tensor:
+    """The TPU kernels' LayerNorm in fp32: (x - mean) * rsqrt(var + eps) * w + b."""
+
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    return (xf - mean) * torch.rsqrt(var + eps) * w.float() + b.float()
+
+
+def _int_mm(a8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """Exact ``a8 [..., K] @ w8 [N, K]^T`` as fp32: int32 on the CPU, float64
+    on the card, either rounded once to fp32."""
+
+    a2 = a8.reshape(-1, a8.shape[-1])
+    if a8.device.type == "cpu":
+        out = torch.matmul(a2.int(), w8.int().t())
+    else:
+        out = torch.matmul(a2.double(), w8.double().t())
+    return out.float().reshape(*a8.shape[:-1], w8.shape[0])
+
+
+def _dequant(a8, sa, w8, sw) -> torch.Tensor:
+    return _int_mm(a8, w8) * sa[..., None] * sw
+
+
+def _q_proj(xn, wq8, sq, heads: int, dtype) -> torch.Tensor:
+    """The int8 q projection of the fp32 LayerNorm rows, pre-scaled by 1/sqrt(d)."""
+
+    x8, sx = quant_rows(xn)
+    return (_dequant(x8, sx, wq8, sq) * (float(wq8.shape[0] // heads) ** -0.5)).to(dtype)
+
+
+def _out_proj(x, attn, wo8, so, bo) -> torch.Tensor:
+    """x + the int8 out projection of the fp32 attention output, + bo."""
+
+    a8, sa = quant_rows(attn)
+    return (x.float() + (_dequant(a8, sa, wo8, so) + bo.float())).to(x.dtype)
+
+
+def _attend(q, k, v, heads: int, bias=None) -> torch.Tensor:
+    """fp32 [B, S, C] = softmax(q k^T + bias) v per head for pre-scaled q
+    (the TPU kernels' staircase attention): fp32 logits, max-subtracted
+    softmax, the probabilities in v's dtype for the PV product, normalised
+    after it."""
+
+    b, s, c = q.shape
+    d = c // heads
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.reshape(b, s, heads, d).float(),
+                          k.reshape(b, -1, heads, d).float())
+    if bias is not None:
+        logits = logits + bias[:, None, None, :].float()
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.reshape(b, -1, heads, d).float())
+    return (o / p.sum(-1).transpose(1, 2)[..., None]).reshape(b, s, c)
+
+
+# -- plain versions ----------------------------------------------------------
+
+
+def fused_ln_geglu_ff_int8_plain(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, eps: float = 1e-5) -> torch.Tensor:
+    """Plain version of K11a: x [B, S, C]; w1q int8 [2*inner, C] with s1 [2*inner],
+    w2q int8 [C, inner] with s2 [C]."""
+
+    x8, sx = quant_rows(ln_f32(x, ln_w, ln_b, eps))
+    a, g = (_dequant(x8, sx, w1q, s1) + b1.float()).chunk(2, dim=-1)
+    y8, sy = quant_rows(a * g * 0.5 * (1.0 + torch.erf(g * 2 ** -0.5)))
+    return (x.float() + (_dequant(y8, sy, w2q, s2) + b2.float())).to(x.dtype)
+
+
+def fused_ln_self_attention_int8_plain(x, ln_w, ln_b, wq8, sq, wk, wv, wo8, so, bo, heads: int,
+                                       eps: float = 1e-5) -> torch.Tensor:
+    """Plain version of K11b: int8 q/out projections (wq8/wo8 [C, C] with
+    sq/so [C]), bf16-path K/V (wk/wv [C, C] Linear weights)."""
+
+    xn = ln_f32(x, ln_w, ln_b, eps)
+    q = _q_proj(xn, wq8, sq, heads, x.dtype)
+    xf = xn.to(x.dtype)
+    return _out_proj(x, _attend(q, F.linear(xf, wk), F.linear(xf, wv), heads), wo8, so, bo)
+
+
+def fused_ln_cross_attention_int8_plain(
+    x, context, ln_w, ln_b, wq8, sq, wk, wv, wo8, so, bo, heads: int, *,
+    wk_ip=None, wv_ip=None, ip_scale: float = 0.0, num_ip_tokens: int = 8,
+    bias: Optional[torch.Tensor] = None, eps: float = 1e-5,
+) -> torch.Tensor:
+    """Plain version of K11c: context [B, Sk, Dc]; text K/V from the first
+    ``num_ip_tokens`` rows (all rows without an adapter), adapter K/V
+    (wk_ip/wv_ip [C, Dc]) from the rest; bias [B, Sk_text] fp32 additive."""
+
+    text, ip = _split_context(context, wk_ip, num_ip_tokens)
+    q = _q_proj(ln_f32(x, ln_w, ln_b, eps), wq8, sq, heads, x.dtype)
+    out = _attend(q, F.linear(text, wk), F.linear(text, wv), heads, bias)
+    if ip is not None:
+        out = out + ip_scale * _attend(q, F.linear(ip, wk_ip), F.linear(ip, wv_ip), heads)
+    return _out_proj(x, out, wo8, so, bo)
+
+
+# -- wrappers: the kernel on a CUDA tensor, the plain version on a CPU tensor --
+
+
+def _check_quantized(op: str, **pairs) -> None:
+    """Each value is (int8 weight, fp32 scale, expected weight shape)."""
+
+    for name, (w8, scale, shape) in pairs.items():
+        if w8.dtype != torch.int8 or tuple(w8.shape) != shape:
+            raise ValueError(f"{op}: {name} must be int8 {list(shape)}, got {w8.dtype} {list(w8.shape)}")
+        if scale.dtype != torch.float32 or tuple(scale.shape) != shape[:1]:
+            raise ValueError(f"{op}: the scale of {name} must be fp32 [{shape[0]}], "
+                             f"got {scale.dtype} {list(scale.shape)}")
+
+
+def _quant_dtypes(w8: str, scale: str, w8b: str, scale_b: str) -> dict:
+    """check_operands types: int8 for two quantized weights, fp32 for their scales."""
+
+    return {w8: torch.int8, w8b: torch.int8, scale: torch.float32, scale_b: torch.float32}
+
+
+def fused_ln_geglu_ff_int8(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, eps: float = 1e-5) -> torch.Tensor:
+    """K11a on a CUDA tensor (bf16 activations, LN and biases; int8 weights,
+    fp32 scales), the plain version on a CPU tensor."""
+
+    op = "fused_ln_geglu_ff_int8"
+    b, s, c = x.shape
+    inner = w2q.shape[1]
+    _check_quantized(op, w1q=(w1q, s1, (2 * inner, c)), w2q=(w2q, s2, (c, inner)))
+    operands = dict(x=x, ln_w=ln_w, ln_b=ln_b, w1q=w1q, s1=s1, b1=b1, w2q=w2q, s2=s2, b2=b2)
+    ck.check_contiguous(op, **operands)
+    ck.check_no_grad(op, **operands)
+    if x.device.type == "cpu":
+        return fused_ln_geglu_ff_int8_plain(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, eps)
+    _check_widths(op, c, inner)
+    ck.check_operands(op, x, _quant_dtypes("w1q", "s1", "w2q", "s2"), **operands)
+    m = b * s
+    x8, y8 = x.new_empty(m, c, dtype=torch.int8), x.new_empty(m, inner, dtype=torch.int8)
+    sx, sy = (x.new_empty(m, dtype=torch.float32) for _ in range(2))
+    y = x.new_empty(m, inner, dtype=torch.float32)
+    out = torch.empty_like(x)
+    ck.launch(op, x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1q.data_ptr(), s1.data_ptr(), b1.data_ptr(),
+              w2q.data_ptr(), s2.data_ptr(), b2.data_ptr(), x8.data_ptr(), sx.data_ptr(), y.data_ptr(),
+              y8.data_ptr(), sy.data_ptr(), out.data_ptr(), b, s, c, inner, eps)
+    return out
+
+
+def fused_ln_self_attention_int8(x, ln_w, ln_b, wq8, sq, wk, wv, wo8, so, bo, heads: int,
+                                 eps: float = 1e-5) -> torch.Tensor:
+    """K11b on a CUDA tensor (bf16 activations, LN, wk/wv and bo; int8
+    wq8/wo8, fp32 sq/so), the plain version on a CPU tensor."""
+
+    op = "fused_ln_self_attention_int8"
+    b, s, c = x.shape
+    _check_quantized(op, wq8=(wq8, sq, (c, c)), wo8=(wo8, so, (c, c)))
+    _check_weights(op, c, wk=wk, wv=wv)
+    operands = dict(x=x, ln_w=ln_w, ln_b=ln_b, wq8=wq8, sq=sq, wk=wk, wv=wv, wo8=wo8, so=so, bo=bo)
+    ck.check_contiguous(op, **operands)
+    ck.check_no_grad(op, **operands)
+    if x.device.type == "cpu":
+        return fused_ln_self_attention_int8_plain(x, ln_w, ln_b, wq8, sq, wk, wv, wo8, so, bo, heads, eps)
+    d = ck.check_heads(op, c, heads)
+    ck.check_operands(op, x, _quant_dtypes("wq8", "sq", "wo8", "so"), **operands)
+    x8 = x.new_empty(b * s, c, dtype=torch.int8)
+    sx = x.new_empty(b * s, dtype=torch.float32)
+    q, k, v, out = (torch.empty_like(x) for _ in range(4))
+    attn = x.new_empty(b, s, c, dtype=torch.float32)
+    ck.launch(op, x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wq8.data_ptr(), sq.data_ptr(), wk.data_ptr(),
+              wv.data_ptr(), wo8.data_ptr(), so.data_ptr(), bo.data_ptr(), x8.data_ptr(), sx.data_ptr(),
+              q.data_ptr(), k.data_ptr(), v.data_ptr(), attn.data_ptr(), out.data_ptr(), b, s, c, heads, eps,
+              float(d) ** -0.5)
+    return out
+
+
+def fused_ln_cross_attention_int8(
+    x, context, ln_w, ln_b, wq8, sq, wk, wv, wo8, so, bo, heads: int, *,
+    wk_ip=None, wv_ip=None, ip_scale: float = 0.0, num_ip_tokens: int = 8,
+    bias: Optional[torch.Tensor] = None, eps: float = 1e-5,
+) -> torch.Tensor:
+    """K11c on a CUDA tensor (bf16 activations, context, LN, K/V weights and
+    bo; int8 wq8/wo8, fp32 sq/so, fp32 ``bias``), the plain version on a CPU
+    tensor."""
+
+    op = "fused_ln_cross_attention_int8"
+    b, s, c = x.shape
+    sk_text, sk_ip = _check_cross(op, x, context, wk, wv, wq8, wo8, wk_ip, wv_ip, num_ip_tokens, bias)
+    _check_quantized(op, wq8=(wq8, sq, (c, c)), wo8=(wo8, so, (c, c)))
+    operands = dict(x=x, context=context, ln_w=ln_w, ln_b=ln_b, wq8=wq8, sq=sq, wk=wk, wv=wv, wo8=wo8,
+                    so=so, bo=bo, wk_ip=wk_ip, wv_ip=wv_ip, bias=bias)
+    ck.check_contiguous(op, **operands)
+    ck.check_no_grad(op, **operands)
+    if x.device.type == "cpu":
+        return fused_ln_cross_attention_int8_plain(
+            x, context, ln_w, ln_b, wq8, sq, wk, wv, wo8, so, bo, heads, wk_ip=wk_ip, wv_ip=wv_ip,
+            ip_scale=ip_scale, num_ip_tokens=num_ip_tokens, bias=bias, eps=eps)
+    _check_cuda_cross(op, x, context, heads, operands, _quant_dtypes("wq8", "sq", "wo8", "so"))
+    x8 = x.new_empty(b * s, c, dtype=torch.int8)
+    sx = x.new_empty(b * s, dtype=torch.float32)
+    q, out = torch.empty_like(x), torch.empty_like(x)
+    attn = x.new_empty(b, s, c, dtype=torch.float32)
+    k, v = (x.new_empty(b, sk_text, c) for _ in range(2))
+    ki = vi = None
+    if sk_ip:
+        ki, vi = (x.new_empty(b, sk_ip, c) for _ in range(2))
+    ck.launch(op, x.data_ptr(), context.data_ptr(), context.shape[1], context.shape[2], sk_text, ln_w.data_ptr(),
+              ln_b.data_ptr(), wq8.data_ptr(), sq.data_ptr(), wk.data_ptr(), wv.data_ptr(), ck.ptr(wk_ip), ck.ptr(wv_ip),
+              wo8.data_ptr(), so.data_ptr(), bo.data_ptr(), float(ip_scale), ck.ptr(bias), x8.data_ptr(),
+              sx.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), ck.ptr(ki), ck.ptr(vi), attn.data_ptr(),
+              out.data_ptr(), b, s, c, heads, eps, float(c // heads) ** -0.5)
+    return out

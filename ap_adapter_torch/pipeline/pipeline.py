@@ -27,7 +27,7 @@ from ap_adapter_torch.models.hoist import precompute_cross_kv, precompute_temb_r
 from ap_adapter_torch.models.layers import NORM_TYPES
 from ap_adapter_torch.models.projection import ProjectionModel
 from ap_adapter_torch.models.t5 import T5Encoder
-from ap_adapter_torch.models.unet import AudioLDM2UNet
+from ap_adapter_torch.models.unet import AudioLDM2UNet, quantize_unet_int8_
 from ap_adapter_torch.models.vae import AutoencoderKL
 from ap_adapter_torch.models.vocoder import HiFiGAN
 
@@ -178,7 +178,10 @@ class PipelineModules(nn.Module):
 
         ctx_kv = temb = None
         if c.hoist_step_invariants:
-            ctx_kv = precompute_cross_kv(self.unet, ehs0, t5_hidden, t5_mask)
+            if not c.unet.use_int8:
+                # int8 sites project K/V in the step, with the T5 bias built
+                # from the mask (JAX pipeline.py:272-277)
+                ctx_kv = precompute_cross_kv(self.unet, ehs0, t5_hidden, t5_mask)
             temb = precompute_temb_rows(self.unet, inference_timesteps(c.scheduler, num_inference_steps))
 
         def unet_fn(model_in, t, i):
@@ -193,11 +196,15 @@ class PipelineModules(nn.Module):
 
 
 class AudioLDM2Pipeline:
-    """User-facing pipeline: owns the modules on one device."""
+    """User-facing pipeline: owns the modules on one device. With
+    ``config.unet.use_int8`` it quantizes the UNet's int8 serving weights
+    once, here (JAX pipeline.py:374-380)."""
 
     def __init__(self, config: PipelineConfig, modules: PipelineModules):
         self.config = config
         self.modules = modules
+        if config.unet.use_int8 and modules is not None:
+            quantize_unet_int8_(modules.unet)
 
     @classmethod
     def from_random(cls, config: PipelineConfig, seed: int = 0, device="cuda",

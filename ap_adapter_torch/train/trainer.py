@@ -115,6 +115,8 @@ def compute_loss(modules, tc: TrainConfig, batch: Mapping[str, torch.Tensor], *,
     [B, S1]."""
 
     cfg = modules.config
+    if cfg.unet.use_int8:
+        raise ValueError("use_int8 is a serving configuration: the int8 kernels have no backward")
     tables = make_tables(cfg.scheduler)
     dtype = modules.dtype
     with torch.no_grad():

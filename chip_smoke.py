@@ -37,13 +37,26 @@ prints its seconds:
    finite losses and gradient norms, every adapter matrix moved and every
    frozen weight bit-identical, the exported flat adapter reloads to the
    trained tensors, and the launch counts are exactly (forward + backward)
-   per micro-step; prints each step's seconds and peak memory.
+   per micro-step; prints each step's seconds and peak memory;
+9. int8 kernels: K11a, K11b and K11c (adapter on; T5 with its bias) at each
+   edit-path shape, B=2, int8 weights from ``quantize_weight``, against the
+   plain versions (exact integer products in float64; limit 2e-2 of
+   max|plain|), with both times;
+10. int8 edit slice: the same weights as phase 6 under ``use_int8``
+   (quantized once by the pipeline) serve the same 2 requests; the same
+   waveform checks, launch counts of exactly one K11b/K11c/K11a per routed
+   site per UNet forward and none of K1-K3; seconds and peak memory beside
+   the bf16 requests'. Then the int8 request 0 against the bf16 request 0
+   (same seed and inputs) in log-mel (``audio/mel.py``): cosine > 0.99 and
+   mean abs difference < 0.1, with the waveform's relative error.
 
-Two lines before the last is a JSON object with one entry per kernel
-(``launches``: the count over its path's run, the edit requests for K1-K3
-and the training steps for K4 and K7-K9; ``ms``/``plain_ms``/``bound_ms``:
-the sum over the path's shapes and variants, each one listed under
-``cases``), then the card's ``nvidia-smi`` line; the last line is
+Phases run in the order 1-4, 9, 5, 6, 10, 7, 8. Two lines before the last
+is a JSON object with one entry per kernel (``launches``: the count over its
+path's run, the edit requests for K1-K3, the int8 requests for K11a-c and
+the training steps for K4 and K7-K9; ``ms``/``plain_ms``/``bound_ms``: the
+sum over the path's shapes and variants, each one listed under ``cases``;
+``bound_ms`` counts bf16 operations at the bf16 peak and int8 operations at
+the int8 peak), then the card's ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -66,6 +79,9 @@ TRAIN_SHAPES = [(1024, 256), (256, 384), (64, 640)]   # the same levels of a 10 
 TRAIN_B = 8
 HEADS = 8
 PEAK_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
+PEAK_INT8 = 1979e12     # H100 SXM dense int8 tensor-core peak (operations/s)
+LOGMEL_COS = 0.99       # int8 vs bf16 request, log-mel cosine (PARITY.md end-to-end row)
+LOGMEL_MAD = 0.1        # int8 vs bf16 request, mean abs log-mel difference
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 KERNELS = {
     "fused_ln_self_attention": ("ap_adapter_torch/csrc/fused_blocks.cu",
@@ -82,10 +98,17 @@ KERNELS = {
                                      "ap_adapter_tpu/ops/pallas_fused_cross.py:517"),
     "fused_ln_geglu_ff_bwd_dx": ("ap_adapter_torch/csrc/train_blocks.cu",
                                  "ap_adapter_tpu/ops/pallas_fused_ff.py:175"),
+    "fused_ln_geglu_ff_int8": ("ap_adapter_torch/csrc/int8_blocks.cu",
+                               "ap_adapter_tpu/ops/pallas_int8.py:118"),
+    "fused_ln_self_attention_int8": ("ap_adapter_torch/csrc/int8_blocks.cu",
+                                     "ap_adapter_tpu/ops/pallas_int8.py:259"),
+    "fused_ln_cross_attention_int8": ("ap_adapter_torch/csrc/int8_blocks.cu",
+                                      "ap_adapter_tpu/ops/pallas_int8.py:410"),
 }
 EDIT_KERNELS = ("fused_ln_self_attention", "fused_ln_cross_attention_kv", "fused_ln_geglu_ff")
 TRAIN_KERNELS = ("fused_ln_cross_attention", "fused_ln_self_attention_bwd_dx", "fused_ln_cross_attention_bwd",
                  "fused_ln_geglu_ff_bwd_dx")
+INT8_KERNELS = ("fused_ln_self_attention_int8", "fused_ln_cross_attention_int8", "fused_ln_geglu_ff_int8")
 
 
 def log(msg: str) -> None:
@@ -109,13 +132,19 @@ def time_ms(fn, iters: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    """The least time the card could take: the larger of the operations over
-    the bf16 tensor-core peak and the bytes (each input read once, each
-    output written once) over the HBM rate."""
+def ops_ms(flops: float, int8_ops: float = 0.0) -> float:
+    """The operations' least time: bf16 ones at the bf16 peak, int8 ones at the int8 peak."""
 
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+    return (flops / PEAK_FLOPS + int8_ops / PEAK_INT8) * 1e3
+
+
+def bound(flops: float, nbytes: float, int8_ops: float = 0.0) -> dict:
+    """The least time the card could take: the larger of the operations'
+    least time (``ops_ms``) and the bytes (each input read once, each output
+    written once) over the HBM rate."""
+
+    t_ops, t_bytes = ops_ms(flops, int8_ops), nbytes / PEAK_BYTES * 1e3
+    return {"flops": flops, "int8_ops": int8_ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
@@ -145,6 +174,15 @@ def work(name: str, b: int, s: int, c: int, sk: int = 0, sk_ip: int = 0, dc: int
                      ctx_bytes + 2 * (3 * mc + 2 * c * c + 2 * c) + 2 * 4 * b * sk_ip * c)
     if name == "fused_ln_geglu_ff_bwd_dx":         # gh, recomputed h, gxn
         return bound(40 * mc * c, 2 * (3 * mc + 12 * c * c + 10 * c))
+    # int8: one-byte weights, fp32 scales, bf16 activations, LN and biases
+    if name == "fused_ln_geglu_ff_int8":           # W1 [C, 8C], W2 [4C, C] in int8
+        return bound(0, 2 * 2 * mc + 12 * c * c + 4 * 9 * c + 2 * 11 * c, int8_ops=24 * mc * c)
+    if name == "fused_ln_self_attention_int8":     # int8 q, out; bf16 K/V, QK^T + PV
+        return bound(4 * mc * c + 2 * attn * s, 2 * 2 * mc + 2 * c * c + 2 * 2 * c * c + 4 * 2 * c + 2 * 3 * c,
+                     int8_ops=4 * mc * c)
+    if name == "fused_ln_cross_attention_int8":    # context K/V bf16, int8 q and out, two key sets
+        return bound(proj + 2 * attn * (sk + sk_ip),
+                     ctx_bytes + 2 * 2 * mc + 2 * c * c + 4 * 2 * c + 2 * 3 * c, int8_ops=4 * mc * c)
     raise KeyError(name)
 
 
@@ -212,6 +250,61 @@ def kernel_phase(device) -> dict:
             ("fused_ln_geglu_ff", "geglu", {},
              lambda: fused_ln_geglu_ff(x, ln_w, ln_b, w1, b1, w2, b2),
              lambda: fused_ln_geglu_ff_plain(x, ln_w, ln_b, w1, b1, w2, b2)),
+        ]
+        for name, variant, keys, kernel, plain in cases:
+            run_case(results, name, variant, (2, s, c), keys, kernel, plain, TOL)
+    return results
+
+
+def int8_kernel_phase(device) -> dict:
+    """K11a/K11b/K11c against their plain versions at the main-path shapes,
+    on int8 weights from quantize_weight."""
+
+    import torch
+
+    from ap_adapter_torch.ops.int8 import (
+        fused_ln_cross_attention_int8, fused_ln_cross_attention_int8_plain, fused_ln_geglu_ff_int8,
+        fused_ln_geglu_ff_int8_plain, fused_ln_self_attention_int8, fused_ln_self_attention_int8_plain,
+        quantize_weight)
+
+    gen = torch.Generator(device=device).manual_seed(5)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+    results = new_results(INT8_KERNELS)
+    for s, c in SHAPES:
+        x = r(2, s, c)
+        ln_w, ln_b = 1 + r(c, scale=0.1), r(c, scale=0.1)
+        wq8, sq = quantize_weight(r(c, c, scale=c ** -0.5))
+        wo8, so = quantize_weight(r(c, c, scale=c ** -0.5))
+        wk, wv, bo = r(c, c, scale=c ** -0.5), r(c, c, scale=c ** -0.5), r(c, scale=0.1)
+        w1q, s1 = quantize_weight(r(8 * c, c, scale=c ** -0.5))
+        w2q, s2 = quantize_weight(r(c, 4 * c, scale=(4 * c) ** -0.5))
+        b1, b2 = r(8 * c, scale=0.1), r(c, scale=0.1)
+        ctx = r(2, 8 + 128, 768)                 # GPT-2 + pooled AudioMAE tokens (pool 2/2)
+        wkc, wvc, wki, wvi = (r(c, 768, scale=768 ** -0.5) for _ in range(4))
+        t5 = r(2, 64, 1024)
+        wk5, wv5 = (r(c, 1024, scale=1024 ** -0.5) for _ in range(2))
+        t5_bias = torch.zeros(2, 64, device=device)
+        t5_bias[0, 12:] = -10000.0
+        t5_bias[1, 30:] = -10000.0
+        ff = (x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2)
+        sa = (x, ln_w, ln_b, wq8, sq, wk, wv, wo8, so, bo, HEADS)
+        ca = (x, ctx, ln_w, ln_b, wq8, sq, wkc, wvc, wo8, so, bo, HEADS)
+        ad = dict(wk_ip=wki, wv_ip=wvi, ip_scale=0.5)
+        ct = (x, t5, ln_w, ln_b, wq8, sq, wk5, wv5, wo8, so, bo, HEADS)
+        cases = [
+            ("fused_ln_self_attention_int8", "self", {},
+             lambda: fused_ln_self_attention_int8(*sa), lambda: fused_ln_self_attention_int8_plain(*sa)),
+            ("fused_ln_cross_attention_int8", "adapter", dict(sk=8, sk_ip=128, dc=768),
+             lambda: fused_ln_cross_attention_int8(*ca, **ad),
+             lambda: fused_ln_cross_attention_int8_plain(*ca, **ad)),
+            ("fused_ln_cross_attention_int8", "t5+bias", dict(sk=64, dc=1024),
+             lambda: fused_ln_cross_attention_int8(*ct, bias=t5_bias),
+             lambda: fused_ln_cross_attention_int8_plain(*ct, bias=t5_bias)),
+            ("fused_ln_geglu_ff_int8", "geglu", {},
+             lambda: fused_ln_geglu_ff_int8(*ff), lambda: fused_ln_geglu_ff_int8_plain(*ff)),
         ]
         for name, variant, keys, kernel, plain in cases:
             run_case(results, name, variant, (2, s, c), keys, kernel, plain, TOL)
@@ -341,6 +434,16 @@ def expected_launches(unet_config) -> dict:
             "fused_ln_geglu_ff": groups * blocks * len(c.cross_attention_dims)}
 
 
+def expected_int8_launches(unet_config) -> dict:
+    """Kernel calls per UNet forward under use_int8: K11b where K1 runs, K11c
+    where K2 runs, K11a where K3 runs."""
+
+    per = expected_launches(unet_config)
+    return {"fused_ln_self_attention_int8": per["fused_ln_self_attention"],
+            "fused_ln_cross_attention_int8": per["fused_ln_cross_attention_kv"],
+            "fused_ln_geglu_ff_int8": per["fused_ln_geglu_ff"]}
+
+
 def expected_train_launches(unet_config) -> dict:
     """Kernel calls per training micro-step (one UNet forward and backward,
     no hoisting): the forward routes cross sites to K4 instead of K2; the
@@ -405,6 +508,9 @@ def reference_phase(modules, device) -> float:
 
 
 def slice_phase(pipe, device, requests: int = 2) -> list:
+    """Serve ``requests`` edit requests (seeds 0, 1) with exact launch counts
+    for the pipeline's configuration; each run keeps its waveform."""
+
     import numpy as np
     import torch
 
@@ -417,7 +523,7 @@ def slice_phase(pipe, device, requests: int = 2) -> list:
     pos = make_text_batch(c, [task.positive_text_prompts[0]])
     neg = make_text_batch(c, [task.negative_text_prompts[0]])
     fbank = np.random.default_rng(0).standard_normal((1, *c.audiomae.img_size)).astype(np.float32)
-    per_forward = expected_launches(c.unet)
+    per_forward = expected_int8_launches(c.unet) if c.unet.use_int8 else expected_launches(c.unet)
     want = {k: per_forward.get(k, 0) * task.num_inference_steps for k in cuda_kernels.LAUNCHES}
     samples = int(task.audio_length_in_s * c.vocoder.sampling_rate)
 
@@ -437,7 +543,8 @@ def slice_phase(pipe, device, requests: int = 2) -> list:
         moved = {k: now[k] - before[k] for k in now}
         before = now
         mem = torch.cuda.max_memory_allocated()
-        log(f"request {i}: {seconds:.3f} s, max_memory_allocated={mem / 2**30:.3f} GiB, "
+        log(f"request {i} ({'int8' if c.unet.use_int8 else 'bf16'}): {seconds:.3f} s, "
+            f"max_memory_allocated={mem / 2**30:.3f} GiB, "
             f"wav {wav.shape} std={wav.std():.4g} max|wav|={np.abs(wav).max():.4g}, launches {moved}")
         if wav.shape != (1, samples) or not np.all(np.isfinite(wav)) or not wav.std() > 0:
             raise RuntimeError(f"request {i}: bad waveform {wav.shape}")
@@ -445,8 +552,48 @@ def slice_phase(pipe, device, requests: int = 2) -> list:
             raise RuntimeError(f"request {i}: waveform outside the tanh range")
         if moved != want:
             raise RuntimeError(f"request {i}: launch counts {moved} != expected {want}")
-        runs.append({"seconds": seconds, "max_memory_allocated": mem, "launches": moved})
+        runs.append({"seconds": seconds, "max_memory_allocated": mem, "launches": moved, "wav": wav})
     return runs
+
+
+def int8_slice_phase(modules, bf16_runs, device) -> tuple:
+    """The bf16 slice's weights (shared, not copied) under use_int8: serve
+    the same requests, then hold int8 request 0 against bf16 request 0 in
+    log-mel space, as scripts/compare_int8.py does for the JAX package."""
+
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ap_adapter_torch.audio.mel import tacotron_mel
+    from ap_adapter_torch.pipeline.pipeline import AudioLDM2Pipeline, PipelineModules
+
+    base = modules.config
+    config = base.replace(unet=dataclasses.replace(base.unet, use_int8=True))
+    mods = PipelineModules(config)
+    mods.load_state_dict(modules.state_dict(), strict=True, assign=True)
+    t0 = time.perf_counter()
+    pipe = AudioLDM2Pipeline(config, mods)          # quantizes the UNet once
+    torch.cuda.synchronize()
+    log(f"int8 weights quantized in {time.perf_counter() - t0:.2f} s")
+    runs = slice_phase(pipe, device, requests=len(bf16_runs))
+    for i, (r8, r16) in enumerate(zip(runs, bf16_runs)):
+        log(f"request {i}: int8 {r8['seconds']:.3f} s, {r8['max_memory_allocated'] / 2**30:.3f} GiB; "
+            f"bf16 {r16['seconds']:.3f} s, {r16['max_memory_allocated'] / 2**30:.3f} GiB")
+    got, want = runs[0]["wav"], bf16_runs[0]["wav"]
+    a, b = (tacotron_mel(torch.from_numpy(w), config.mel).double().flatten() for w in (got, want))
+    cos = (a @ b / (a.norm() * b.norm())).item()
+    mad = (a - b).abs().mean().item()
+    wav_rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    log(f"int8 quality, request 0 vs bf16 request 0: log-mel cosine {cos:.6f} (limit > {LOGMEL_COS}), "
+        f"mean abs diff {mad:.6g} (limit < {LOGMEL_MAD}); waveform relative error {wav_rel:.6g} "
+        f"(max|wav| {np.abs(want).max():.4g}: random weights give a near-silent clip)")
+    if not (cos > LOGMEL_COS and mad < LOGMEL_MAD):
+        raise RuntimeError("int8 quality check failed")
+    del pipe, mods
+    torch.cuda.empty_cache()
+    return runs, {"logmel_cosine": cos, "logmel_mean_abs_diff": mad, "wav_rel_err": wav_rel}
 
 
 def train_reference_phase(modules, device) -> dict:
@@ -642,6 +789,7 @@ def main() -> int:
     phase("build", build_phase)
     kernels = phase("kernels", kernel_phase, device)
     kernels.update(phase("training kernels", train_kernel_phase, device))
+    kernels.update(phase("int8 kernels", int8_kernel_phase, device))
 
     config = PipelineConfig()
     if expected_launches(config.unet) != {"fused_ln_self_attention": 192,
@@ -653,6 +801,7 @@ def main() -> int:
     log(f"random weights: {n_params / 1e6:.1f}M params in {time.perf_counter() - t0:.1f} s")
     phase("reference", reference_phase, pipe.modules, device)
     runs = phase("edit slice", slice_phase, pipe, device)
+    int8_runs, int8_quality = phase("int8 edit slice", int8_slice_phase, pipe.modules, runs, device)
     train_ref = phase("training reference", train_reference_phase, pipe.modules, device)
     del pipe
     torch.cuda.empty_cache()
@@ -660,16 +809,19 @@ def main() -> int:
 
     total = {k: sum(r["launches"][k] for r in runs) for k in EDIT_KERNELS}
     total.update({k: training["launches"][k] for k in TRAIN_KERNELS})
+    total.update({k: sum(r["launches"][k] for r in int8_runs) for k in INT8_KERNELS})
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu, "launches": total[name],
          "max_abs_err": kernels[name]["max_abs_err"], "ms": kernels[name]["ms"],
          "plain_ms": kernels[name]["plain_ms"], "bound_ms": kernels[name]["bound_ms"],
-         "bound_by": ("operations" if sum(cs["flops"] for cs in kernels[name]["cases"]) / PEAK_FLOPS
-                      >= sum(cs["bytes"] for cs in kernels[name]["cases"]) / PEAK_BYTES else "bytes"),
+         "bound_by": ("operations" if sum(ops_ms(cs["flops"], cs["int8_ops"]) for cs in kernels[name]["cases"])
+                      >= sum(cs["bytes"] for cs in kernels[name]["cases"]) / PEAK_BYTES * 1e3 else "bytes"),
          "library_ms": None, "cases": kernels[name]["cases"]}
         for name, (src, tpu) in KERNELS.items()],
         "requests": [{"seconds": r["seconds"], "max_memory_allocated": r["max_memory_allocated"]}
                      for r in runs],
+        "int8_requests": [{"seconds": r["seconds"], "max_memory_allocated": r["max_memory_allocated"]}
+                          for r in int8_runs], "int8_quality": int8_quality,
         "training_launches": {k: training["launches"][k] for k in KERNELS},
         "training_steps": training["steps"], "training_reference": train_ref, "phase_seconds": phases}
     if min(total.values()) <= 0 or set(cuda_kernels.LAUNCHES) != set(KERNELS):

@@ -1,5 +1,5 @@
-"""PyTorch port on the card: the hand-written CUDA kernels (K1-K4, K7-K9)
-against their plain PyTorch versions and autograd over them.
+"""PyTorch port on the card: the hand-written CUDA kernels (K1-K4, K7-K9,
+K11a-c) against their plain PyTorch versions and autograd over them.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither jax nor the JAX package, so it also runs where JAX is absent:
@@ -20,6 +20,10 @@ from ap_adapter_torch.ops.fused_cross import (
     fused_ln_cross_attention_vjp)
 from ap_adapter_torch.ops.fused_ff import (
     fused_ln_geglu_ff, fused_ln_geglu_ff_bwd_dx, fused_ln_geglu_ff_bwd_dx_plain, fused_ln_geglu_ff_plain)
+from ap_adapter_torch.ops.int8 import (
+    fused_ln_cross_attention_int8, fused_ln_cross_attention_int8_plain, fused_ln_geglu_ff_int8,
+    fused_ln_geglu_ff_int8_plain, fused_ln_self_attention_int8, fused_ln_self_attention_int8_plain,
+    quantize_weight)
 
 # bf16 kernels vs their plain versions: bf16 rounds q, k, v and the
 # probabilities at different points in the two, so the limit is a fraction
@@ -82,9 +86,8 @@ def test_kernels_match_plain(cuda_device, s, c):
            fused_ln_geglu_ff_plain(x, ln_w, ln_b, w1, b1, w2, b2))
 
     moved = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
-    assert moved == {"fused_ln_self_attention": 1, "fused_ln_cross_attention_kv": 2, "fused_ln_geglu_ff": 1,
-                     "fused_ln_cross_attention": 0, "fused_ln_self_attention_bwd_dx": 0,
-                     "fused_ln_cross_attention_bwd": 0, "fused_ln_geglu_ff_bwd_dx": 0}
+    assert moved == {**dict.fromkeys(before, 0), "fused_ln_self_attention": 1, "fused_ln_cross_attention_kv": 2,
+                     "fused_ln_geglu_ff": 1}
 
 
 @pytest.mark.gpu
@@ -153,9 +156,9 @@ def test_training_kernels_match_plain(cuda_device, s, c, sk_ip):
     _check(got[0], want[0], GRAD_TOL)
 
     moved = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
-    assert moved == {"fused_ln_self_attention": 0, "fused_ln_cross_attention_kv": 0, "fused_ln_geglu_ff": 0,
-                     "fused_ln_cross_attention": 2, "fused_ln_self_attention_bwd_dx": 1,
-                     "fused_ln_cross_attention_bwd": 2, "fused_ln_geglu_ff_bwd_dx": 1}
+    assert moved == {**dict.fromkeys(before, 0), "fused_ln_cross_attention": 2,
+                     "fused_ln_self_attention_bwd_dx": 1, "fused_ln_cross_attention_bwd": 2,
+                     "fused_ln_geglu_ff_bwd_dx": 1}
 
 
 @pytest.mark.gpu
@@ -189,3 +192,73 @@ def test_autograd_functions_on_the_card(cuda_device):
     for a, w in zip(got, want):
         assert a.dtype == w.dtype
         _check(a, w, GRAD_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,c", [(1000, 256), (252, 384), (64, 640), (37, 128)])
+def test_int8_kernels_match_plain(cuda_device, s, c):
+    """K11a-c at the three UNet levels and one ragged size, on int8 weights
+    from quantize_weight: the adapter site (8 text + 128 adapter tokens of
+    768) and a T5 site (70 keys of 1024, more than one key tile, with a
+    padding bias). Both versions quantize identically, so the limit is K1-K3's."""
+
+    heads = 8
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=cuda_device) * scale).to(torch.bfloat16)
+
+    x = r(2, s, c)
+    ln_w, ln_b = 1 + r(c, scale=0.1), r(c, scale=0.1)
+    wq8, sq = quantize_weight(r(c, c, scale=c ** -0.5))
+    wo8, so = quantize_weight(r(c, c, scale=c ** -0.5))
+    wk, wv, bo = r(c, c, scale=c ** -0.5), r(c, c, scale=c ** -0.5), r(c, scale=0.1)
+    w1q, s1 = quantize_weight(r(8 * c, c, scale=c ** -0.5))
+    w2q, s2 = quantize_weight(r(c, 4 * c, scale=(4 * c) ** -0.5))
+    b1, b2 = r(8 * c, scale=0.1), r(c, scale=0.1)
+    before = dict(cuda_kernels.LAUNCHES)
+
+    ff = (x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2)
+    _check(fused_ln_geglu_ff_int8(*ff), fused_ln_geglu_ff_int8_plain(*ff))
+    sa = (x, ln_w, ln_b, wq8, sq, wk, wv, wo8, so, bo, heads)
+    _check(fused_ln_self_attention_int8(*sa), fused_ln_self_attention_int8_plain(*sa))
+
+    ctx = r(2, 8 + 128, 768)
+    wkc, wvc, wki, wvi = (r(c, 768, scale=768 ** -0.5) for _ in range(4))
+    ca = (x, ctx, ln_w, ln_b, wq8, sq, wkc, wvc, wo8, so, bo, heads)
+    kw = dict(wk_ip=wki, wv_ip=wvi, ip_scale=0.5)
+    _check(fused_ln_cross_attention_int8(*ca, **kw), fused_ln_cross_attention_int8_plain(*ca, **kw))
+    t5 = r(2, 70, 1024)
+    wk5, wv5 = (r(c, 1024, scale=1024 ** -0.5) for _ in range(2))
+    bias = torch.zeros(2, 70, device=cuda_device)
+    bias[0, 20:] = -10000.0
+    ct = (x, t5, ln_w, ln_b, wq8, sq, wk5, wv5, wo8, so, bo, heads)
+    _check(fused_ln_cross_attention_int8(*ct, bias=bias), fused_ln_cross_attention_int8_plain(*ct, bias=bias))
+
+    moved = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
+    assert moved == {**dict.fromkeys(before, 0), "fused_ln_geglu_ff_int8": 1,
+                     "fused_ln_self_attention_int8": 1, "fused_ln_cross_attention_int8": 2}
+
+
+@pytest.mark.gpu
+def test_int8_kernels_refuse_what_they_cannot_take(cuda_device):
+    """Float weights where int8 ones belong, widths the int8 GEMM cannot
+    tile, fp32 activations and operands that require grad under grad mode
+    raise; nothing falls back to the plain version."""
+
+    c, heads = 128, 8
+    x = torch.zeros(1, 8, c, device=cuda_device, dtype=torch.bfloat16)
+    w = torch.zeros(c, c, device=cuda_device, dtype=torch.bfloat16)
+    b = torch.zeros(c, device=cuda_device, dtype=torch.bfloat16)
+    w8, s8 = quantize_weight(w + 1)
+    with pytest.raises(ValueError):           # a bf16 weight as wq8
+        fused_ln_self_attention_int8(x, b, b, w, s8, w, w, w8, s8, b, heads)
+    with pytest.raises(ValueError):           # fp32 activations
+        fused_ln_self_attention_int8(x.float(), b, b, w8, s8, w, w, w8, s8, b, heads)
+    x96, w96, b96 = x[..., :96].contiguous(), w[:96, :96].contiguous(), b[:96].contiguous()
+    q96, s96 = quantize_weight(w96 + 1)
+    with pytest.raises(ValueError):           # C % 64 != 0
+        fused_ln_self_attention_int8(x96, b96, b96, q96, s96, w96, w96, q96, s96, b96, 6)
+    with pytest.raises(RuntimeError):         # grad mode, an operand that requires grad
+        fused_ln_self_attention_int8(x.requires_grad_(), b, b, w8, s8, w, w, w8, s8, b, heads)
+
