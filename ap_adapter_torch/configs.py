@@ -263,6 +263,15 @@ class UNetConfig:
     # class label concatenated with the time embedding)
     class_embed_dim: Optional[int] = None
     class_embeddings_concat: bool = False
+    # fused GroupNorm+SiLU kernel at the resnet norm sites — opt-in
+    # (the JAX package measured it at parity-or-slower vs XLA's fused GN at
+    # UNet shapes on the TPU, docs/PERF.md negative results). Here it routes
+    # norm1/norm2 + SiLU of every UNet resnet to K12 (ops/groupnorm.py).
+    use_pallas_groupnorm: bool = False
+    # fully-fused resnet block kernel: both GN+SiLU passes + both 3x3 convs +
+    # temb + shortcut. Here it routes every UNet resnet to K13
+    # (ops/resnet.py); with both switches on, K13 runs and K12 does not.
+    use_pallas_resnet: bool = False
     # int8 W8A8 serving (ops/int8.py): every transformer site runs its int8
     # kernel (K11a-c) on weights quantized once (models/unet.py
     # quantize_unet_int8_). Inference only: the int8 kernels have no

@@ -2,8 +2,9 @@
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ap_adapter_torch.configs import SchedulerConfig
@@ -16,13 +17,16 @@ def ddim_sample_loop(
     scheduler_config: SchedulerConfig,
     num_inference_steps: int,
     guidance_scale: float,
+    timesteps: Optional[np.ndarray] = None,
 ) -> torch.Tensor:
     """Run the DDIM denoise. ``unet_fn(model_in, t, step_index)`` returns the
     noise prediction; the model input is [uncond; cond] (negative first) and
-    the outputs combine as uncond + g * (cond - uncond)."""
+    the outputs combine as uncond + g * (cond - uncond). ``timesteps``
+    overrides the schedule (the truncated SDEdit tail); the step spacing
+    still follows ``num_inference_steps``."""
 
     tables = make_tables(scheduler_config)
-    ts = inference_timesteps(scheduler_config, num_inference_steps)
+    ts = inference_timesteps(scheduler_config, num_inference_steps) if timesteps is None else timesteps
     step_ratio = scheduler_config.num_train_timesteps // num_inference_steps
     for i, t in enumerate(int(t) for t in ts):
         uncond, cond = unet_fn(torch.cat([latents, latents]), t, i).chunk(2)

@@ -67,6 +67,10 @@ class AudioLDM2UNet(nn.Module):
         groups, eps, ted = c.norm_num_groups, c.norm_eps, c.time_embed_dim
         n_dims = len(c.cross_attention_dims)
 
+        def resnet(cin, cout):
+            return ResnetBlock2D(cin, cout, groups, eps, ted, use_groupnorm_kernel=c.use_pallas_groupnorm,
+                                 use_resnet_kernel=c.use_pallas_resnet)
+
         def t2d_group(channels):
             return [Transformer2DModel(
                 channels, c.num_attention_heads, c.transformer_layers_per_block, dim,
@@ -83,7 +87,7 @@ class AudioLDM2UNet(nn.Module):
         for bi, out_ch in enumerate(ch):
             resnets, attns = [], []
             for _ in range(c.layers_per_block):
-                resnets.append(ResnetBlock2D(x_ch, out_ch, groups, eps, ted))
+                resnets.append(resnet(x_ch, out_ch))
                 if c.down_block_has_attn[bi]:
                     attns += t2d_group(out_ch)
                 x_ch = out_ch
@@ -95,13 +99,13 @@ class AudioLDM2UNet(nn.Module):
             self.down_blocks.append(UNetBlock(resnets, attns, downsample=down))
 
         self.mid_block = UNetBlock(
-            [ResnetBlock2D(ch[-1], ch[-1], groups, eps, ted) for _ in range(2)], t2d_group(ch[-1]))
+            [resnet(ch[-1], ch[-1]) for _ in range(2)], t2d_group(ch[-1]))
 
         self.up_blocks = nn.ModuleList()
         for bi, out_ch in enumerate(reversed(ch)):
             resnets, attns = [], []
             for _ in range(c.layers_per_block + 1):
-                resnets.append(ResnetBlock2D(x_ch + skip_ch.pop(), out_ch, groups, eps, ted))
+                resnets.append(resnet(x_ch + skip_ch.pop(), out_ch))
                 if c.up_block_has_attn[bi]:
                     attns += t2d_group(out_ch)
                 x_ch = out_ch
@@ -212,6 +216,19 @@ class AudioLDM2UNet(nn.Module):
 
         x = self.conv_out(F.silu(self.conv_norm_out(x)))
         return x.permute(0, 2, 3, 1)
+
+
+def prepare_resnet_kernel_weights_(unet: AudioLDM2UNet) -> AudioLDM2UNet:
+    """Copy every resnet's conv weights once, in place, into the HWIO layout
+    that K13 reads (non-persistent buffers: a checkpoint's keys do not
+    change), for ``use_pallas_resnet``. ``AudioLDM2Pipeline`` calls it; re-run
+    it after changing the float conv weights."""
+
+    if not unet.config.use_pallas_resnet:
+        raise ValueError("prepare_resnet_kernel_weights_: the UNet's config has use_pallas_resnet off")
+    for _, res in unet.resnet_blocks():
+        res.prepare_kernel_weights_()
+    return unet
 
 
 @torch.no_grad()

@@ -16,6 +16,9 @@ from the raw context, the T5 bias, the adapter split at ``num_ip_tokens``;
 never hoisted K/V) and the feed-forward to K11a. Their int8 weights are
 buffers that ``models/unet.py::quantize_unet_int8_`` registers once; a site
 without them raises rather than falling back to the bf16 kernels.
+
+The resnets route to K12 (``use_pallas_groupnorm``) or K13
+(``use_pallas_resnet``), as ``ResnetBlock2D`` describes.
 """
 
 from __future__ import annotations
@@ -29,8 +32,10 @@ import torch.nn.functional as F
 from ap_adapter_torch.ops.fused_block import fused_ln_self_attention_vjp
 from ap_adapter_torch.ops.fused_cross import fused_ln_cross_attention_kv, fused_ln_cross_attention_vjp
 from ap_adapter_torch.ops.fused_ff import fused_ln_geglu_ff_vjp
+from ap_adapter_torch.ops.groupnorm import group_norm_silu_vjp
 from ap_adapter_torch.ops.int8 import (
     fused_ln_cross_attention_int8, fused_ln_geglu_ff_int8, fused_ln_self_attention_int8, quantize_weight)
+from ap_adapter_torch.ops.resnet import fused_resnet_block_vjp
 
 # (k, v, k_ip, v_ip) for one cross-attention site; k_ip/v_ip are None where
 # the site has no adapter tokens
@@ -38,10 +43,20 @@ KV = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor], Optional[torch.Te
 
 
 class ResnetBlock2D(nn.Module):
-    """GN -> silu -> conv -> (+temb) -> GN -> silu -> conv (+shortcut), NCHW."""
+    """GN -> silu -> conv -> (+temb) -> GN -> silu -> conv (+shortcut), NCHW.
+
+    The UNet's switches route it as the JAX does (unet_blocks.py:93-136):
+    ``use_resnet_kernel`` sends the whole block to K13 (``ops/resnet.py``),
+    else ``use_groupnorm_kernel`` sends norm1/norm2 + SiLU to K12
+    (``ops/groupnorm.py``); with both on, K13 runs and K12 does not. The
+    VAE's resnets take neither. Both kernels read the activations as the
+    UNet keeps them, channels-last in memory. K13 takes HWIO conv weights,
+    which ``prepare_kernel_weights_`` copies once from the torch weights into
+    non-persistent buffers (the state-dict keys do not change)."""
 
     def __init__(self, in_channels: int, out_channels: int, groups: int = 32,
-                 eps: float = 1e-5, temb_channels: Optional[int] = None):
+                 eps: float = 1e-5, temb_channels: Optional[int] = None,
+                 use_groupnorm_kernel: bool = False, use_resnet_kernel: bool = False):
         super().__init__()
         self.norm1 = nn.GroupNorm(groups, in_channels, eps=eps)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
@@ -50,16 +65,57 @@ class ResnetBlock2D(nn.Module):
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
+        self.use_groupnorm_kernel = use_groupnorm_kernel
+        self.use_resnet_kernel = use_resnet_kernel
+
+    @torch.no_grad()
+    def prepare_kernel_weights_(self) -> None:
+        """HWIO copies of the conv weights for K13, as non-persistent buffers
+        ``conv1_hwio``, ``conv2_hwio`` and ``conv_shortcut_hwio``."""
+
+        convs = {"conv1": self.conv1, "conv2": self.conv2, "conv_shortcut": self.conv_shortcut}
+        for name, conv in convs.items():
+            hwio = None if conv is None else conv.weight.permute(2, 3, 1, 0).contiguous()
+            self.register_buffer(f"{name}_hwio", hwio, persistent=False)
+
+    def _norm_silu(self, h: torch.Tensor, norm: nn.GroupNorm) -> torch.Tensor:
+        if self.use_groupnorm_kernel:
+            return group_norm_silu_vjp(h.contiguous(memory_format=torch.channels_last), norm.weight, norm.bias,
+                                       norm.num_groups, norm.eps, act=True)
+        return F.silu(norm(h))
+
+    def _temb(self, x, temb, temb_row) -> Optional[torch.Tensor]:
+        """This block's time embedding: one row of the hoisted [T, C] table
+        (the same for the whole batch, [C]), or the projection of ``temb``
+        ([B, C]); None without either."""
+
+        if self.time_emb_proj is None:
+            return None
+        if temb_row is not None:
+            return temb_row.to(x.dtype)
+        return None if temb is None else self.time_emb_proj(F.silu(temb))
+
+    def _forward_kernel(self, x, t) -> torch.Tensor:
+        if not hasattr(self, "conv1_hwio"):
+            raise RuntimeError("ResnetBlock2D: a use_pallas_resnet site without its HWIO weights; prepare the "
+                               "UNet once with models.unet.prepare_resnet_kernel_weights_")
+        sc = self.conv_shortcut
+        y = fused_resnet_block_vjp(
+            x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1), t,
+            self.norm1.weight, self.norm1.bias, self.conv1_hwio, self.conv1.bias,
+            self.norm2.weight, self.norm2.bias, self.conv2_hwio, self.conv2.bias,
+            self.conv_shortcut_hwio, None if sc is None else sc.bias, self.norm1.num_groups, self.norm1.eps)
+        return y.permute(0, 3, 1, 2)
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
                 temb_row: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
-        if self.time_emb_proj is not None and temb_row is not None:
-            # one row of the hoisted [T, C] table, the same for the whole batch
-            h = h + temb_row.to(h.dtype)[None, :, None, None]
-        elif self.time_emb_proj is not None and temb is not None:
-            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        t = self._temb(x, temb, temb_row)
+        if self.use_resnet_kernel:
+            return self._forward_kernel(x, t)
+        h = self.conv1(self._norm_silu(x, self.norm1))
+        if t is not None:
+            h = h + t.reshape(-1, h.shape[1], 1, 1)
+        h = self.conv2(self._norm_silu(h, self.norm2))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h

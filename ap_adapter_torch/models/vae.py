@@ -13,11 +13,13 @@ import torch.nn.functional as F
 
 from ap_adapter_torch.configs import VAEConfig
 from ap_adapter_torch.models.unet_blocks import ResnetBlock2D, Upsample2D
-from ap_adapter_torch.ops.attention import sdpa
+from ap_adapter_torch.ops.attention import self_attention
 
 
 class VAEAttention(nn.Module):
-    """Single-head spatial self-attention of the mid block (biased projections, residual)."""
+    """Single-head spatial self-attention of the mid block (biased projections,
+    residual), through ``self_attention`` as the JAX module does (vae.py:36):
+    at S >= 512 positions the K5/K6 kernel."""
 
     def __init__(self, channels: int, groups: int):
         super().__init__()
@@ -30,7 +32,7 @@ class VAEAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
         b, c, h, w = x.shape
         y = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, h * w, 1, c)
-        out = sdpa(self.to_q(y), self.to_k(y), self.to_v(y)).reshape(b, h * w, c)
+        out = self_attention(self.to_q(y), self.to_k(y), self.to_v(y)).reshape(b, h * w, c)
         out = self.to_out[0](out).reshape(b, h, w, c).permute(0, 3, 1, 2)
         return out + x
 

@@ -35,6 +35,25 @@ def sdpa(
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+SELF_ATTENTION_MIN_SEQ = 512
+
+
+def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Self-attention [B, S, H, D], the counterpart of the JAX routine
+    (attention.py:70-94): sequences of ``SELF_ATTENTION_MIN_SEQ`` tokens or
+    more go to the K5/K6 kernel (``ops/self_attention.py``; on a CPU tensor
+    its plain version), shorter ones to ``sdpa``. The JAX routine also falls
+    back to XLA where K/V would overflow the TPU's VMEM budget (:86-90); the
+    Hopper kernel streams K/V through shared memory and has no such limit,
+    so that check has no counterpart here."""
+
+    if q.shape[1] < SELF_ATTENTION_MIN_SEQ:
+        return sdpa(q, k, v)
+    from ap_adapter_torch.ops.self_attention import self_attention_vjp
+
+    return self_attention_vjp(q, k, v)
+
+
 def dual_kv_attention(
     q: torch.Tensor,
     k_text: torch.Tensor,

@@ -44,6 +44,10 @@ _SIGNATURES = {
     "apk_fused_ln_self_attention_int8": [_P] * 17 + [_I] * 4 + [_F, _F, _P],
     "apk_fused_ln_cross_attention_int8": [_P, _P, _I, _I, _I] + [_P] * 11 + [_F] + [_P] * 10
     + [_I] * 4 + [_F, _F, _P],
+    "apk_self_attention": [_P] * 4 + [_I] * 4 + [_P],
+    "apk_group_norm_silu": [_P] * 4 + [_I] * 2 + [_P] * 2 + [_I] * 4 + [_F, _I, _P],
+    "apk_fused_resnet_block": [_P] * 2 + [_I] + [_P] * 11 + [_I] * 2 + [_P] * 3 + [_I] * 2 + [_P] * 2
+    + [_I] * 6 + [_F, _P],
 }
 
 # Launch counts per op, incremented by each wrapper right after its kernels
@@ -59,6 +63,9 @@ LAUNCHES: Dict[str, int] = {
     "fused_ln_geglu_ff_int8": 0,
     "fused_ln_self_attention_int8": 0,
     "fused_ln_cross_attention_int8": 0,
+    "self_attention": 0,
+    "group_norm_silu": 0,
+    "fused_resnet_block": 0,
 }
 
 _lock = threading.Lock()

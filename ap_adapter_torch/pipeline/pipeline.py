@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ap_adapter_torch.audio.dsp import resample
+from ap_adapter_torch.audio.fbank import audiomae_fbank
 from ap_adapter_torch.configs import PipelineConfig
 from ap_adapter_torch.diffusion.ddim import inference_timesteps
 from ap_adapter_torch.diffusion.sampling import ddim_sample_loop
@@ -27,7 +29,7 @@ from ap_adapter_torch.models.hoist import precompute_cross_kv, precompute_temb_r
 from ap_adapter_torch.models.layers import NORM_TYPES
 from ap_adapter_torch.models.projection import ProjectionModel
 from ap_adapter_torch.models.t5 import T5Encoder
-from ap_adapter_torch.models.unet import AudioLDM2UNet, quantize_unet_int8_
+from ap_adapter_torch.models.unet import AudioLDM2UNet, prepare_resnet_kernel_weights_, quantize_unet_int8_
 from ap_adapter_torch.models.vae import AutoencoderKL
 from ap_adapter_torch.models.vocoder import HiFiGAN
 
@@ -144,7 +146,7 @@ class PipelineModules(nn.Module):
     @torch.no_grad()
     def generate_waveform(
         self,
-        fbank: torch.Tensor,
+        fbank: Optional[torch.Tensor],
         text_pos: TextBatch,
         text_neg: TextBatch,
         *,
@@ -157,24 +159,51 @@ class PipelineModules(nn.Module):
         init_latents: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        """Text + audio (fbank [B, T, F]) -> waveforms
+        """Text + audio (fbank [B, T, F], or None for text only) -> waveforms
         [B, latent_time * vae_scale * vocoder_upsample], fp32."""
+
+        c = self.config
+        b = text_pos.clap_ids.shape[0]
+        latent_freq = c.vocoder.model_in_dim // c.vae.scale_factor
+        if init_latents is None:
+            latents = torch.randn(b, latent_time, latent_freq, c.unet.in_channels,
+                                  generator=generator, device=self.device, dtype=torch.float32)
+        else:
+            latents = torch.as_tensor(init_latents, dtype=torch.float32, device=self.device)
+        return self.denoise_to_waveform(latents, fbank, text_pos, text_neg,
+                                        num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
+                                        ap_scale=ap_scale, time_pool=time_pool, freq_pool=freq_pool)
+
+    @torch.no_grad()
+    def denoise_to_waveform(
+        self,
+        latents: torch.Tensor,
+        fbank: Optional[torch.Tensor],
+        text_pos: TextBatch,
+        text_neg: TextBatch,
+        *,
+        num_inference_steps: int,
+        guidance_scale: float,
+        ap_scale: float,
+        time_pool: int,
+        freq_pool: int,
+        timesteps: Optional[np.ndarray] = None,
+    ) -> torch.Tensor:
+        """The conditioning of [negative; positive] prompts and of the fbank
+        (None: text only), the step invariants, the CFG DDIM loop from fp32
+        ``latents`` over ``timesteps`` (default: the whole schedule), VAE
+        decode and the vocoder -> waveforms, fp32."""
 
         c = self.config
         dev, dtype = self.device, self.dtype
         text_pos, text_neg = text_pos.to(dev), text_neg.to(dev)
-        b = text_pos.clap_ids.shape[0]
         # CFG order: uncond (negative) first
         t5_hidden, t5_mask, gpt2_tokens = self.encode_prompt(TextBatch.cat(text_neg, text_pos))
-        audio = self.encode_audio(torch.as_tensor(fbank, device=dev), time_pool, freq_pool)
-        ehs0 = torch.cat([gpt2_tokens, audio.to(gpt2_tokens.dtype)], dim=1)
-
-        latent_freq = c.vocoder.model_in_dim // c.vae.scale_factor
-        if init_latents is None:
-            latents = torch.randn(b, latent_time, latent_freq, c.unet.in_channels,
-                                  generator=generator, device=dev, dtype=torch.float32)
-        else:
-            latents = torch.as_tensor(init_latents, dtype=torch.float32, device=dev)
+        ehs0 = gpt2_tokens
+        if fbank is not None:
+            audio = self.encode_audio(torch.as_tensor(fbank, device=dev), time_pool, freq_pool)
+            ehs0 = torch.cat([gpt2_tokens, audio.to(gpt2_tokens.dtype)], dim=1)
+        ts = inference_timesteps(c.scheduler, num_inference_steps) if timesteps is None else timesteps
 
         ctx_kv = temb = None
         if c.hoist_step_invariants:
@@ -182,15 +211,16 @@ class PipelineModules(nn.Module):
                 # int8 sites project K/V in the step, with the T5 bias built
                 # from the mask (JAX pipeline.py:272-277)
                 ctx_kv = precompute_cross_kv(self.unet, ehs0, t5_hidden, t5_mask)
-            temb = precompute_temb_rows(self.unet, inference_timesteps(c.scheduler, num_inference_steps))
+            temb = precompute_temb_rows(self.unet, ts)
 
         def unet_fn(model_in, t, i):
-            ts = torch.full((model_in.shape[0],), float(t), device=dev)
+            t_batch = torch.full((model_in.shape[0],), float(t), device=dev)
             rows = {k: v[i] for k, v in temb.items()} if temb is not None else None
-            return self.unet(model_in.to(dtype), ts, ehs0, t5_hidden, t5_mask, ip_scale=ap_scale,
+            return self.unet(model_in.to(dtype), t_batch, ehs0, t5_hidden, t5_mask, ip_scale=ap_scale,
                              ctx_kv=ctx_kv, temb_rows=rows)
 
-        latents = ddim_sample_loop(unet_fn, latents, c.scheduler, num_inference_steps, guidance_scale)
+        latents = ddim_sample_loop(unet_fn, latents, c.scheduler, num_inference_steps, guidance_scale,
+                                   timesteps=ts)
         mel = self.vae.decode((latents / c.vae.scaling_factor).to(dtype))   # [B, T, F, 1]
         return self.vocoder(mel[..., 0].float()).float()
 
@@ -198,13 +228,16 @@ class PipelineModules(nn.Module):
 class AudioLDM2Pipeline:
     """User-facing pipeline: owns the modules on one device. With
     ``config.unet.use_int8`` it quantizes the UNet's int8 serving weights
-    once, here (JAX pipeline.py:374-380)."""
+    once, here (JAX pipeline.py:374-380); with ``use_pallas_resnet`` it
+    prepares K13's HWIO conv weights once."""
 
     def __init__(self, config: PipelineConfig, modules: PipelineModules):
         self.config = config
         self.modules = modules
         if config.unet.use_int8 and modules is not None:
             quantize_unet_int8_(modules.unet)
+        if config.unet.use_pallas_resnet and modules is not None:
+            prepare_resnet_kernel_weights_(modules.unet)
 
     @classmethod
     def from_random(cls, config: PipelineConfig, seed: int = 0, device="cuda",
@@ -223,6 +256,18 @@ class AudioLDM2Pipeline:
             height = ((height // scale) + 1) * scale
         return height // scale
 
+    def prepare_fbank(self, waveform: np.ndarray, sample_rate: int) -> torch.Tensor:
+        """Host wav -> normalized AudioMAE fbank [1, T, F] (fp32, on the CPU):
+        channels averaged, resampled to the fbank rate (``audio/dsp.py``),
+        Kaldi fbank (``audio/fbank.py``). The counterpart of the JAX
+        ``prepare_fbank`` (pipeline.py:471), which also keeps this off the
+        accelerator."""
+
+        wav = torch.as_tensor(np.atleast_2d(waveform).mean(axis=0), dtype=torch.float32)
+        if sample_rate != self.config.fbank.sample_rate:
+            wav = resample(wav, sample_rate, self.config.fbank.sample_rate)
+        return audiomae_fbank(wav, self.config.fbank)[None]
+
     def generate(
         self,
         text_pos: TextBatch,
@@ -237,7 +282,8 @@ class AudioLDM2Pipeline:
         freq_pool: int = 2,
         seed: int = 0,
     ) -> np.ndarray:
-        """Waveforms [B, samples] trimmed to ``audio_length_in_s``, as numpy."""
+        """Waveforms [B, samples] trimmed to ``audio_length_in_s``, as numpy
+        (``fbank`` None: text only)."""
 
         dev = self.modules.device
         gen = torch.Generator(device=dev).manual_seed(seed)

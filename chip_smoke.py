@@ -48,13 +48,39 @@ prints its seconds:
    site per UNet forward and none of K1-K3; seconds and peak memory beside
    the bf16 requests'. Then the int8 request 0 against the bf16 request 0
    (same seed and inputs) in log-mel (``audio/mel.py``): cosine > 0.99 and
-   mean abs difference < 0.1, with the waveform's relative error.
+   mean abs difference < 0.1, with the waveform's relative error;
+11. resnet kernels: the K5/K6 self-attention at [1, 4000, 1, 512] (an edit's
+   VAE decode), [8, 4096, 1, 512] (a training batch's VAE encode),
+   [2, 1000, 8, 32] and [2, 1000, 8, 80]; K12 at every resnet GroupNorm
+   shape of the edit (B=2), SiLU on and off; K13 at every distinct resnet
+   shape of the edit, with a per-sample temb and without; each against its
+   plain version (limit 2e-2 of max|plain|), with both times, the bound and
+   ``library_ms`` (``F.scaled_dot_product_attention`` for the attention,
+   ``F.group_norm`` for K12 without SiLU, none for K13);
+12. resnet-kernel edit slices: the same weights as phase 6 under
+   ``use_pallas_groupnorm``, then under ``use_pallas_resnet`` (HWIO weights
+   prepared once by the pipeline), one request each: the same waveform
+   checks, exactly 2 K12 per resnet per UNet forward (none of K13), then
+   exactly 1 K13 per resnet (none of K12), K1-K3 as phase 6, one
+   self-attention launch (the VAE decode); log-mel against the bf16
+   request 0 as phase 10;
+13. task CLI: ``pipeline/tasks.py::main`` in process on the card,
+   ``--task style_transfer --sdedit --random-weights`` on a seeded
+   synthetic 10 s wav, one prompt, one file: the reference file name,
+   160,000 samples, finite, not constant, and exactly 2 self-attention
+   launches (encode, decode) and 26 steps of K1-K3; then ``run_task`` at
+   the timbre_transfer template (one prompt) with the phase-6 pipeline.
 
-Phases run in the order 1-4, 9, 5, 6, 10, 7, 8. Two lines before the last
-is a JSON object with one entry per kernel (``launches``: the count over its
-path's run, the edit requests for K1-K3, the int8 requests for K11a-c and
-the training steps for K4 and K7-K9; ``ms``/``plain_ms``/``bound_ms``: the
-sum over the path's shapes and variants, each one listed under ``cases``;
+Phases 6, 8, 10 and 12 also count one self-attention launch per request
+and per training micro-step (the VAE mid block at 4000 and 4096 positions).
+Phases run in the order 1-4, 9, 11, 5, 6, 10, 12, 13, 7, 8. Two lines
+before the last is a JSON object with one entry per kernel (``launches``:
+the count over its path's run, the edit requests for K1-K3 and the
+self-attention, the int8 requests for K11a-c, the training steps for K4 and
+K7-K9, the resnet-kernel requests for K12 and K13; ``ms``/``plain_ms``/
+``bound_ms``: the sum over the path's shapes and variants, each one listed
+under ``cases``; ``library_ms``: the sum over the cases that have a library
+call, beside ``library_cases_ms``, the kernel's time on those cases;
 ``bound_ms`` counts bf16 operations at the bf16 peak and int8 operations at
 the int8 peak), then the card's ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -104,11 +130,19 @@ KERNELS = {
                                      "ap_adapter_tpu/ops/pallas_int8.py:259"),
     "fused_ln_cross_attention_int8": ("ap_adapter_torch/csrc/int8_blocks.cu",
                                       "ap_adapter_tpu/ops/pallas_int8.py:410"),
+    "self_attention": ("ap_adapter_torch/csrc/self_attention.cu",
+                       "ap_adapter_tpu/ops/pallas_self_attention.py:50; "
+                       "ap_adapter_tpu/ops/pallas_packed_attention.py:83"),
+    "group_norm_silu": ("ap_adapter_torch/csrc/resnet.cu", "ap_adapter_tpu/ops/pallas_groupnorm.py:120"),
+    "fused_resnet_block": ("ap_adapter_torch/csrc/resnet.cu", "ap_adapter_tpu/ops/pallas_resnet.py:196"),
 }
 EDIT_KERNELS = ("fused_ln_self_attention", "fused_ln_cross_attention_kv", "fused_ln_geglu_ff")
 TRAIN_KERNELS = ("fused_ln_cross_attention", "fused_ln_self_attention_bwd_dx", "fused_ln_cross_attention_bwd",
                  "fused_ln_geglu_ff_bwd_dx")
 INT8_KERNELS = ("fused_ln_self_attention_int8", "fused_ln_cross_attention_int8", "fused_ln_geglu_ff_int8")
+RESNET_KERNELS = ("self_attention", "group_norm_silu", "fused_resnet_block")
+ATTN_SHAPES = [(1, 4000, 1, 512), (8, 4096, 1, 512), (2, 1000, 8, 32), (2, 1000, 8, 80)]
+EDIT_LATENT = (250, 16)   # the UNet latent of a 10 s clip (H x W)
 
 
 def log(msg: str) -> None:
@@ -311,14 +345,98 @@ def int8_kernel_phase(device) -> dict:
     return results
 
 
+def resnet_shapes(unet_config, h: int, w: int) -> list:
+    """(H, W, C_in, C_out) of every UNet resnet in forward order, for an
+    [h, w] latent: the channel bookkeeping of ``AudioLDM2UNet.__init__``
+    (skip connections included), each level half the size of the one above,
+    rounded up."""
+
+    ch = unet_config.block_out_channels
+    sizes = [(h, w)]
+    for _ in ch[1:]:
+        sizes.append((-(-sizes[-1][0] // 2), -(-sizes[-1][1] // 2)))
+    out, skip, x_ch = [], [ch[0]], ch[0]
+    for level, out_ch in enumerate(ch):
+        for _ in range(unet_config.layers_per_block):
+            out.append((*sizes[level], x_ch, out_ch))
+            x_ch = out_ch
+            skip.append(x_ch)
+        if level < len(ch) - 1:
+            skip.append(x_ch)
+    out += [(*sizes[-1], ch[-1], ch[-1])] * 2
+    for bi, out_ch in enumerate(reversed(ch)):
+        for _ in range(unet_config.layers_per_block + 1):
+            out.append((*sizes[len(ch) - 1 - bi], x_ch + skip.pop(), out_ch))
+            x_ch = out_ch
+    return out
+
+
+def resnet_kernel_phase(device, unet_config) -> dict:
+    """The self-attention kernel (K5/K6) at its four shapes, K12 at every
+    resnet GroupNorm shape of the edit (SiLU on and off) and K13 at every
+    distinct resnet shape of the edit (with and without temb), against the
+    plain versions, with the library call where there is one."""
+
+    import torch
+    import torch.nn.functional as F
+
+    from ap_adapter_torch.ops.groupnorm import group_norm_silu, group_norm_silu_plain
+    from ap_adapter_torch.ops.resnet import fused_resnet_block, fused_resnet_block_plain
+    from ap_adapter_torch.ops.self_attention import self_attention_kernel, self_attention_plain
+
+    gen = torch.Generator(device=device).manual_seed(6)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+    results = new_results(RESNET_KERNELS)
+    for b, s, h, d in ATTN_SHAPES:
+        q, k, v = r(b, s, h, d), r(b, s, h, d), r(b, s, h, d)
+        bd = bound(4 * b * h * s * s * d, 4 * 2 * b * s * h * d)
+        run_case(results, "self_attention", "self", (b, s, h, d), {}, lambda: self_attention_kernel(q, k, v),
+                 lambda: self_attention_plain(q, k, v), TOL, bd=bd,
+                 library=lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                                v.transpose(1, 2)))
+    shapes = resnet_shapes(unet_config, *EDIT_LATENT)
+    groups, eps, b = unet_config.norm_num_groups, unet_config.norm_eps, 2
+    gn_shapes = sorted({(hh, ww, c) for hh, ww, cin, cout in shapes for c in (cin, cout)})
+    for hh, ww, c in gn_shapes:
+        x = (r(b, hh, ww, c) + 1.0).permute(0, 3, 1, 2)      # channels-last, as the UNet keeps it
+        gamma, beta = 1 + r(c, scale=0.1), r(c, scale=0.1)
+        bd = bound(0, 2 * 2 * b * hh * ww * c + 2 * 2 * c)
+        for act in (False, True):
+            run_case(results, "group_norm_silu", "silu" if act else "gn", (b, hh, ww, c), {},
+                     lambda: group_norm_silu(x, gamma, beta, groups, eps, act),
+                     lambda: group_norm_silu_plain(x, gamma, beta, groups, eps, act), TOL, bd=bd,
+                     library=None if act else lambda: F.group_norm(x, groups, gamma, beta, eps))
+    for hh, ww, cin, cout in sorted(set(shapes)):
+        sc = cin != cout
+        x = r(b, hh, ww, cin)
+        wts = (1 + r(cin, scale=0.1), r(cin, scale=0.1), r(3, 3, cin, cout, scale=(9 * cin) ** -0.5),
+               r(cout, scale=0.1), 1 + r(cout, scale=0.1), r(cout, scale=0.1),
+               r(3, 3, cout, cout, scale=(9 * cout) ** -0.5), r(cout, scale=0.1),
+               r(1, 1, cin, cout, scale=cin ** -0.5) if sc else None, r(cout, scale=0.1) if sc else None)
+        m = b * hh * ww
+        flops = 2 * m * cout * (9 * cin + 9 * cout + (cin if sc else 0))
+        wbytes = 2 * (9 * cin * cout + 9 * cout * cout + (cin * cout if sc else 0) + 2 * cin + 4 * cout)
+        for temb in (r(b, cout), None):
+            bd = bound(flops, 2 * m * (cin + cout) + wbytes + (2 * b * cout if temb is not None else 0))
+            run_case(results, "fused_resnet_block", "temb" if temb is not None else "no temb", (b, hh, ww, cin),
+                     {"C_out": cout}, lambda: fused_resnet_block(x, temb, *wts, groups, eps),
+                     lambda: fused_resnet_block_plain(x, temb, *wts, groups, eps), TOL, bd=bd)
+    return results
+
+
 def new_results(names) -> dict:
-    return {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "cases": []}
-            for name in names}
+    return {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None,
+                   "library_cases_ms": 0.0, "cases": []} for name in names}
 
 
-def run_case(results, name, variant, shape, keys, kernel, plain, tol) -> None:
+def run_case(results, name, variant, shape, keys, kernel, plain, tol, bd=None, library=None) -> None:
     """Compare ``kernel()`` with ``plain()`` (a tensor or a tuple of them,
-    each within ``tol`` of its own max|plain|), time both, add the bound."""
+    each within ``tol`` of its own max|plain|), time both (and ``library``,
+    one PyTorch call computing the same function, where there is one), add
+    the bound (``bd``, else ``work(name, *shape, **keys)``)."""
 
     import torch
 
@@ -334,10 +452,13 @@ def run_case(results, name, variant, shape, keys, kernel, plain, tol) -> None:
         errs.append((err, err / w.float().abs().max().item()))
     err, rel = max(e for e, _ in errs), max(r for _, r in errs)
     ms, plain_ms = time_ms(kernel), time_ms(plain)
-    b, s, c = shape
-    bd = work(name, b, s, c, **keys)
-    log(f"kernel {name:30s} {variant:8s} B={b} S={s:4d} C={c}: max_abs_err={err:.4g} rel={rel:.4g} "
-        f"(limit {tol}) ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bd['bound_ms']:.4f} ({bd['bound_by']})")
+    library_ms = time_ms(library) if library is not None else None
+    bd = bd or work(name, *shape, **keys)
+    dims = " ".join(f"{k}={v}" for k, v in zip("BSC", shape)) if len(shape) == 3 else f"shape={tuple(shape)}"
+    dims += "".join(f" {k}={v}" for k, v in keys.items())
+    log(f"kernel {name:30s} {variant:8s} {dims}: max_abs_err={err:.4g} rel={rel:.4g} (limit {tol}) ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={bd['bound_ms']:.4f} ({bd['bound_by']})"
+        + (f" library_ms={library_ms:.4f}" if library_ms is not None else ""))
     if not rel <= tol:
         raise RuntimeError(f"{name}/{variant} {shape}: error {errs} over {tol} of max|plain|")
     res = results[name]
@@ -345,8 +466,11 @@ def run_case(results, name, variant, shape, keys, kernel, plain, tol) -> None:
     res["ms"] += ms
     res["plain_ms"] += plain_ms
     res["bound_ms"] += bd["bound_ms"]
-    res["cases"].append({"variant": variant, "B": b, "S": s, "C": c, **keys, "max_abs_err": err, "rel_err": rel,
-                         "ms": ms, "plain_ms": plain_ms, **bd})
+    if library_ms is not None:
+        res["library_ms"] = (res["library_ms"] or 0.0) + library_ms
+        res["library_cases_ms"] += ms
+    res["cases"].append({"variant": variant, "shape": list(shape), **keys, "max_abs_err": err, "rel_err": rel,
+                         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bd})
 
 
 def train_kernel_phase(device) -> dict:
@@ -507,6 +631,22 @@ def reference_phase(modules, device) -> float:
     return err / peak
 
 
+def expected_request_launches(unet_config, steps: int) -> dict:
+    """Kernel calls per edit request of ``steps`` UNet forwards for the
+    configuration: the transformer sites (bf16 or int8), the resnet kernels
+    where their switch is on (K13 over K12), and one self-attention launch
+    (the VAE decode's mid block, at 4000 positions)."""
+
+    per_forward = dict(expected_int8_launches(unet_config) if unet_config.use_int8 else
+                       expected_launches(unet_config))
+    n_resnets = len(resnet_shapes(unet_config, *EDIT_LATENT))
+    if unet_config.use_pallas_resnet:
+        per_forward["fused_resnet_block"] = n_resnets
+    elif unet_config.use_pallas_groupnorm:
+        per_forward["group_norm_silu"] = 2 * n_resnets
+    return {**{k: v * steps for k, v in per_forward.items()}, "self_attention": 1}
+
+
 def slice_phase(pipe, device, requests: int = 2) -> list:
     """Serve ``requests`` edit requests (seeds 0, 1) with exact launch counts
     for the pipeline's configuration; each run keeps its waveform."""
@@ -523,8 +663,8 @@ def slice_phase(pipe, device, requests: int = 2) -> list:
     pos = make_text_batch(c, [task.positive_text_prompts[0]])
     neg = make_text_batch(c, [task.negative_text_prompts[0]])
     fbank = np.random.default_rng(0).standard_normal((1, *c.audiomae.img_size)).astype(np.float32)
-    per_forward = expected_int8_launches(c.unet) if c.unet.use_int8 else expected_launches(c.unet)
-    want = {k: per_forward.get(k, 0) * task.num_inference_steps for k in cuda_kernels.LAUNCHES}
+    per_request = expected_request_launches(c.unet, task.num_inference_steps)
+    want = {k: per_request.get(k, 0) for k in cuda_kernels.LAUNCHES}
     samples = int(task.audio_length_in_s * c.vocoder.sampling_rate)
 
     cuda_kernels.reset_launch_counts()
@@ -543,7 +683,7 @@ def slice_phase(pipe, device, requests: int = 2) -> list:
         moved = {k: now[k] - before[k] for k in now}
         before = now
         mem = torch.cuda.max_memory_allocated()
-        log(f"request {i} ({'int8' if c.unet.use_int8 else 'bf16'}): {seconds:.3f} s, "
+        log(f"request {i} ({config_name(c.unet)}): {seconds:.3f} s, "
             f"max_memory_allocated={mem / 2**30:.3f} GiB, "
             f"wav {wav.shape} std={wav.std():.4g} max|wav|={np.abs(wav).max():.4g}, launches {moved}")
         if wav.shape != (1, samples) or not np.all(np.isfinite(wav)) or not wav.std() > 0:
@@ -556,6 +696,11 @@ def slice_phase(pipe, device, requests: int = 2) -> list:
     return runs
 
 
+def config_name(unet_config) -> str:
+    return ("int8" if unet_config.use_int8 else "K13" if unet_config.use_pallas_resnet
+            else "K12" if unet_config.use_pallas_groupnorm else "bf16")
+
+
 def int8_slice_phase(modules, bf16_runs, device) -> tuple:
     """The bf16 slice's weights (shared, not copied) under use_int8: serve
     the same requests, then hold int8 request 0 against bf16 request 0 in
@@ -563,10 +708,8 @@ def int8_slice_phase(modules, bf16_runs, device) -> tuple:
 
     import dataclasses
 
-    import numpy as np
     import torch
 
-    from ap_adapter_torch.audio.mel import tacotron_mel
     from ap_adapter_torch.pipeline.pipeline import AudioLDM2Pipeline, PipelineModules
 
     base = modules.config
@@ -581,19 +724,125 @@ def int8_slice_phase(modules, bf16_runs, device) -> tuple:
     for i, (r8, r16) in enumerate(zip(runs, bf16_runs)):
         log(f"request {i}: int8 {r8['seconds']:.3f} s, {r8['max_memory_allocated'] / 2**30:.3f} GiB; "
             f"bf16 {r16['seconds']:.3f} s, {r16['max_memory_allocated'] / 2**30:.3f} GiB")
-    got, want = runs[0]["wav"], bf16_runs[0]["wav"]
-    a, b = (tacotron_mel(torch.from_numpy(w), config.mel).double().flatten() for w in (got, want))
-    cos = (a @ b / (a.norm() * b.norm())).item()
-    mad = (a - b).abs().mean().item()
-    wav_rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
-    log(f"int8 quality, request 0 vs bf16 request 0: log-mel cosine {cos:.6f} (limit > {LOGMEL_COS}), "
-        f"mean abs diff {mad:.6g} (limit < {LOGMEL_MAD}); waveform relative error {wav_rel:.6g} "
-        f"(max|wav| {np.abs(want).max():.4g}: random weights give a near-silent clip)")
-    if not (cos > LOGMEL_COS and mad < LOGMEL_MAD):
-        raise RuntimeError("int8 quality check failed")
+    quality = check_quality("int8", runs[0]["wav"], bf16_runs[0]["wav"], config.mel)
     del pipe, mods
     torch.cuda.empty_cache()
-    return runs, {"logmel_cosine": cos, "logmel_mean_abs_diff": mad, "wav_rel_err": wav_rel}
+    return runs, quality
+
+
+def check_quality(name, got, want, mel_config) -> dict:
+    """Request 0's waveform against the bf16 request 0's in log-mel
+    (``audio/mel.py``): cosine > LOGMEL_COS and mean abs difference <
+    LOGMEL_MAD, with the waveform's relative error."""
+
+    import numpy as np
+    import torch
+
+    from ap_adapter_torch.audio.mel import tacotron_mel
+
+    a, b = (tacotron_mel(torch.from_numpy(w), mel_config).double().flatten() for w in (got, want))
+    q = {"logmel_cosine": (a @ b / (a.norm() * b.norm())).item(), "logmel_mean_abs_diff": (a - b).abs().mean().item(),
+         "wav_rel_err": float(np.linalg.norm(got - want) / np.linalg.norm(want))}
+    log(f"{name} quality, request 0 vs bf16 request 0: log-mel cosine {q['logmel_cosine']:.6f} (limit > "
+        f"{LOGMEL_COS}), mean abs diff {q['logmel_mean_abs_diff']:.6g} (limit < {LOGMEL_MAD}); waveform "
+        f"relative error {q['wav_rel_err']:.6g} (max|wav| {np.abs(want).max():.4g}: random weights give a "
+        f"near-silent clip)")
+    if not (q["logmel_cosine"] > LOGMEL_COS and q["logmel_mean_abs_diff"] < LOGMEL_MAD):
+        raise RuntimeError(f"{name} quality check failed")
+    return q
+
+
+def switch_slice_phase(modules, bf16_runs, device) -> dict:
+    """The bf16 slice's weights (shared, not copied) under
+    ``use_pallas_groupnorm``, then under ``use_pallas_resnet``: one request
+    each, exact launch counts, log-mel against the bf16 request 0."""
+
+    import dataclasses
+
+    import torch
+
+    from ap_adapter_torch.pipeline.pipeline import AudioLDM2Pipeline, PipelineModules
+
+    base = modules.config
+    out = {}
+    for switch in ("use_pallas_groupnorm", "use_pallas_resnet"):
+        config = base.replace(unet=dataclasses.replace(base.unet, **{switch: True}))
+        mods = PipelineModules(config)
+        mods.load_state_dict(modules.state_dict(), strict=True, assign=True)
+        pipe = AudioLDM2Pipeline(config, mods)          # prepares K13's HWIO weights once
+        run = slice_phase(pipe, device, requests=1)[0]
+        name = config_name(config.unet)
+        log(f"request 0: {name} {run['seconds']:.3f} s, {run['max_memory_allocated'] / 2**30:.3f} GiB; bf16 "
+            f"{bf16_runs[0]['seconds']:.3f} s, {bf16_runs[0]['max_memory_allocated'] / 2**30:.3f} GiB")
+        out[switch] = {**run, **check_quality(name, run["wav"], bf16_runs[0]["wav"], config.mel)}
+        del pipe, mods
+        torch.cuda.empty_cache()
+    return out
+
+
+def tasks_phase(pipe, device) -> dict:
+    """The task CLI in process: the SDEdit route at full width with random
+    weights (one prompt, one file), then ``run_task`` at the timbre_transfer
+    template (one prompt) with the phase-6 pipeline; file names, waveforms
+    and exact launch counts."""
+
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ap_adapter_torch.audio.io import load_wav
+    from ap_adapter_torch.configs import get_task_config
+    from ap_adapter_torch.ops import cuda_kernels
+    from ap_adapter_torch.pipeline import tasks
+    from ap_adapter_torch.pipeline.style_transfer import sdedit_timesteps
+
+    work_dir = os.path.join(ROOT, "build", "tasks_smoke")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    write_wavs(os.path.join(work_dir, "data"), n=1)
+    wav = os.path.join(work_dir, "data", "clip_00.wav")
+    out_dir = os.path.join(work_dir, "out")
+    c = pipe.config
+    samples = int(10.0 * c.vocoder.sampling_rate)
+    steps = len(sdedit_timesteps(50, c.scheduler))      # 26 of the template's 50
+    per_forward = expected_launches(c.unet)
+    result = {}
+    for route in ("sdedit", "timbre_transfer"):
+        cuda_kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if route == "sdedit":
+            paths = tasks.main(["--task", "style_transfer", "--sdedit", "--random-weights", "--audio-prompt", wav,
+                                "--prompt", "Jazz style music", "--output-dir", out_dir])
+            names = ["J_0_ip0.55_t4_f4_sdedit.wav"]
+            want = {**{k: v * steps for k, v in per_forward.items()}, "self_attention": 2}
+        else:
+            task = get_task_config("timbre_transfer", output_dir=out_dir, audio_prompt_file=wav,
+                                   positive_text_prompts=("a recording of a violin solo",))
+            paths = tasks.run_task(task, pipe)
+            names = ["a_0_ip0.5_t2_f2.wav"]
+            want = expected_request_launches(c.unet, task.num_inference_steps)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        moved = dict(cuda_kernels.LAUNCHES)
+        want = {k: want.get(k, 0) for k in moved}
+        mem = torch.cuda.max_memory_allocated()
+        log(f"task CLI {route}: {seconds:.3f} s{' (its model build included)' if route == 'sdedit' else ''}, "
+            f"max_memory_allocated={mem / 2**30:.3f} GiB, wrote {[os.path.basename(p) for p in paths]}, "
+            f"launches {moved}")
+        if [os.path.basename(p) for p in paths] != names:
+            raise RuntimeError(f"task CLI {route}: wrote {paths}, expected {names}")
+        for p in paths:
+            data, sr = load_wav(p)
+            if sr != c.vocoder.sampling_rate or data.shape != (samples,) or not np.all(np.isfinite(data)) \
+                    or not data.std() > 0:
+                raise RuntimeError(f"task CLI {route}: bad wav {p}: {sr} Hz, {data.shape}")
+        if moved != want:
+            raise RuntimeError(f"task CLI {route}: launch counts {moved} != expected {want}")
+        result[route] = {"seconds": seconds, "max_memory_allocated": mem, "launches": moved}
+    torch.cuda.empty_cache()
+    return result
 
 
 def train_reference_phase(modules, device) -> dict:
@@ -694,7 +943,7 @@ def train_slice_phase(device, steps: int = 3, accum: int = 2) -> dict:
     manifest = write_wavs(os.path.join(work_dir, "data"))
     out = os.path.join(work_dir, "out")
     config = PipelineConfig()
-    per_micro = expected_train_launches(config.unet)
+    per_micro = {**expected_train_launches(config.unet), "self_attention": 1}   # + the VAE encode's mid block
     want = {k: 0 for k in cuda_kernels.LAUNCHES}
     want.update({k: v * steps * accum for k, v in per_micro.items()})
 
@@ -786,12 +1035,13 @@ def main() -> int:
         log(f"phase {name}: {phases[name]:.1f} s")
         return out
 
+    config = PipelineConfig()
     phase("build", build_phase)
     kernels = phase("kernels", kernel_phase, device)
     kernels.update(phase("training kernels", train_kernel_phase, device))
     kernels.update(phase("int8 kernels", int8_kernel_phase, device))
+    kernels.update(phase("resnet kernels", resnet_kernel_phase, device, config.unet))
 
-    config = PipelineConfig()
     if expected_launches(config.unet) != {"fused_ln_self_attention": 192,
                                           "fused_ln_cross_attention_kv": 64, "fused_ln_geglu_ff": 128}:
         raise RuntimeError("unexpected UNet routing at full width")
@@ -802,26 +1052,36 @@ def main() -> int:
     phase("reference", reference_phase, pipe.modules, device)
     runs = phase("edit slice", slice_phase, pipe, device)
     int8_runs, int8_quality = phase("int8 edit slice", int8_slice_phase, pipe.modules, runs, device)
+    switch_runs = phase("resnet-kernel edit slices", switch_slice_phase, pipe.modules, runs, device)
+    task_runs = phase("task CLI", tasks_phase, pipe, device)
     train_ref = phase("training reference", train_reference_phase, pipe.modules, device)
     del pipe
     torch.cuda.empty_cache()
     training = phase("training slice", train_slice_phase, device)
 
-    total = {k: sum(r["launches"][k] for r in runs) for k in EDIT_KERNELS}
+    total = {k: sum(r["launches"][k] for r in runs) for k in EDIT_KERNELS + ("self_attention",)}
     total.update({k: training["launches"][k] for k in TRAIN_KERNELS})
     total.update({k: sum(r["launches"][k] for r in int8_runs) for k in INT8_KERNELS})
+    total["group_norm_silu"] = switch_runs["use_pallas_groupnorm"]["launches"]["group_norm_silu"]
+    total["fused_resnet_block"] = switch_runs["use_pallas_resnet"]["launches"]["fused_resnet_block"]
+
+    def brief(run):
+        return {k: run[k] for k in ("seconds", "max_memory_allocated") + tuple(
+            q for q in ("logmel_cosine", "logmel_mean_abs_diff", "wav_rel_err") if q in run)}
+
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu, "launches": total[name],
          "max_abs_err": kernels[name]["max_abs_err"], "ms": kernels[name]["ms"],
          "plain_ms": kernels[name]["plain_ms"], "bound_ms": kernels[name]["bound_ms"],
          "bound_by": ("operations" if sum(ops_ms(cs["flops"], cs["int8_ops"]) for cs in kernels[name]["cases"])
                       >= sum(cs["bytes"] for cs in kernels[name]["cases"]) / PEAK_BYTES * 1e3 else "bytes"),
-         "library_ms": None, "cases": kernels[name]["cases"]}
+         "library_ms": kernels[name]["library_ms"], "library_cases_ms": kernels[name]["library_cases_ms"],
+         "cases": kernels[name]["cases"]}
         for name, (src, tpu) in KERNELS.items()],
-        "requests": [{"seconds": r["seconds"], "max_memory_allocated": r["max_memory_allocated"]}
-                     for r in runs],
-        "int8_requests": [{"seconds": r["seconds"], "max_memory_allocated": r["max_memory_allocated"]}
-                          for r in int8_runs], "int8_quality": int8_quality,
+        "requests": [brief(r) for r in runs],
+        "int8_requests": [brief(r) for r in int8_runs], "int8_quality": int8_quality,
+        "resnet_kernel_requests": {k: brief(r) for k, r in switch_runs.items()},
+        "task_cli": {k: brief(r) for k, r in task_runs.items()},
         "training_launches": {k: training["launches"][k] for k in KERNELS},
         "training_steps": training["steps"], "training_reference": train_ref, "phase_seconds": phases}
     if min(total.values()) <= 0 or set(cuda_kernels.LAUNCHES) != set(KERNELS):

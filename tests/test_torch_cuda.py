@@ -1,5 +1,5 @@
-"""PyTorch port on the card: the hand-written CUDA kernels (K1-K4, K7-K9,
-K11a-c) against their plain PyTorch versions and autograd over them.
+"""PyTorch port on the card: the hand-written CUDA kernels (K1-K9, K11a-c,
+K12, K13) against their plain PyTorch versions and autograd over them.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither jax nor the JAX package, so it also runs where JAX is absent:
@@ -20,10 +20,13 @@ from ap_adapter_torch.ops.fused_cross import (
     fused_ln_cross_attention_vjp)
 from ap_adapter_torch.ops.fused_ff import (
     fused_ln_geglu_ff, fused_ln_geglu_ff_bwd_dx, fused_ln_geglu_ff_bwd_dx_plain, fused_ln_geglu_ff_plain)
+from ap_adapter_torch.ops.groupnorm import group_norm_silu, group_norm_silu_plain
 from ap_adapter_torch.ops.int8 import (
     fused_ln_cross_attention_int8, fused_ln_cross_attention_int8_plain, fused_ln_geglu_ff_int8,
     fused_ln_geglu_ff_int8_plain, fused_ln_self_attention_int8, fused_ln_self_attention_int8_plain,
     quantize_weight)
+from ap_adapter_torch.ops.resnet import fused_resnet_block, fused_resnet_block_plain, fused_resnet_block_vjp
+from ap_adapter_torch.ops.self_attention import self_attention_kernel, self_attention_plain, self_attention_vjp
 
 # bf16 kernels vs their plain versions: bf16 rounds q, k, v and the
 # probabilities at different points in the two, so the limit is a fraction
@@ -262,3 +265,108 @@ def test_int8_kernels_refuse_what_they_cannot_take(cuda_device):
     with pytest.raises(RuntimeError):         # grad mode, an operand that requires grad
         fused_ln_self_attention_int8(x.requires_grad_(), b, b, w8, s8, w, w, w8, s8, b, heads)
 
+
+
+def _r(g, device, *shape, scale=1.0):
+    return (torch.randn(*shape, generator=g, device=device) * scale).to(torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 4000, 1, 512), (2, 1000, 8, 80), (1, 37, 2, 32)])
+def test_self_attention_kernel_matches_plain(cuda_device, shape):
+    """K5/K6 at the VAE mid block's edit shape (one head, d = 512, a ragged
+    last key tile), at the UNet's d = 80, and at a size below one tile."""
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = (_r(g, cuda_device, *shape) for _ in range(3))
+    before = dict(cuda_kernels.LAUNCHES)
+    _check(self_attention_kernel(q, k, v), self_attention_plain(q, k, v))
+    moved = {n: cuda_kernels.LAUNCHES[n] - before[n] for n in before}
+    assert moved == {**dict.fromkeys(before, 0), "self_attention": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", [False, True])
+def test_group_norm_kernel_matches_plain(cuda_device, act):
+    """K12 at the UNet's level-0 resnet shape (B=2, 128 channels, 250x16;
+    channels-last), with a mean well away from 0."""
+
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    x = (_r(g, cuda_device, 2, 250, 16, 128) + 4).permute(0, 3, 1, 2)
+    gamma, beta = 1 + _r(g, cuda_device, 128, scale=0.1), _r(g, cuda_device, 128, scale=0.1)
+    before = dict(cuda_kernels.LAUNCHES)
+    got = group_norm_silu(x, gamma, beta, 32, 1e-5, act)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    _check(got, group_norm_silu_plain(x, gamma, beta, 32, 1e-5, act))
+    moved = {n: cuda_kernels.LAUNCHES[n] - before[n] for n in before}
+    assert moved == {**dict.fromkeys(before, 0), "group_norm_silu": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w,c_in,c_out,temb", [(125, 8, 128, 256, "batch"), (63, 4, 384, 384, "row"),
+                                                 (32, 2, 1280, 640, None)])
+def test_resnet_kernel_matches_plain(cuda_device, h, w, c_in, c_out, temb):
+    """K13 at three UNet resnet shapes (B=2): a 1x1 shortcut with a per-sample
+    temb, the identity shortcut with a hoisted temb row at H = 63, W = 4, and
+    an up-block shortcut at W = 2 with no temb; the gradient through the
+    autograd Function against autograd over the plain version."""
+
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = _r(g, cuda_device, 2, h, w, c_in)
+    t = {"batch": _r(g, cuda_device, 2, c_out), "row": _r(g, cuda_device, c_out), None: None}[temb]
+    sc = c_in != c_out
+    args = (x, t, 1 + _r(g, cuda_device, c_in, scale=0.1), _r(g, cuda_device, c_in, scale=0.1),
+            _r(g, cuda_device, 3, 3, c_in, c_out, scale=(9 * c_in) ** -0.5), _r(g, cuda_device, c_out, scale=0.1),
+            1 + _r(g, cuda_device, c_out, scale=0.1), _r(g, cuda_device, c_out, scale=0.1),
+            _r(g, cuda_device, 3, 3, c_out, c_out, scale=(9 * c_out) ** -0.5), _r(g, cuda_device, c_out, scale=0.1),
+            _r(g, cuda_device, 1, 1, c_in, c_out, scale=c_in ** -0.5) if sc else None,
+            _r(g, cuda_device, c_out, scale=0.1) if sc else None)
+    before = dict(cuda_kernels.LAUNCHES)
+    _check(fused_resnet_block(*args, 32, 1e-5), fused_resnet_block_plain(*args, 32, 1e-5))
+    moved = {n: cuda_kernels.LAUNCHES[n] - before[n] for n in before}
+    assert moved == {**dict.fromkeys(before, 0), "fused_resnet_block": 1}
+    xg = x.clone().requires_grad_()
+    gy = _r(g, cuda_device, 2, h, w, c_out)
+    got = torch.autograd.grad(fused_resnet_block_vjp(xg, *args[1:], 32, 1e-5), xg, gy)[0]
+    want = torch.autograd.grad(fused_resnet_block_plain(xg, *args[1:], 32, 1e-5), xg, gy)[0]
+    _check(got, want, GRAD_TOL)
+
+
+@pytest.mark.gpu
+def test_new_kernels_refuse_what_they_cannot_take(cuda_device):
+    """Strided and fp32 operands, widths the kernels cannot tile and
+    operands that require grad under grad mode raise; nothing falls back."""
+
+    q = torch.zeros(1, 600, 1, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):           # fp32
+        self_attention_kernel(q.float(), q.float(), q.float())
+    qs = torch.zeros(1, 600, 2, 64, device=cuda_device, dtype=torch.bfloat16)[:, :, :1]
+    with pytest.raises(ValueError):           # strided
+        self_attention_kernel(qs, qs, qs)
+    q24 = torch.zeros(1, 600, 1, 24, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):           # d % 16 != 0
+        self_attention_kernel(q24, q24, q24)
+    with pytest.raises(RuntimeError):         # grad mode, an operand that requires grad
+        self_attention_kernel(q.clone().requires_grad_(), q, q)
+    assert self_attention_vjp(q, q, q).shape == q.shape
+
+    x = torch.zeros(2, 64, 8, 4, device=cuda_device, dtype=torch.bfloat16)
+    gamma = torch.ones(64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):           # NCHW-contiguous, not channels-last
+        group_norm_silu(x, gamma, gamma, 32)
+    xc = x.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError):           # fp32
+        group_norm_silu(xc.float(), gamma.float(), gamma.float(), 32)
+
+    xr = torch.zeros(1, 4, 4, 64, device=cuda_device, dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, 64, 64, device=cuda_device, dtype=torch.bfloat16)
+    b = torch.zeros(64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):           # strided x
+        fused_resnet_block(xr.permute(0, 2, 1, 3), None, b, b, w, b, b, b, w, b, groups=32)
+    with pytest.raises(ValueError):           # fp32 weights
+        fused_resnet_block(xr, None, b, b, w.float(), b, b, b, w, b, groups=32)
+    x48 = torch.zeros(1, 4, 4, 48, device=cuda_device, dtype=torch.bfloat16)
+    w48 = torch.zeros(3, 3, 48, 48, device=cuda_device, dtype=torch.bfloat16)
+    b48 = torch.zeros(48, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):           # C % 32 != 0
+        fused_resnet_block(x48, None, b48, b48, w48, b48, b48, b48, w48, b48, groups=16)

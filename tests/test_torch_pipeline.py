@@ -1,6 +1,12 @@
 """PyTorch port: the slice (``generate_waveform``, the edit pipeline's
-generate) held against the JAX pipeline at the tiny config, plus the
-package's import isolation and its random-weight rules."""
+generate, and the SDEdit edit) held against the JAX pipeline at the tiny
+config, plus the package's import isolation and its random-weight rules.
+
+The SDEdit reference is ``tests/golden/torch_sdedit.npz``, written by
+``scripts/make_torch_sdedit_golden.py`` from the JAX
+``sdedit_generate_waveform`` on ``jax_tiny()``'s weights with the JAX
+function's own random draws (tracing the whole JAX edit takes about half a
+minute, so the test reads the stored result)."""
 
 import subprocess
 import sys
@@ -18,9 +24,13 @@ from ap_adapter_tpu.pipeline.pipeline import TextBatch as JaxTextBatch
 from ap_adapter_torch.configs import PipelineConfig, tiny_pipeline_config
 from ap_adapter_torch.models.layers import NORM_TYPES
 from ap_adapter_torch.ops import cuda_kernels
-from ap_adapter_torch.pipeline.pipeline import AudioLDM2Pipeline, PipelineModules
+from ap_adapter_torch.pipeline.pipeline import AudioLDM2Pipeline, PipelineModules, TextBatch
+from ap_adapter_torch.pipeline.style_transfer import sdedit_generate_waveform
 from ap_adapter_torch.pipeline.tokenize import make_text_batch
-from tests.torch_port_common import jax_tiny, one_torch_thread, port_tiny  # noqa: F401 (autouse fixture)
+from tests.torch_port_common import (  # noqa: F401 (autouse fixture)
+    jax_source_digest, jax_tiny, one_torch_thread, param_fingerprints, port_tiny)
+
+GOLDEN = Path(__file__).parent / "golden" / "torch_sdedit.npz"
 
 
 def test_generate_waveform_matches_jax():
@@ -51,6 +61,36 @@ def test_generate_waveform_matches_jax():
                                         init_latents=torch.from_numpy(latents), **kw).numpy()
     assert got.shape == want.shape == (1, 4 * 4 * 16)
     assert np.all(np.isfinite(got)) and np.abs(want).max() > 0
+    err = np.abs(got - want).max()
+    assert err <= 1e-3 and err <= 1e-3 * np.abs(want).max(), err
+    assert set(cuda_kernels.LAUNCHES.values()) == {0}
+
+
+def test_sdedit_matches_jax():
+    """The port's SDEdit (VAE encode of the source's mel, add_noise at the
+    truncated schedule's first step, 4 hoisted CFG DDIM steps with the
+    adapter live, decode, vocoder) on the JAX draws, against the JAX edit:
+    within 1e-3 absolute and 1e-3 of max|wav|, as the generate test holds."""
+
+    ref = np.load(GOLDEN)
+    _, params = jax_tiny()
+    stale = "stale reference: rerun scripts/make_torch_sdedit_golden.py"
+    assert str(ref["jax_source_sha256"]) == jax_source_digest(), stale
+    fps = param_fingerprints(params, trees=sorted(params))
+    assert fps["fp_names"].tolist() == ref["fp_names"].tolist(), stale
+    np.testing.assert_allclose(fps["fp_values"], ref["fp_values"], rtol=1e-9, err_msg=stale)
+
+    def text(name):
+        return TextBatch(*(ref[f"in/{name}/{f}"] for f in ("clap_ids", "clap_mask", "t5_ids", "t5_mask")))
+
+    cuda_kernels.reset_launch_counts()
+    got = sdedit_generate_waveform(
+        port_tiny(), torch.from_numpy(ref["in/source"]), torch.from_numpy(ref["in/fbank"]), text("pos"), text("neg"),
+        num_inference_steps=4, guidance_scale=3.0, ap_scale=0.5, time_pool=2, freq_pool=2,
+        mel_frames=int(ref["in/mel_frames"]), vae_noise=torch.from_numpy(ref["in/vae_noise"]),
+        noise=torch.from_numpy(ref["in/noise"])).numpy()
+    want = ref["wav"]
+    assert got.shape == want.shape and np.all(np.isfinite(got)) and np.abs(want).max() > 0
     err = np.abs(got - want).max()
     assert err <= 1e-3 and err <= 1e-3 * np.abs(want).max(), err
     assert set(cuda_kernels.LAUNCHES.values()) == {0}
@@ -103,9 +143,11 @@ def test_entry_points_default_to_cuda():
 
     import inspect
 
+    from ap_adapter_torch.pipeline.tasks import load_pipeline
     from ap_adapter_torch.train.cli import build_parser
 
-    for fn in (PipelineModules.init_random, PipelineModules.load_state_dicts, AudioLDM2Pipeline.from_random):
+    for fn in (PipelineModules.init_random, PipelineModules.load_state_dicts, AudioLDM2Pipeline.from_random,
+               load_pipeline):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
     assert build_parser().parse_args(["--train-manifest", "m.json"]).device == "cuda"
     if not torch.cuda.is_available():

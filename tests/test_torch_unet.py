@@ -1,6 +1,8 @@
 """PyTorch port: the dual-stream UNet (with and without the hoisted
-step invariants) held against the JAX UNet at the tiny config on the same
-weights and inputs (fp32, CPU)."""
+step invariants, and under the resnet-kernel switches) held against the JAX
+UNet at the tiny config on the same weights and inputs (fp32, CPU)."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -10,7 +12,8 @@ import torch
 
 from ap_adapter_tpu.configs import tiny_pipeline_config as jax_tiny_config
 from ap_adapter_tpu.models import hoist as jhoist
-from ap_adapter_torch.models import hoist
+from ap_adapter_torch.models import hoist, unet_blocks
+from ap_adapter_torch.models.unet import AudioLDM2UNet, prepare_resnet_kernel_weights_
 from ap_adapter_torch.ops import cuda_kernels
 from tests.torch_port_common import close, jax_tiny, one_torch_thread, port_tiny  # noqa: F401 (autouse fixture)
 
@@ -56,6 +59,45 @@ def test_unet_matches_jax(unet_inputs_np, jax_unet_out, hoisted):
     assert got.shape == x.shape
     close(got, jax_unet_out)
     assert set(cuda_kernels.LAUNCHES.values()) == {0}   # CPU tensors: the plain path only
+
+
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("switches", [("use_pallas_groupnorm",), ("use_pallas_resnet",),
+                                      ("use_pallas_groupnorm", "use_pallas_resnet")])
+def test_unet_resnet_switches_match_jax(unet_inputs_np, jax_unet_out, monkeypatch, switches, hoisted):
+    """``use_pallas_groupnorm`` routes every resnet's two GN+SiLU to K12,
+    ``use_pallas_resnet`` every resnet to K13 (and then K12 nowhere), with
+    the temb as a [B, C] projection or a hoisted row; their plain versions
+    on the CPU against the JAX UNet, which takes XLA on a CPU whatever its
+    switches say (the same reference as the default route)."""
+
+    x, ts, ehs0, ehs1, mask = unet_inputs_np
+    base = port_tiny().unet
+    unet = AudioLDM2UNet(dataclasses.replace(base.config, **dict.fromkeys(switches, True)))
+    unet.load_state_dict(base.state_dict())
+    if "use_pallas_resnet" in switches:
+        with pytest.raises(RuntimeError, match="prepare_resnet_kernel_weights_"):
+            unet(*map(torch.from_numpy, (x, ts, ehs0, ehs1, mask)))
+        prepare_resnet_kernel_weights_(unet)
+        assert set(unet.state_dict()) == set(base.state_dict())      # the HWIO copies are not checkpoint keys
+    calls = {"group_norm_silu_vjp": 0, "fused_resnet_block_vjp": 0}
+    for name in calls:
+        def counted(*a, _fn=getattr(unet_blocks, name), _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(unet_blocks, name, counted)
+    kw = {}
+    if hoisted:
+        kw["ctx_kv"] = hoist.precompute_cross_kv(unet, torch.from_numpy(ehs0), torch.from_numpy(ehs1),
+                                                 torch.from_numpy(mask))
+        kw["temb_rows"] = {k: v[0] for k, v in hoist.precompute_temb_rows(unet, np.array([int(ts[0])])).items()}
+    with torch.no_grad():
+        got = unet(*map(torch.from_numpy, (x, ts, ehs0, ehs1, mask)), ip_scale=0.5, **kw)
+    close(got, jax_unet_out)
+    n_resnets = len(list(unet.resnet_blocks()))
+    resnet_on = "use_pallas_resnet" in switches
+    assert calls == {"group_norm_silu_vjp": 0 if resnet_on else 2 * n_resnets,
+                     "fused_resnet_block_vjp": n_resnets if resnet_on else 0}
 
 
 def test_hoisted_temb_rows_match_jax():

@@ -1,12 +1,17 @@
 """Shared set-up for the ``test_torch_*`` files: the JAX package's tiny
 pipeline params (``PipelineModules(tiny_pipeline_config()).init_params(0)``)
 and the same weights loaded into the PyTorch port through ``from_jax``.
-Built once per process: the JAX init dominates the set-up time."""
+Built once per process. The JAX init dominates the set-up time (about 15 s on
+a CPU), so its result is also kept on disk under ``build/test_cache/``, keyed
+by a digest of the JAX package's sources and the jax version, for the other
+test processes of a run and for later runs."""
 
 from __future__ import annotations
 
 import functools
 import hashlib
+import os
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -37,12 +42,26 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+CACHE_DIR = Path(__file__).resolve().parents[1] / "build" / "test_cache"
+
+
 @functools.lru_cache(maxsize=1)
 def jax_tiny():
-    """(JAX PipelineModules, its params as numpy trees)."""
+    """(JAX PipelineModules, its params as numpy trees of dicts)."""
+
+    from flax.traverse_util import flatten_dict, unflatten_dict
 
     mods = JaxModules(jax_tiny_config())
-    return mods, jax.tree_util.tree_map(np.asarray, mods.init_params(0))
+    path = CACHE_DIR / f"jax_tiny_params_{jax_source_digest()[:16]}_jax{jax.__version__}.npz"
+    if path.exists():
+        with np.load(path) as f:
+            return mods, unflatten_dict({k: f[k] for k in f.files}, sep="/")
+    params = jax.tree_util.tree_map(np.asarray, mods.init_params(0))
+    CACHE_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp.npz")
+    np.savez(tmp, **flatten_dict(params, sep="/"))
+    os.replace(tmp, path)       # whole or absent: another process may read it at any time
+    return mods, params
 
 
 @functools.lru_cache(maxsize=1)
@@ -54,13 +73,13 @@ def port_tiny() -> PipelineModules:
                                                 device="cpu")
 
 
-def param_fingerprints(params) -> dict:
-    """Every leaf of the ``unet`` and ``vae`` trees of ``params``: its path
-    (``fp_names``, "<tree>/<path>") and [sum, sum of |x|] in float64
-    (``fp_values``, one row per leaf)."""
+def param_fingerprints(params, trees=("unet", "vae")) -> dict:
+    """Every leaf of the named trees of ``params``: its path (``fp_names``,
+    "<tree>/<path>") and [sum, sum of |x|] in float64 (``fp_values``, one row
+    per leaf)."""
 
     names, values = [], []
-    for tree in ("unet", "vae"):
+    for tree in trees:
         for path, leaf in jax.tree_util.tree_flatten_with_path(params[tree])[0]:
             a = np.asarray(leaf, np.float64)
             names.append("/".join([tree, *(str(getattr(k, "key", k)) for k in path)]))
