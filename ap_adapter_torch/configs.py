@@ -263,6 +263,13 @@ class UNetConfig:
     # class label concatenated with the time embedding)
     class_embed_dim: Optional[int] = None
     class_embeddings_concat: bool = False
+    # fused dual-KV attention kernel (the JAX package's TPU-only switch).
+    # Here it routes every cross site with audio tokens to the unfused route
+    # (LN, q projection, K10 ops/dual_kv_attention.py, out projection) in
+    # place of K2/K4; the T5 and text-only sites keep theirs, and use_int8
+    # comes first. Inference only: K10 has no backward, so the trainer
+    # refuses this.
+    use_pallas_attention: bool = False
     # fused GroupNorm+SiLU kernel at the resnet norm sites — opt-in
     # (the JAX package measured it at parity-or-slower vs XLA's fused GN at
     # UNet shapes on the TPU, docs/PERF.md negative results). Here it routes

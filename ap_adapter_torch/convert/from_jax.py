@@ -305,6 +305,66 @@ def projection_state_dict(tree: Tree) -> StateDict:
     return sd
 
 
+# ---------------------------------------------------------------------------
+# Eval embedders: the CLAP audio tower and VGGish
+# ---------------------------------------------------------------------------
+
+
+def clap_audio_state_dict(tree: Tree, config) -> StateDict:
+    """ClapAudioTower tree -> HF ``ClapAudioModelWithProjection`` keys, with
+    the buffers a real checkpoint carries (each block's
+    ``relative_position_index`` and the batch norm's ``num_batches_tracked``),
+    which ``torch_import.clap_audio_params`` ignores. ``config``: the
+    ClapAudioConfig (the stage depths)."""
+
+    from ap_adapter_torch.models.clap_audio import relative_position_index
+
+    enc, pre = tree["encoder"], "audio_model.audio_encoder"
+    sd: StateDict = {f"{pre}.batch_norm.{k}": _a(enc[n]) for k, n in (
+        ("weight", "bn_scale"), ("bias", "bn_bias"), ("running_mean", "bn_mean"), ("running_var", "bn_var"))}
+    sd[f"{pre}.batch_norm.num_batches_tracked"] = np.array(0, np.int64)
+    _conv2d(sd, f"{pre}.patch_embed.proj", enc["patch_proj"])
+    _norm(sd, f"{pre}.patch_embed.norm", enc["patch_norm"])
+    _norm(sd, f"{pre}.norm", enc["norm"])
+    for si, depth in enumerate(config.depths):
+        for bi in range(depth):
+            p, bp = enc[f"stage_{si}_block_{bi}"], f"{pre}.layers.{si}.blocks.{bi}"
+            a = p["attention"]
+            _norm(sd, f"{bp}.layernorm_before", p["layernorm_before"])
+            for n in ("query", "key", "value"):
+                _linear(sd, f"{bp}.attention.self.{n}", a[n])
+            table = _a(a["relative_position_bias_table"])
+            ws = (int(round(np.sqrt(table.shape[0]))) + 1) // 2
+            sd[f"{bp}.attention.self.relative_position_bias_table"] = table
+            sd[f"{bp}.attention.self.relative_position_index"] = relative_position_index(ws).astype(np.int64)
+            _linear(sd, f"{bp}.attention.output.dense", a["output"])
+            _norm(sd, f"{bp}.layernorm_after", p["layernorm_after"])
+            _linear(sd, f"{bp}.intermediate.dense", p["intermediate"])
+            _linear(sd, f"{bp}.output.dense", p["mlp_output"])
+        if si < len(config.depths) - 1:
+            p, dp = enc[f"stage_{si}_downsample"], f"{pre}.layers.{si}.downsample"
+            _norm(sd, f"{dp}.norm", p["norm"])
+            _linear(sd, f"{dp}.reduction", p["reduction"])
+    _linear(sd, "audio_projection.linear1", tree["projection_1"])
+    _linear(sd, "audio_projection.linear2", tree["projection_2"])
+    return sd
+
+
+VGGISH_CONVS = {"conv1": 0, "conv2": 3, "conv3_1": 6, "conv3_2": 8, "conv4_1": 11, "conv4_2": 13}
+VGGISH_DENSE = {"fc1": 0, "fc2": 2, "fc_embed": 4}
+
+
+def vggish_state_dict(tree: Tree) -> StateDict:
+    """VGGish tree -> torchvggish keys (``features.N``, ``embeddings.N``)."""
+
+    sd: StateDict = {}
+    for name, idx in VGGISH_CONVS.items():
+        _conv2d(sd, f"features.{idx}", tree[name])
+    for name, idx in VGGISH_DENSE.items():
+        _linear(sd, f"embeddings.{idx}", tree[name])
+    return sd
+
+
 def pipeline_state_dicts(params: Tree, config) -> Dict[str, StateDict]:
     """Every submodel of a JAX ``PipelineModules.init_params`` tree, keyed
     like the port's ``PipelineModules`` attributes; ``config`` is the port's

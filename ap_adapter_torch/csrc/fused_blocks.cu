@@ -1,9 +1,11 @@
-// Hopper (sm_90a) kernels for the three fused UNet transformer-block ops.
+// Hopper (sm_90a) kernels for the three fused UNet transformer-block ops and
+// the bare dual-KV attention.
 //
 // Replaces the TPU Pallas kernels
 //   K1 ap_adapter_tpu/ops/pallas_fused_block.py::fused_ln_self_attention
 //   K2 ap_adapter_tpu/ops/pallas_fused_cross.py::fused_ln_cross_attention_kv
 //   K3 ap_adapter_tpu/ops/pallas_fused_ff.py::fused_ln_geglu_ff
+//   K10 ap_adapter_tpu/ops/pallas_attention.py::fused_dual_kv_attention
 // with the two device routines of common.cuh (the WMMA GEMM with its
 // LayerNorm prologue and epilogues, and the streamed online-softmax
 // attention). The op entry points (extern "C", plain C ABI for ctypes) chain
@@ -13,6 +15,7 @@
 //   K2 = LN+Q GEMM -> (dual) attention over hoisted K/V -> out GEMM + bias +
 //        residual
 //   K3 = LN+W1 GEMM + bias + GEGLU -> W2 GEMM + bias + residual
+//   K10 = the attention routine alone, over both key sets
 // Intermediates (q/k/v, the attention output, the GEGLU product) go through
 // device memory; the caller allocates them. Every entry point returns the
 // cudaGetLastError() code of its first failing launch (0 on success).
@@ -107,6 +110,21 @@ int apk_fused_ln_geglu_ff(const void* x, const void* ln_w, const void* ln_b, con
   o.bias = (const bf16*)b2;
   o.resid = (const bf16*)x;
   return launch_gemm<false, false, EPI_BIAS_RESID>(o, 1, st);
+}
+
+// K10: out = softmax(q kt^T / sqrt(D)) vt + ip_scale * softmax(q ki^T / sqrt(D)) vi,
+// q/out [B, Sq, H, D], kt/vt [B, St, H, D], ki/vi [B, Si, H, D], all contiguous
+// (so q, the keys and out share the row stride C = H * D that the routine
+// assumes); St, Si > 0, D % 16 == 0, D <= 128. Each set runs its own online
+// softmax and is normalised in fp32; the sum is rounded to bf16 once.
+// Bound by bytes (q and out dominate: a few MB at the UNet's shapes, well
+// under a microsecond of HBM time), so in practice by launch latency; the
+// grid is (Sq / 64) x H x B blocks, 16 at the UNet's S = 64 level.
+int apk_dual_kv_attention(const void* q, const void* kt, const void* vt, int St, const void* ki, const void* vi,
+                          int Si, float ip_scale, void* out, int B, int Sq, int H, int D, void* stream) {
+  return launch_attention((const bf16*)q, Sq, (const bf16*)kt, (const bf16*)vt, St, nullptr, (const bf16*)ki,
+                          (const bf16*)vi, Si, ip_scale, (bf16*)out, B, H * D, H, 1.f / sqrtf((float)D),
+                          static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -83,4 +83,4 @@ class RMSNorm(nn.Module):
         return (self.weight.float() * xf).to(x.dtype)
 
 
-NORM_TYPES = (nn.LayerNorm, nn.GroupNorm, RMSNorm)
+NORM_TYPES = (nn.LayerNorm, nn.GroupNorm, RMSNorm, nn.BatchNorm2d)

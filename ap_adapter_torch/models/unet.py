@@ -5,7 +5,10 @@ Counterpart of ``ap_adapter_tpu/models/unet.py``. The public layout is NHWC
 convolutions run on NCHW inside. Every attention "layer" is a group of
 ``len(cross_attention_dims)`` Transformer2DModels over two conditioning
 streams, and the decoupled audio-KV adapter lives at the sites whose
-cross-attention dim is ``adapter_cross_attention_dim``.
+cross-attention dim is ``adapter_cross_attention_dim``. The config's
+switches route the sites as ``models/unet_blocks.py`` describes; under
+``use_pallas_attention`` the adapter sites take K10 BEFORE K2/K4, unlike the
+JAX routing (its unet_blocks.py:403-585), where the fused routes come first.
 """
 
 from __future__ import annotations
@@ -75,7 +78,8 @@ class AudioLDM2UNet(nn.Module):
             return [Transformer2DModel(
                 channels, c.num_attention_heads, c.transformer_layers_per_block, dim,
                 use_adapter=dim is not None and dim == c.adapter_cross_attention_dim,
-                num_ip_tokens=c.adapter_num_tokens, groups=groups, use_int8=c.use_int8)
+                num_ip_tokens=c.adapter_num_tokens, groups=groups, use_int8=c.use_int8,
+                use_dual_kv=c.use_pallas_attention)
                 for dim in c.cross_attention_dims]
 
         self.conv_in = nn.Conv2d(c.in_channels, ch[0], c.conv_in_kernel,

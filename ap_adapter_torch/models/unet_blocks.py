@@ -17,6 +17,20 @@ never hoisted K/V) and the feed-forward to K11a. Their int8 weights are
 buffers that ``models/unet.py::quantize_unet_int8_`` registers once; a site
 without them raises rather than falling back to the bf16 kernels.
 
+With ``UNetConfig.use_pallas_attention`` (serving only) every cross site
+that has audio tokens takes the JAX package's unfused route
+(unet_blocks.py:519-585): ``h = LN(x)``, ``q = h·Wqᵀ`` (a plain product, as
+the JAX package leaves it to XLA), K/V from the hoisted ``kv`` or projected
+from the context, K10 (``ops/dual_kv_attention.py``, the JAX call at
+:562-565), then ``x + out·Woᵀ + bo``. Here that route comes BEFORE K2/K4 at
+those sites: on a TPU the fused routes (:403-441 hoisted K2, :443-521 K4 and
+K11c) come first and leave K10 only the sites they refuse (``n <
+_SMALL_ATTN_MIN_N``, :29) and the CPU, so at full width the JAX switch
+reaches K10 nowhere. The T5 sites (with their bias), the self-attention
+sites, a site without audio tokens (text-only conditioning) and every site
+under ``use_int8`` (whose int8 route also comes first in JAX) keep their
+routes.
+
 The resnets route to K12 (``use_pallas_groupnorm``) or K13
 (``use_pallas_resnet``), as ``ResnetBlock2D`` describes.
 """
@@ -29,6 +43,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ap_adapter_torch.models.layers import layer_norm_f32
+from ap_adapter_torch.ops.dual_kv_attention import fused_dual_kv_attention
 from ap_adapter_torch.ops.fused_block import fused_ln_self_attention_vjp
 from ap_adapter_torch.ops.fused_cross import fused_ln_cross_attention_kv, fused_ln_cross_attention_vjp
 from ap_adapter_torch.ops.fused_ff import fused_ln_geglu_ff_vjp
@@ -180,11 +196,12 @@ class CrossAttention(nn.Module):
     With the adapter, the context splits at ``num_ip_tokens``: the first
     tokens (GPT-2) give the text K/V, the rest (AudioMAE) the adapter K/V, and
     the outputs combine as text + ip_scale * audio with the audio branch
-    unmasked."""
+    unmasked. ``use_dual_kv`` sends a site with audio tokens to K10, as the
+    module docstring describes."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None, use_adapter: bool = False,
-                 num_ip_tokens: int = 8, use_int8: bool = False):
+                 num_ip_tokens: int = 8, use_int8: bool = False, use_dual_kv: bool = False):
         super().__init__()
         inner = heads * dim_head
         kv_dim = cross_attention_dim or query_dim
@@ -192,6 +209,7 @@ class CrossAttention(nn.Module):
         self.is_cross = cross_attention_dim is not None
         self.num_ip_tokens = num_ip_tokens
         self.use_int8 = use_int8
+        self.use_dual_kv = use_dual_kv
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(kv_dim, inner, bias=False)
         self.to_v = nn.Linear(kv_dim, inner, bias=False)
@@ -226,6 +244,18 @@ class CrossAttention(nn.Module):
             wv_ip=None if ip is None else ip.to_v_ip.weight.to(x.dtype), ip_scale=ip_scale,
             num_ip_tokens=self.num_ip_tokens, bias=bias, eps=norm.eps)
 
+    def _forward_dual_kv(self, x, norm, context, bias, ip_scale, kv) -> torch.Tensor:
+        """The unfused route: LN, q projection, K10 over the text and audio
+        K/V (hoisted, or projected here), out projection and residual."""
+
+        b, s, c = x.shape
+        d = c // self.heads
+        q = F.linear(layer_norm_f32(x, norm.weight, norm.bias, norm.eps), self.to_q.weight)
+        k, v, ki, vi = kv if kv is not None else self.project_kv(context)
+        k, v, ki, vi = (t.reshape(b, -1, self.heads, d) for t in (k, v, ki, vi))
+        out = fused_dual_kv_attention(q.reshape(b, s, self.heads, d), k, v, ki, vi, ip_scale, bias=bias)
+        return x + F.linear(out.reshape(b, s, c), self.to_out[0].weight, self.to_out[0].bias)
+
     def forward(self, x: torch.Tensor, norm: nn.LayerNorm,
                 context: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
                 ip_scale: float = 0.0, kv: Optional[KV] = None) -> torch.Tensor:
@@ -236,6 +266,10 @@ class CrossAttention(nn.Module):
             return fused_ln_self_attention_vjp(
                 x, norm.weight, norm.bias, self.to_q.weight, self.to_k.weight,
                 self.to_v.weight, out.weight, out.bias, self.heads, norm.eps)
+        has_audio = (kv[2] is not None if kv is not None
+                     else self.processor is not None and context.shape[1] > self.num_ip_tokens)
+        if self.use_dual_kv and has_audio:
+            return self._forward_dual_kv(x, norm, context, bias, ip_scale, kv)
         if kv is not None:
             k, v, ki, vi = kv
             return fused_ln_cross_attention_kv(
@@ -282,13 +316,13 @@ class BasicTransformerBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None, use_adapter: bool = False,
-                 num_ip_tokens: int = 8, use_int8: bool = False):
+                 num_ip_tokens: int = 8, use_int8: bool = False, use_dual_kv: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim)
         self.attn1 = CrossAttention(dim, heads, dim_head, use_int8=use_int8)
         self.norm2 = nn.LayerNorm(dim)
         self.attn2 = CrossAttention(dim, heads, dim_head, cross_attention_dim,
-                                    use_adapter, num_ip_tokens, use_int8)
+                                    use_adapter, num_ip_tokens, use_int8, use_dual_kv)
         self.norm3 = nn.LayerNorm(dim)
         self.ff = FeedForward(dim, use_int8=use_int8)
 
@@ -308,14 +342,15 @@ class Transformer2DModel(nn.Module):
 
     def __init__(self, channels: int, heads: int, num_layers: int,
                  cross_attention_dim: Optional[int] = None, use_adapter: bool = False,
-                 num_ip_tokens: int = 8, groups: int = 32, use_int8: bool = False):
+                 num_ip_tokens: int = 8, groups: int = 32, use_int8: bool = False,
+                 use_dual_kv: bool = False):
         super().__init__()
         dim_head = channels // heads
         self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
         self.proj_in = nn.Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(channels, heads, dim_head, cross_attention_dim,
-                                  use_adapter, num_ip_tokens, use_int8)
+                                  use_adapter, num_ip_tokens, use_int8, use_dual_kv)
             for _ in range(num_layers)])
         self.proj_out = nn.Conv2d(channels, channels, 1)
 

@@ -48,6 +48,7 @@ _SIGNATURES = {
     "apk_group_norm_silu": [_P] * 4 + [_I] * 2 + [_P] * 2 + [_I] * 4 + [_F, _I, _P],
     "apk_fused_resnet_block": [_P] * 2 + [_I] + [_P] * 11 + [_I] * 2 + [_P] * 3 + [_I] * 2 + [_P] * 2
     + [_I] * 6 + [_F, _P],
+    "apk_dual_kv_attention": [_P] * 3 + [_I] + [_P] * 2 + [_I, _F, _P] + [_I] * 4 + [_P],
 }
 
 # Launch counts per op, incremented by each wrapper right after its kernels
@@ -66,6 +67,7 @@ LAUNCHES: Dict[str, int] = {
     "self_attention": 0,
     "group_norm_silu": 0,
     "fused_resnet_block": 0,
+    "dual_kv_attention": 0,
 }
 
 _lock = threading.Lock()

@@ -36,6 +36,26 @@ from ap_adapter_torch.models.vocoder import HiFiGAN
 _ONES = ("scale", "sos_embed", "eos_embed", "sos_embed_1", "eos_embed_1")
 
 
+@torch.no_grad()
+def fill_random_(module: nn.Module, seed: int) -> nn.Module:
+    """Random weights in place, drawn on the module's device from a seeded
+    ``torch.Generator``: ones for norm scales and the sos/eos embeddings,
+    zeros for biases, N(0, 0.02) for everything else (the JAX package's
+    fast_init rules). Buffers keep their values."""
+
+    device = next(module.parameters()).device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for m in module.modules():
+        for name, p in m.named_parameters(recurse=False):
+            if name == "bias":
+                p.zero_()
+            elif isinstance(m, NORM_TYPES) or name in _ONES:
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 0.02, generator=gen)
+    return module
+
+
 @dataclasses.dataclass(frozen=True)
 class TextBatch:
     """Tokenized prompts, padded to fixed lengths: numpy arrays or tensors [B, S]."""
@@ -48,6 +68,12 @@ class TextBatch:
     def to(self, device) -> "TextBatch":
         return TextBatch(*(torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a,
                                            dtype=torch.long, device=device)
+                           for a in dataclasses.astuple(self)))
+
+    def repeat_interleave(self, n: int) -> "TextBatch":
+        """Each prompt's row ``n`` times in a row, as tensors."""
+
+        return TextBatch(*(torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a).repeat_interleave(n, 0)
                            for a in dataclasses.astuple(self)))
 
     @staticmethod
@@ -93,19 +119,8 @@ class PipelineModules(nn.Module):
         ones for norm scales and the sos/eos embeddings, zeros for biases,
         N(0, 0.02) for everything else (the JAX package's fast_init rules)."""
 
-        dtype = dtype or self.config.dtype
         self.to_empty(device=device)
-        self.to(dtype)
-        gen = torch.Generator(device=device).manual_seed(seed)
-        for module in self.modules():
-            for name, p in module.named_parameters(recurse=False):
-                if name == "bias":
-                    p.zero_()
-                elif isinstance(module, NORM_TYPES) or name in _ONES:
-                    p.fill_(1.0)
-                else:
-                    p.normal_(0.0, 0.02, generator=gen)
-        return self
+        return fill_random_(self.to(dtype or self.config.dtype), seed)
 
     def load_state_dicts(self, state_dicts: Mapping[str, Mapping[str, object]], device="cuda",
                          dtype: Optional[torch.dtype] = None) -> "PipelineModules":
@@ -281,9 +296,12 @@ class AudioLDM2Pipeline:
         time_pool: int = 2,
         freq_pool: int = 2,
         seed: int = 0,
-    ) -> np.ndarray:
+        materialize: bool = True,
+    ):
         """Waveforms [B, samples] trimmed to ``audio_length_in_s``, as numpy
-        (``fbank`` None: text only)."""
+        (``fbank`` None: text only). ``materialize=False`` returns the fp32
+        tensor on the pipeline's device without waiting for it, so that host
+        work can overlap the device's (the eval runner's sweep)."""
 
         dev = self.modules.device
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -293,4 +311,33 @@ class AudioLDM2Pipeline:
             freq_pool=freq_pool, latent_time=self.latent_time_for_seconds(audio_length_in_s),
             generator=gen)
         samples = int(audio_length_in_s * self.config.vocoder.sampling_rate)
-        return wav[:, :samples].cpu().numpy()
+        return wav[:, :samples].cpu().numpy() if materialize else wav[:, :samples]
+
+    def generate_ranked(self, text_pos: TextBatch, text_neg: TextBatch, fbank=None, *,
+                        num_waveforms_per_prompt: int = 1, scorer=None, **kwargs) -> np.ndarray:
+        """``num_waveforms_per_prompt`` candidates per prompt from one
+        ``generate`` call (each prompt's text rows and fbank repeated), each
+        prompt's group re-ranked best first by ``scorer.rank``
+        (``eval/clap_scoring.py::ClapScorer``), the reference's
+        ``num_waveforms_per_prompt`` + ``score_waveforms``
+        (pipeline_audioldm2.py:592-614, 1047-1054; JAX pipeline.py:564-607).
+        Without a scorer, or with one candidate, generation order is kept.
+        Returns [B * n, samples], grouped by prompt; runs on the pipeline's
+        device."""
+
+        n = num_waveforms_per_prompt
+        if n > 1:
+            text_pos, text_neg = text_pos.repeat_interleave(n), text_neg.repeat_interleave(n)
+            if fbank is not None:
+                fbank = torch.as_tensor(fbank).repeat_interleave(n, 0)
+        wavs = self.generate(text_pos, text_neg, fbank, **kwargs)
+        if scorer is None or n == 1:
+            return wavs
+        sr = self.config.vocoder.sampling_rate
+        out = np.empty_like(wavs)
+        for i in range(wavs.shape[0] // n):
+            group = wavs[i * n:(i + 1) * n]
+            ids = np.asarray(text_pos.clap_ids[i * n:i * n + 1].cpu())
+            mask = np.asarray(text_pos.clap_mask[i * n:i * n + 1].cpu())
+            out[i * n:(i + 1) * n] = group[scorer.rank(ids, mask, list(group), sr)]
+        return out

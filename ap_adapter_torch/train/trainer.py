@@ -117,6 +117,9 @@ def compute_loss(modules, tc: TrainConfig, batch: Mapping[str, torch.Tensor], *,
     cfg = modules.config
     if cfg.unet.use_int8:
         raise ValueError("use_int8 is a serving configuration: the int8 kernels have no backward")
+    if cfg.unet.use_pallas_attention:
+        raise ValueError("use_pallas_attention is a serving configuration: K10 (the dual-KV attention "
+                         "kernel) has no backward")
     tables = make_tables(cfg.scheduler)
     dtype = modules.dtype
     with torch.no_grad():

@@ -71,13 +71,34 @@ prints its seconds:
    launches (encode, decode) and 26 steps of K1-K3; then ``run_task`` at
    the timbre_transfer template (one prompt) with the phase-6 pipeline.
 
-Phases 6, 8, 10 and 12 also count one self-attention launch per request
-and per training micro-step (the VAE mid block at 4000 and 4096 positions).
-Phases run in the order 1-4, 9, 11, 5, 6, 10, 12, 13, 7, 8. Two lines
-before the last is a JSON object with one entry per kernel (``launches``:
-the count over its path's run, the edit requests for K1-K3 and the
-self-attention, the int8 requests for K11a-c, the training steps for K4 and
-K7-K9, the resnet-kernel requests for K12 and K13; ``ms``/``plain_ms``/
+14. dual-KV kernel: K10 at B=2, the three UNet levels, 8 text keys and
+   each of 32, 128 and 512 audio keys, ip_scale 0.55, against its plain
+   version (limit 2e-2 of max|plain|), with both times and the bound; two
+   ``F.scaled_dot_product_attention`` calls plus the add are timed beside it
+   as information (no single PyTorch call computes K10);
+15. K10 edit slice: the same weights as phase 6 under
+   ``use_pallas_attention``, one request: exactly one K10 per adapter site
+   and one K2 per T5 site per UNet forward (1600 each), K1/K3 as phase 6,
+   one self-attention launch; log-mel against the bf16 request 0;
+16. re-ranking: ``generate_ranked`` under use_pallas_attention, 1 prompt x 2
+   candidates, scored by a ``ClapScorer`` at the published widths (the
+   pipeline's CLAP text tower, an HTSAT-base audio tower with random fp32
+   weights): exactly one request's launches, and the candidates come back
+   in the order of argsort of the scorer's similarities, computed apart;
+17. eval runner: ``run_batched_eval`` on the phase-6 pipeline over 16
+   seeded synthetic 10 s clips at batch 8, once in the CLAP space and once
+   in the VGGish space (random full-width VGGish): clips/s, the source-vs-
+   edit FAD, exact launch counts (two requests' worth); then
+   ``run_eval_protocol`` with the clips split into two domains.
+
+Phases 6, 8, 10, 12 and 15-17 also count one self-attention launch per
+request and per training micro-step (the VAE mid block at 4000 and 4096
+positions). Phases run in the order 1-4, 9, 11, 14, 5, 6, 10, 12, 15, 16,
+17, 13, 7, 8. Two lines before the last is a JSON object with one entry per
+kernel (``launches``: the count over its path's run, the edit requests for
+K1-K3 and the self-attention, the int8 requests for K11a-c, the training
+steps for K4 and K7-K9, the resnet-kernel requests for K12 and K13, the
+use_pallas_attention request for K10; ``ms``/``plain_ms``/
 ``bound_ms``: the sum over the path's shapes and variants, each one listed
 under ``cases``; ``library_ms``: the sum over the cases that have a library
 call, beside ``library_cases_ms``, the kernel's time on those cases;
@@ -135,6 +156,7 @@ KERNELS = {
                        "ap_adapter_tpu/ops/pallas_packed_attention.py:83"),
     "group_norm_silu": ("ap_adapter_torch/csrc/resnet.cu", "ap_adapter_tpu/ops/pallas_groupnorm.py:120"),
     "fused_resnet_block": ("ap_adapter_torch/csrc/resnet.cu", "ap_adapter_tpu/ops/pallas_resnet.py:196"),
+    "dual_kv_attention": ("ap_adapter_torch/csrc/fused_blocks.cu", "ap_adapter_tpu/ops/pallas_attention.py:57"),
 }
 EDIT_KERNELS = ("fused_ln_self_attention", "fused_ln_cross_attention_kv", "fused_ln_geglu_ff")
 TRAIN_KERNELS = ("fused_ln_cross_attention", "fused_ln_self_attention_bwd_dx", "fused_ln_cross_attention_bwd",
@@ -142,6 +164,8 @@ TRAIN_KERNELS = ("fused_ln_cross_attention", "fused_ln_self_attention_bwd_dx", "
 INT8_KERNELS = ("fused_ln_self_attention_int8", "fused_ln_cross_attention_int8", "fused_ln_geglu_ff_int8")
 RESNET_KERNELS = ("self_attention", "group_norm_silu", "fused_resnet_block")
 ATTN_SHAPES = [(1, 4000, 1, 512), (8, 4096, 1, 512), (2, 1000, 8, 32), (2, 1000, 8, 80)]
+DUAL_KV_LEVELS = [(1000, 32), (252, 48), (64, 80)]   # (S, d) of the UNet levels, 8 heads
+DUAL_KV_AUDIO_KEYS = (32, 128, 512)                   # pooled AudioMAE tokens at pool 4/4, 2/2, 1/1
 EDIT_LATENT = (250, 16)   # the UNet latent of a 10 s clip (H x W)
 
 
@@ -427,6 +451,44 @@ def resnet_kernel_phase(device, unet_config) -> dict:
     return results
 
 
+def dual_kv_kernel_phase(device) -> dict:
+    """K10 against its plain version at B=2, the three UNet levels, 8 text
+    keys and each adapter key count, ip_scale 0.55; as information, two
+    ``F.scaled_dot_product_attention`` calls plus the add on the same inputs
+    (no single PyTorch call computes K10, so ``library_ms`` stays null)."""
+
+    import torch
+    import torch.nn.functional as F
+
+    from ap_adapter_torch.ops.dual_kv_attention import _plain, fused_dual_kv_attention
+
+    gen = torch.Generator(device=device).manual_seed(7)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16)
+
+    results = new_results(("dual_kv_attention",))
+    results["dual_kv_attention"]["two_sdpa_ms"] = 0.0
+    b, st, s2 = 2, 8, 0.55
+    for s, d in DUAL_KV_LEVELS:
+        for si in DUAL_KV_AUDIO_KEYS:
+            q, kt, vt, ki, vi = r(b, s, HEADS, d), r(b, st, HEADS, d), r(b, st, HEADS, d), r(b, si, HEADS, d), \
+                r(b, si, HEADS, d)
+            c = HEADS * d
+            bd = bound(4 * b * s * c * (st + si), 2 * (2 * b * s * c + 2 * b * (st + si) * c))
+            run_case(results, "dual_kv_attention", "dual", (b, s, HEADS, d), {"St": st, "Si": si},
+                     lambda: fused_dual_kv_attention(q, kt, vt, ki, vi, s2), lambda: _plain(q, kt, vt, ki, vi, s2),
+                     TOL, bd=bd)
+            qt, ktt, vtt, kit, vit = (t.transpose(1, 2) for t in (q, kt, vt, ki, vi))
+            two = time_ms(lambda: F.scaled_dot_product_attention(qt, ktt, vtt)
+                          + s2 * F.scaled_dot_product_attention(qt, kit, vit))
+            results["dual_kv_attention"]["cases"][-1]["two_sdpa_ms"] = two
+            results["dual_kv_attention"]["two_sdpa_ms"] += two
+            log(f"  (information, not a library call of K10: two F.scaled_dot_product_attention + add "
+                f"{two:.4f} ms)")
+    return results
+
+
 def new_results(names) -> dict:
     return {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None,
                    "library_cases_ms": 0.0, "cases": []} for name in names}
@@ -545,7 +607,9 @@ def train_kernel_phase(device) -> dict:
 
 def expected_launches(unet_config) -> dict:
     """Kernel calls per UNet forward: every transformer block runs K1 at attn1,
-    K1 or K2 at attn2 (double-self or cross) and K3 at its feed-forward."""
+    K1 or K2 at attn2 (double-self or cross) and K3 at its feed-forward;
+    under use_pallas_attention the adapter sites (the audio-token stream) run
+    K10 in place of K2."""
 
     c = unet_config
     groups = (sum(c.down_block_has_attn) * c.layers_per_block + 1
@@ -553,9 +617,13 @@ def expected_launches(unet_config) -> dict:
     blocks = c.transformer_layers_per_block
     n_cross = sum(d is not None for d in c.cross_attention_dims)
     n_self = len(c.cross_attention_dims) - n_cross
-    return {"fused_ln_self_attention": groups * blocks * (len(c.cross_attention_dims) + n_self),
-            "fused_ln_cross_attention_kv": groups * blocks * n_cross,
-            "fused_ln_geglu_ff": groups * blocks * len(c.cross_attention_dims)}
+    n_k10 = sum(d == c.adapter_cross_attention_dim for d in c.cross_attention_dims) if c.use_pallas_attention else 0
+    out = {"fused_ln_self_attention": groups * blocks * (len(c.cross_attention_dims) + n_self),
+           "fused_ln_cross_attention_kv": groups * blocks * (n_cross - n_k10),
+           "fused_ln_geglu_ff": groups * blocks * len(c.cross_attention_dims)}
+    if n_k10:
+        out["dual_kv_attention"] = groups * blocks * n_k10
+    return out
 
 
 def expected_int8_launches(unet_config) -> dict:
@@ -698,7 +766,8 @@ def slice_phase(pipe, device, requests: int = 2) -> list:
 
 def config_name(unet_config) -> str:
     return ("int8" if unet_config.use_int8 else "K13" if unet_config.use_pallas_resnet
-            else "K12" if unet_config.use_pallas_groupnorm else "bf16")
+            else "K12" if unet_config.use_pallas_groupnorm else "K10" if unet_config.use_pallas_attention
+            else "bf16")
 
 
 def int8_slice_phase(modules, bf16_runs, device) -> tuple:
@@ -777,6 +846,150 @@ def switch_slice_phase(modules, bf16_runs, device) -> dict:
         out[switch] = {**run, **check_quality(name, run["wav"], bf16_runs[0]["wav"], config.mel)}
         del pipe, mods
         torch.cuda.empty_cache()
+    return out
+
+
+def k10_slice_phase(modules, bf16_runs, device):
+    """The bf16 slice's weights (shared, not copied) under
+    ``use_pallas_attention``: one request with exact launch counts (K10 at
+    the adapter sites, K2 at the T5 sites only) and log-mel against the bf16
+    request 0. Returns the pipeline, for the re-ranking phase."""
+
+    import dataclasses
+
+    from ap_adapter_torch.pipeline.pipeline import AudioLDM2Pipeline, PipelineModules
+
+    base = modules.config
+    config = base.replace(unet=dataclasses.replace(base.unet, use_pallas_attention=True))
+    mods = PipelineModules(config)
+    mods.load_state_dict(modules.state_dict(), strict=True, assign=True)
+    pipe = AudioLDM2Pipeline(config, mods)
+    run = slice_phase(pipe, device, requests=1)[0]
+    log(f"request 0: K10 {run['seconds']:.3f} s, {run['max_memory_allocated'] / 2**30:.3f} GiB; bf16 "
+        f"{bf16_runs[0]['seconds']:.3f} s, {bf16_runs[0]['max_memory_allocated'] / 2**30:.3f} GiB")
+    return pipe, {**run, **check_quality("K10", run["wav"], bf16_runs[0]["wav"], config.mel)}
+
+
+def clap_scorer(pipe, device):
+    """A ClapScorer at the published widths: the pipeline's CLAP text tower
+    and an HTSAT-base audio tower (``ClapAudioConfig()``: spec 256, depths
+    2-2-6-2, 512-d projection) with random fp32 weights from seed 11."""
+
+    from ap_adapter_torch.configs import ClapAudioConfig
+    from ap_adapter_torch.eval.clap_scoring import ClapScorer
+    from ap_adapter_torch.models.clap_audio import ClapAudioTower
+    from ap_adapter_torch.pipeline.pipeline import fill_random_
+
+    return ClapScorer(pipe.modules.clap, fill_random_(ClapAudioTower(ClapAudioConfig()).to(device), 11),
+                      device=device)
+
+
+def ranked_phase(pipe, scorer, device) -> dict:
+    """``generate_ranked``, 1 prompt x 2 candidates (4 UNet rows with CFG)
+    under use_pallas_attention: one generate call, so exactly one request's
+    launches (the VAE decodes both candidates in one call: one
+    self-attention launch); the returned group is the candidates reordered by
+    argsort of the scorer's similarities, computed separately."""
+
+    import numpy as np
+    import torch
+
+    from ap_adapter_torch.configs import get_task_config
+    from ap_adapter_torch.ops import cuda_kernels
+    from ap_adapter_torch.pipeline.tokenize import make_text_batch
+
+    c = pipe.config
+    task = get_task_config("timbre_transfer")
+    pos = make_text_batch(c, [task.positive_text_prompts[0]])
+    neg = make_text_batch(c, [task.negative_text_prompts[0]])
+    fbank = np.random.default_rng(0).standard_normal((1, *c.audiomae.img_size)).astype(np.float32)
+    seen = {}
+
+    class Recorder:      # what generate_ranked handed the scorer, and the order it got back
+        def rank(self, ids, mask, group, sr):
+            seen["group"], seen["order"] = np.stack(group), scorer.rank(ids, mask, group, sr)
+            return seen["order"]
+
+    want = expected_request_launches(c.unet, task.num_inference_steps)
+    cuda_kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wavs = pipe.generate_ranked(pos, neg, fbank, num_waveforms_per_prompt=2, scorer=Recorder(),
+                                audio_length_in_s=task.audio_length_in_s,
+                                num_inference_steps=task.num_inference_steps, guidance_scale=task.guidance_scale,
+                                ap_scale=task.ap_scale, time_pool=task.time_pooling, freq_pool=task.freq_pooling)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    moved = dict(cuda_kernels.LAUNCHES)
+    want = {k: want.get(k, 0) for k in moved}
+    sims = scorer.similarities(pos.clap_ids, pos.clap_mask, list(seen["group"]), c.vocoder.sampling_rate)
+    order = np.argsort(sims)[::-1]
+    log(f"generate_ranked (1 prompt x 2, K10): {seconds:.3f} s (scoring included), similarities "
+        f"{sims.tolist()}, order {order.tolist()}, launches {moved}")
+    if wavs.shape != (2, int(task.audio_length_in_s * c.vocoder.sampling_rate)) or not np.all(np.isfinite(wavs)):
+        raise RuntimeError(f"generate_ranked: bad output {wavs.shape}")
+    if order.tolist() != seen["order"].tolist() or not np.array_equal(wavs, seen["group"][order]):
+        raise RuntimeError("generate_ranked did not return the candidates in the scorer's order")
+    if moved != want:
+        raise RuntimeError(f"generate_ranked: launch counts {moved} != expected {want}")
+    return {"seconds": seconds, "launches": moved, "similarities": sims.tolist(), "order": order.tolist()}
+
+
+def eval_phase(pipe, scorer, device) -> dict:
+    """The eval runner at full width on the bf16 pipeline: 16 synthetic 10 s
+    clips at batch 8 (two batches, exact launch counts), FAD source against
+    edit in the CLAP space and in the VGGish space (random full-width VGGish,
+    seed 12); then ``run_eval_protocol`` with the clips split into two
+    domains."""
+
+    import shutil
+
+    import numpy as np
+
+    from ap_adapter_torch.configs import get_task_config
+    from ap_adapter_torch.eval.runner import eval_clips, run_batched_eval, run_eval_protocol
+    from ap_adapter_torch.eval.vggish import VGGish, VggishEmbedder
+    from ap_adapter_torch.ops import cuda_kernels
+    from ap_adapter_torch.pipeline.pipeline import fill_random_
+
+    work_dir = os.path.join(ROOT, "build", "eval_smoke")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    write_wavs(os.path.join(work_dir, "clips"), n=16)
+    clips = eval_clips([os.path.join(work_dir, "clips")])
+    task = get_task_config("timbre_transfer")
+    vggish = VggishEmbedder(fill_random_(VGGish().to(device), 12), device=device)
+    per_request = expected_request_launches(pipe.config.unet, task.num_inference_steps)
+    out = {}
+    for name, embedder in (("clap", scorer), ("vggish", vggish)):
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_batched_eval(pipe, clips, task, batch_size=8, scorer=embedder,
+                               output_dir=os.path.join(work_dir, f"edits_{name}"))
+        seconds = time.perf_counter() - t0
+        moved = dict(cuda_kernels.LAUNCHES)
+        want = {k: 2 * per_request.get(k, 0) for k in moved}
+        log(f"eval sweep ({name} space): {res}, {seconds:.3f} s with FAD and wav writing, launches {moved}")
+        if res["n"] != 16 or not np.isfinite(res["clips_per_s"]) or not np.isfinite(res[f"fad_{name}"]):
+            raise RuntimeError(f"eval sweep ({name}): bad result {res}")
+        if moved != want:
+            raise RuntimeError(f"eval sweep ({name}): launch counts {moved} != expected {want}")
+        if len(os.listdir(os.path.join(work_dir, f"edits_{name}"))) != 16:
+            raise RuntimeError(f"eval sweep ({name}): edits not written")
+        out[name] = {**res, "seconds": seconds}
+    domains = {}
+    for dom, part in (("in_domain", clips[:8]), ("out_of_domain", clips[8:])):
+        d = os.path.join(work_dir, dom)
+        os.makedirs(d)
+        for p in part:
+            shutil.copy(p, d)
+        domains[dom] = {"source": [d], "reference": [os.path.join(work_dir, "in_domain")]}
+    t0 = time.perf_counter()
+    proto = run_eval_protocol(pipe, domains, task, batch_size=8, scorer=scorer)
+    log(f"eval protocol (clap space, 2 x 8 clips): {proto}, {time.perf_counter() - t0:.3f} s")
+    keys = {"fad_in_domain", "fad_out_of_domain", "fad_faithfulness_in_domain", "fad_faithfulness_out_of_domain"}
+    if not keys <= set(proto) or not all(np.isfinite(proto[k]) for k in keys) or proto["n_total"] != 16:
+        raise RuntimeError(f"eval protocol: bad result {proto}")
+    out["protocol"] = proto
     return out
 
 
@@ -1041,6 +1254,7 @@ def main() -> int:
     kernels.update(phase("training kernels", train_kernel_phase, device))
     kernels.update(phase("int8 kernels", int8_kernel_phase, device))
     kernels.update(phase("resnet kernels", resnet_kernel_phase, device, config.unet))
+    kernels.update(phase("dual-KV kernel", dual_kv_kernel_phase, device))
 
     if expected_launches(config.unet) != {"fused_ln_self_attention": 192,
                                           "fused_ln_cross_attention_kv": 64, "fused_ln_geglu_ff": 128}:
@@ -1053,6 +1267,12 @@ def main() -> int:
     runs = phase("edit slice", slice_phase, pipe, device)
     int8_runs, int8_quality = phase("int8 edit slice", int8_slice_phase, pipe.modules, runs, device)
     switch_runs = phase("resnet-kernel edit slices", switch_slice_phase, pipe.modules, runs, device)
+    k10_pipe, k10_run = phase("K10 edit slice", k10_slice_phase, pipe.modules, runs, device)
+    scorer = clap_scorer(pipe, device)
+    ranked = phase("re-ranking", ranked_phase, k10_pipe, scorer, device)
+    del k10_pipe
+    evaluation = phase("eval runner", eval_phase, pipe, scorer, device)
+    del scorer
     task_runs = phase("task CLI", tasks_phase, pipe, device)
     train_ref = phase("training reference", train_reference_phase, pipe.modules, device)
     del pipe
@@ -1064,6 +1284,7 @@ def main() -> int:
     total.update({k: sum(r["launches"][k] for r in int8_runs) for k in INT8_KERNELS})
     total["group_norm_silu"] = switch_runs["use_pallas_groupnorm"]["launches"]["group_norm_silu"]
     total["fused_resnet_block"] = switch_runs["use_pallas_resnet"]["launches"]["fused_resnet_block"]
+    total["dual_kv_attention"] = k10_run["launches"]["dual_kv_attention"]
 
     def brief(run):
         return {k: run[k] for k in ("seconds", "max_memory_allocated") + tuple(
@@ -1076,12 +1297,13 @@ def main() -> int:
          "bound_by": ("operations" if sum(ops_ms(cs["flops"], cs["int8_ops"]) for cs in kernels[name]["cases"])
                       >= sum(cs["bytes"] for cs in kernels[name]["cases"]) / PEAK_BYTES * 1e3 else "bytes"),
          "library_ms": kernels[name]["library_ms"], "library_cases_ms": kernels[name]["library_cases_ms"],
-         "cases": kernels[name]["cases"]}
+         **{k: kernels[name][k] for k in ("two_sdpa_ms",) if k in kernels[name]}, "cases": kernels[name]["cases"]}
         for name, (src, tpu) in KERNELS.items()],
         "requests": [brief(r) for r in runs],
         "int8_requests": [brief(r) for r in int8_runs], "int8_quality": int8_quality,
         "resnet_kernel_requests": {k: brief(r) for k, r in switch_runs.items()},
         "task_cli": {k: brief(r) for k, r in task_runs.items()},
+        "k10_request": brief(k10_run), "generate_ranked": ranked, "eval": evaluation,
         "training_launches": {k: training["launches"][k] for k in KERNELS},
         "training_steps": training["steps"], "training_reference": train_ref, "phase_seconds": phases}
     if min(total.values()) <= 0 or set(cuda_kernels.LAUNCHES) != set(KERNELS):

@@ -1,0 +1,77 @@
+#!/usr/bin/env python3
+"""Order the port's kernels for redesign from one ``chip_smoke.py`` run.
+
+    python3 chip_smoke.py > smoke.log
+    python3 scripts/kernel_redesign_order.py smoke.log
+
+Reads the ``{"kernels": [...]}`` line that ``chip_smoke.py`` prints and
+prints two lists:
+
+1. the kernels slower than one PyTorch call for the same function (those
+   with ``library_ms``), the largest factor first: kernel ms on the cases
+   that have a library call over the library's ms;
+2. every kernel by its excess time per unit of its path,
+   launches x (ms per launch - bound per launch), the largest first. A
+   kernel's ms per launch is its summed ms over the path's shapes divided
+   by the number of shapes and variants it was timed at (each is one call
+   at one shape of the path), the same for the bound; launches are the
+   kernels line's count divided by the units the smoke's run covered (two
+   bf16 and two int8 edit requests, six training micro-steps, one request
+   under each resnet switch and under use_pallas_attention).
+
+Runs anywhere: it reads a log, it touches no card.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+# (units of the smoke's run, unit) for each kernel's launches
+UNITS = {
+    "fused_ln_self_attention": (2, "bf16 request"),
+    "fused_ln_cross_attention_kv": (2, "bf16 request"),
+    "fused_ln_geglu_ff": (2, "bf16 request"),
+    "self_attention": (2, "bf16 request"),
+    "fused_ln_cross_attention": (6, "training micro-step"),
+    "fused_ln_self_attention_bwd_dx": (6, "training micro-step"),
+    "fused_ln_cross_attention_bwd": (6, "training micro-step"),
+    "fused_ln_geglu_ff_bwd_dx": (6, "training micro-step"),
+    "fused_ln_geglu_ff_int8": (2, "int8 request"),
+    "fused_ln_self_attention_int8": (2, "int8 request"),
+    "fused_ln_cross_attention_int8": (2, "int8 request"),
+    "group_norm_silu": (1, "K12 request"),
+    "fused_resnet_block": (1, "K13 request"),
+    "dual_kv_attention": (1, "K10 request"),
+}
+
+
+def kernels_line(path: str) -> list:
+    with open(path) as f:
+        for line in f:
+            if line.startswith('{"kernels"'):
+                return json.loads(line)["kernels"]
+    raise SystemExit(f"{path}: no kernels line")
+
+
+def main(argv=None) -> None:
+    kernels = kernels_line((argv or sys.argv[1:])[0])
+    print("slower than one PyTorch call (kernel ms / library ms on the same cases):")
+    slow = sorted((k["library_cases_ms"] / k["library_ms"], k["name"]) for k in kernels
+                  if k["library_ms"] and k["library_cases_ms"] > k["library_ms"])
+    for ratio, name in reversed(slow):
+        print(f"  {name}: {ratio:.3f}x")
+    print("launches x (ms per launch - bound per launch), per unit of the kernel's path:")
+    rows = []
+    for k in kernels:
+        n = len(k["cases"])
+        units, unit = UNITS[k["name"]]
+        per_launch, bound = k["ms"] / n, k["bound_ms"] / n
+        launches = k["launches"] / units
+        rows.append((launches * (per_launch - bound), k["name"], launches, unit, per_launch, bound))
+    for excess, name, launches, unit, per_launch, bound in sorted(rows, reverse=True):
+        print(f"  {name}: {excess:.1f} ms per {unit} ({launches:g} launches x ({per_launch:.4f} - {bound:.4f}) ms)")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
-"""PyTorch port on the card: the hand-written CUDA kernels (K1-K9, K11a-c,
-K12, K13) against their plain PyTorch versions and autograd over them.
+"""PyTorch port on the card: the hand-written CUDA kernels (K1-K13) against
+their plain PyTorch versions and autograd over them, and the K10 route's
+launches on a full-width UNet forward.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither jax nor the JAX package, so it also runs where JAX is absent:
@@ -11,6 +12,8 @@ import pytest
 import torch
 
 from ap_adapter_torch.ops import cuda_kernels
+from ap_adapter_torch.ops.dual_kv_attention import _plain as dual_kv_attention_plain
+from ap_adapter_torch.ops.dual_kv_attention import fused_dual_kv_attention
 from ap_adapter_torch.ops.fused_block import (
     fused_ln_self_attention, fused_ln_self_attention_bwd_dx, fused_ln_self_attention_bwd_dx_plain,
     fused_ln_self_attention_plain, fused_ln_self_attention_vjp)
@@ -370,3 +373,73 @@ def test_new_kernels_refuse_what_they_cannot_take(cuda_device):
     b48 = torch.zeros(48, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError):           # C % 32 != 0
         fused_resnet_block(x48, None, b48, b48, w48, b48, b48, b48, w48, b48, groups=16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,d,si", [(1000, 32, 32), (252, 48, 128), (64, 80, 512)])
+def test_dual_kv_kernel_matches_plain(cuda_device, s, d, si):
+    """K10 at the UNet's three levels (B=2, 8 heads, 8 text keys), each with
+    one of the adapter's key counts (pool 4/4, 2/2, 1/1): one launch, within
+    2e-2 of max|plain|."""
+
+    g = torch.Generator(device=cuda_device).manual_seed(s)
+    q, kt, vt, ki, vi = (torch.randn(2, n, 8, d, generator=g, device=cuda_device).to(torch.bfloat16)
+                         for n in (s, 8, 8, si, si))
+    before = cuda_kernels.LAUNCHES["dual_kv_attention"]
+    got = fused_dual_kv_attention(q, kt, vt, ki, vi, 0.55)
+    assert cuda_kernels.LAUNCHES["dual_kv_attention"] == before + 1
+    _check(got, dual_kv_attention_plain(q, kt, vt, ki, vi, 0.55))
+
+
+@pytest.mark.gpu
+def test_dual_kv_kernel_launches_or_raises(cuda_device):
+    """A CUDA operand launches K10 or raises: fp32, strided, an unsupported
+    head dim, a bias, an empty key set, grad mode; nothing falls back."""
+
+    q = torch.zeros(2, 64, 8, 80, device=cuda_device, dtype=torch.bfloat16)
+    k = torch.zeros(2, 8, 8, 80, device=cuda_device, dtype=torch.bfloat16)
+    before = cuda_kernels.LAUNCHES["dual_kv_attention"]
+    with pytest.raises(ValueError):           # fp32
+        fused_dual_kv_attention(q.float(), k.float(), k.float(), k.float(), k.float(), 0.5)
+    with pytest.raises(ValueError):           # strided
+        fused_dual_kv_attention(q[:, :, :4], k[:, :, :4], k[:, :, :4], k[:, :, :4], k[:, :, :4], 0.5)
+    q40, k40 = q[..., :40].contiguous(), k[..., :40].contiguous()
+    with pytest.raises(ValueError):           # d % 16 != 0
+        fused_dual_kv_attention(q40, k40, k40, k40, k40, 0.5)
+    with pytest.raises(ValueError):           # a text bias
+        fused_dual_kv_attention(q, k, k, k, k, 0.5, bias=torch.zeros(2, 8, device=cuda_device))
+    with pytest.raises(ValueError):           # no audio keys
+        fused_dual_kv_attention(q, k, k, k[:, :0], k[:, :0], 0.5)
+    with pytest.raises(RuntimeError):         # grad mode, an operand that requires grad
+        fused_dual_kv_attention(q.clone().requires_grad_(), k, k, k, k, 0.5)
+    assert cuda_kernels.LAUNCHES["dual_kv_attention"] == before
+    assert fused_dual_kv_attention(q, k, k, k, k, 0.5).shape == q.shape
+    assert cuda_kernels.LAUNCHES["dual_kv_attention"] == before + 1
+
+
+@pytest.mark.gpu
+def test_dual_kv_route_launches_on_a_full_width_unet(cuda_device):
+    """One full-width UNet forward under use_pallas_attention (16x16 latent,
+    hoisted K/V, 8 + 128 adapter-stream tokens, 64 T5 tokens): K10 at the 32
+    adapter sites, K2 at the 32 T5 sites only, K1 and K3 as always."""
+
+    from ap_adapter_torch.configs import UNetConfig
+    from ap_adapter_torch.models.hoist import precompute_cross_kv
+    from ap_adapter_torch.models.unet import AudioLDM2UNet
+
+    with torch.device(cuda_device):
+        unet = AudioLDM2UNet(UNetConfig(use_pallas_attention=True)).to(torch.bfloat16).eval()
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    lat = torch.randn(2, 16, 16, 8, generator=g, device=cuda_device)
+    ehs0 = torch.randn(2, 8 + 128, 768, generator=g, device=cuda_device)
+    ehs1 = torch.randn(2, 64, 1024, generator=g, device=cuda_device)
+    mask = torch.ones(2, 64, dtype=torch.long, device=cuda_device)
+    with torch.no_grad():
+        kv = precompute_cross_kv(unet, ehs0, ehs1, mask)
+        cuda_kernels.reset_launch_counts()
+        out = unet(lat, torch.full((2,), 501.0, device=cuda_device), ehs0, ehs1, mask, ip_scale=0.55, ctx_kv=kv)
+    torch.cuda.synchronize()
+    assert out.shape == lat.shape and torch.isfinite(out).all()
+    moved = {k: v for k, v in cuda_kernels.LAUNCHES.items() if v}
+    assert moved == {"dual_kv_attention": 32, "fused_ln_cross_attention_kv": 32, "fused_ln_self_attention": 192,
+                     "fused_ln_geglu_ff": 128}

@@ -22,8 +22,7 @@ from ap_adapter_torch.pipeline import tokenize
 from tests.torch_port_common import close, jax_tiny, one_torch_thread, port_tiny  # noqa: F401 (autouse fixture)
 
 # UNet switches that exist only for the TPU build and are not ported
-# (use_pallas_attention waits for K10)
-TPU_ONLY = {"use_pallas_attention", "use_weight_prep", "force_xla_core", "remat", "scan_unroll"}
+TPU_ONLY = {"use_weight_prep", "force_xla_core", "remat", "scan_unroll"}
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 

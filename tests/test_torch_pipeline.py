@@ -143,13 +143,17 @@ def test_entry_points_default_to_cuda():
 
     import inspect
 
+    from ap_adapter_torch.eval import runner
+    from ap_adapter_torch.eval.clap_scoring import ClapScorer
+    from ap_adapter_torch.eval.vggish import VggishEmbedder
     from ap_adapter_torch.pipeline.tasks import load_pipeline
     from ap_adapter_torch.train.cli import build_parser
 
     for fn in (PipelineModules.init_random, PipelineModules.load_state_dicts, AudioLDM2Pipeline.from_random,
-               load_pipeline):
+               load_pipeline, ClapScorer, VggishEmbedder, VggishEmbedder.from_torch_checkpoint):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
     assert build_parser().parse_args(["--train-manifest", "m.json"]).device == "cuda"
+    assert runner.build_parser().parse_args(["--clip-dirs", "clips"]).device == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             PipelineModules(tiny_pipeline_config()).init_random(seed=0)

@@ -1,5 +1,5 @@
 """PyTorch port: the dual-stream UNet (with and without the hoisted
-step invariants, and under the resnet-kernel switches) held against the JAX
+step invariants, and under the resnet-kernel and K10 switches) held against the JAX
 UNet at the tiny config on the same weights and inputs (fp32, CPU)."""
 
 import dataclasses
@@ -98,6 +98,40 @@ def test_unet_resnet_switches_match_jax(unet_inputs_np, jax_unet_out, monkeypatc
     resnet_on = "use_pallas_resnet" in switches
     assert calls == {"group_norm_silu_vjp": 0 if resnet_on else 2 * n_resnets,
                      "fused_resnet_block_vjp": n_resnets if resnet_on else 0}
+
+
+@pytest.mark.parametrize("hoisted", [False, True])
+def test_unet_dual_kv_route_matches_jax(unet_inputs_np, jax_unet_out, monkeypatch, hoisted):
+    """``use_pallas_attention`` sends every cross site with audio tokens to
+    K10 (LN, q projection, the dual-KV attention, out projection), before
+    K2/K4, which keep the T5 sites only; the K10 plain version on the CPU
+    against the JAX UNet (XLA on a CPU whatever its switches)."""
+
+    x, ts, ehs0, ehs1, mask = unet_inputs_np
+    base = port_tiny().unet
+    unet = AudioLDM2UNet(dataclasses.replace(base.config, use_pallas_attention=True))
+    unet.load_state_dict(base.state_dict())
+    calls = {"fused_dual_kv_attention": 0, "fused_ln_cross_attention_kv": 0, "fused_ln_cross_attention_vjp": 0}
+    for name in calls:
+        def counted(*a, _fn=getattr(unet_blocks, name), _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(unet_blocks, name, counted)
+    kw = {}
+    if hoisted:
+        kw["ctx_kv"] = hoist.precompute_cross_kv(unet, torch.from_numpy(ehs0), torch.from_numpy(ehs1),
+                                                 torch.from_numpy(mask))
+    with torch.no_grad():
+        got = unet(*map(torch.from_numpy, (x, ts, ehs0, ehs1, mask)), ip_scale=0.5, **kw)
+    close(got, jax_unet_out)
+    c = unet.config
+    n_sites = len(list(unet.attention_groups())) * c.transformer_layers_per_block
+    per_stream = {dim: sum(d == dim for d in c.cross_attention_dims) * n_sites
+                  for dim in set(c.cross_attention_dims) - {None}}
+    t5_sites = sum(n for dim, n in per_stream.items() if dim != c.adapter_cross_attention_dim)
+    k2_or_k4 = "fused_ln_cross_attention_kv" if hoisted else "fused_ln_cross_attention_vjp"
+    assert calls == {"fused_dual_kv_attention": per_stream[c.adapter_cross_attention_dim],
+                     "fused_ln_cross_attention_kv": 0, "fused_ln_cross_attention_vjp": 0, k2_or_k4: t5_sites}
 
 
 def test_hoisted_temb_rows_match_jax():
