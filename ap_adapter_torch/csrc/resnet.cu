@@ -13,19 +13,25 @@
 // transpose, where an NCHW-contiguous kernel would cost a copy of x in and of
 // the output back (2 * B*H*W*C bytes each way) per call.
 //
-// GroupNorm statistics (both ops). A block takes a chunk of positions of one
-// sample, all channels: each thread owns 8 channels (one 16-byte load per
-// position) and a Welford state per channel; the block then combines, per
-// group, its channels' states in a fixed order (Chan's pairwise combine) and
-// writes (mean, M2) for (sample, group, chunk). gn_finalize_kernel combines
-// a group's chunks in order and writes each channel's fp32 (scale, shift) =
-// (gamma * rstd, beta - mean * gamma * rstd). No atomics, so every run gives
-// the same bits; no E[x^2] - E[x]^2 (the TPU kernels' one-pass form,
-// pallas_groupnorm.py:51-53), which cancels when |mean| >> std.
+// GroupNorm (both ops): one launch, gn_cluster_kernel. The n CTAs of one
+// sample form a thread-block cluster (n <= 16, a power of two); CTA j takes
+// the contiguous positions [j * pchunk, (j + 1) * pchunk), all channels, each
+// thread 8 channels by 16-byte loads, and holds the chunk in shared memory
+// where it fits (else it reads it again, from L2). Per group it computes the
+// chunk's sum, then its mean, then the centred sum of squares: no division
+// and no Welford step per value, and no E[x^2] - E[x]^2 (the TPU kernels'
+// one-pass form, pallas_groupnorm.py:51-53, which cancels when |mean| >> std).
+// It publishes (count, mean, M2) per group in its shared memory; after
+// cluster.sync() every CTA reads all n partials through distributed shared
+// memory in rank order and combines them by Chan's rule, so every CTA forms
+// the same per-channel fp32 (scale, shift) = (gamma * rstd, beta - mean *
+// gamma * rstd). Each pass keeps 8 loads a thread in flight. No atomics
+// and a fixed order: every run gives the same bits.
 //
-// K12 = statistics + finalize + gn_apply_kernel (y = x * scale + shift, SiLU
-// in fp32, one rounding to bf16, as the TPU kernel does). Bound: bytes, one
-// read and one write of x (the statistics read x once more).
+// K12 = gn_cluster_kernel with its apply pass: y = x * scale + shift, SiLU in
+// fp32, one rounding to bf16, as the TPU kernel does. Bound: bytes, one read
+// and one write of x. K13 runs the same kernel without the apply pass: rank 0
+// of each cluster writes the (scale, shift) table its convs read.
 //
 // K13 = statistics of x, conv1, statistics of h, conv2. Each conv is an
 // implicit GEMM, C[n, co] = sum_k A[n, k] * W[k, co], over the B*H*W output
@@ -53,17 +59,16 @@
 
 #include "common.cuh"
 
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int GN_THREADS = 256;
-constexpr int GN_MAX_C = 8 * GN_THREADS;   // channel states per block
-constexpr int GN_APPLY_THREADS = 256;
-
-__device__ __forceinline__ void welford(float n, float& mean, float& m2, float x) {
-  const float delta = x - mean;
-  mean += delta / n;
-  m2 += delta * (x - mean);
-}
+constexpr int GN_MAX_C = 2048;             // channels a block takes (8 per thread, up to 256 threads a row)
+constexpr int GN_MAX_CLUSTER = 16;
+constexpr int GN_MAX_THREADS = 512;
+constexpr int GN_UNROLL = 8;                // 16-byte loads in flight per thread and pass
 
 // (n, mean, m2) += (nb, mb, m2b), Chan et al.'s pairwise combine
 __device__ __forceinline__ void chan(float& n, float& mean, float& m2, float nb, float mb, float m2b) {
@@ -76,89 +81,246 @@ __device__ __forceinline__ void chan(float& n, float& mean, float& m2, float nb,
   n = nn;
 }
 
-// grid (nsplit, B): positions [j * pchunk, (j + 1) * pchunk) of sample b of
-// x [B, HW, C] -> part[(b * G + g) * nsplit + j] = (mean, M2) of group g.
-// C % 8 == 0 and C <= GN_MAX_C.
-__global__ void __launch_bounds__(GN_THREADS) gn_partial_kernel(const bf16* __restrict__ x, int HW, int C, int G,
-                                                                 int pchunk, float2* __restrict__ part) {
-  __shared__ float s_n[GN_THREADS], s_mean[GN_MAX_C], s_m2[GN_MAX_C];
-  const int j = blockIdx.x, nsplit = gridDim.x, b = blockIdx.y;
-  const int vc_count = C / 8, rows = GN_THREADS / vc_count;
-  const int row = threadIdx.x / vc_count, vc = threadIdx.x % vc_count;
-  const int p1 = min((j + 1) * pchunk, HW);
-  if (row < rows) {
-    float n = 0.f, mean[8], m2[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) mean[e] = m2[e] = 0.f;
-    for (int p = j * pchunk + row; p < p1; p += rows) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(x + ((size_t)b * HW + p) * C + vc * 8);
-      const bf16* v = reinterpret_cast<const bf16*>(&raw);
-      n += 1.f;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) welford(n, mean[e], m2[e], __bfloat162float(v[e]));
-    }
-    if (vc == 0) s_n[row] = n;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      s_mean[row * C + vc * 8 + e] = mean[e];
-      s_m2[row * C + vc * 8 + e] = m2[e];
-    }
-  }
-  __syncthreads();
-  const int cpg = C / G;
-  for (int g = threadIdx.x; g < G; g += GN_THREADS) {
-    float n = 0.f, mean = 0.f, m2 = 0.f;
-    for (int r = 0; r < rows; ++r)
-      for (int c = g * cpg; c < (g + 1) * cpg; ++c) chan(n, mean, m2, s_n[r], s_mean[r * C + c], s_m2[r * C + c]);
-    part[((size_t)b * G + g) * nsplit + j] = make_float2(mean, m2);
-  }
-}
-
-// grid (B): ss[b, c] = (gamma[c] * rstd, beta[c] - mean * gamma[c] * rstd) of c's group
-__global__ void gn_finalize_kernel(const float2* __restrict__ part, int nsplit, int pchunk, int HW, int C, int G,
-                                   const bf16* __restrict__ gamma, const bf16* __restrict__ beta, float eps,
-                                   float2* __restrict__ ss) {
-  const int b = blockIdx.x, cpg = C / G;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const float2* p = part + ((size_t)b * G + c / cpg) * nsplit;
-    float n = 0.f, mean = 0.f, m2 = 0.f;
-    for (int j = 0; j < nsplit; ++j) chan(n, mean, m2, (float)(min(pchunk, HW - j * pchunk) * cpg), p[j].x, p[j].y);
-    const float s = rsqrtf(m2 / n + eps) * __bfloat162float(gamma[c]);
-    ss[(size_t)b * C + c] = make_float2(s, __bfloat162float(beta[c]) - mean * s);
-  }
-}
-
 __device__ __forceinline__ float silu(float y) { return y / (1.f + expf(-y)); }
 
-// one thread per 8 values of x [B, HW, C]: y = x * scale + shift (+ SiLU)
-__global__ void __launch_bounds__(GN_APPLY_THREADS) gn_apply_kernel(const bf16* __restrict__ x,
-                                                                     const float2* __restrict__ ss,
-                                                                     bf16* __restrict__ y, long long n8, int HW,
-                                                                     int C, int act) {
-  const long long i = (long long)blockIdx.x * GN_APPLY_THREADS + threadIdx.x;
-  if (i >= n8) return;
-  const long long e0 = i * 8;
-  const int c0 = (int)(e0 % C);
-  const float2* t = ss + (e0 / ((long long)HW * C)) * C + c0;
-  const uint4 raw = *reinterpret_cast<const uint4*>(x + e0);
-  const bf16* v = reinterpret_cast<const bf16*>(&raw);
-  uint4 res;
-  bf16* r = reinterpret_cast<bf16*>(&res);
-#pragma unroll
-  for (int u = 0; u < 8; ++u) {
-    const float a = fmaf(__bfloat162float(v[u]), t[u].x, t[u].y);
-    r[u] = __float2bfloat16(act ? silu(a) : a);
-  }
-  *reinterpret_cast<uint4*>(y + e0) = res;
+struct GnArgs {
+  const bf16* x;        // [B, HW, C]
+  const bf16* gamma;
+  const bf16* beta;
+  bf16* y;              // [B, HW, C], or null: statistics only
+  float2* ss;           // [B, C] (scale, shift) written by rank 0 when y is null
+  int HW, C, G, pchunk, hold;
+  float eps;
+  int act;
+};
+
+// Shared memory of one CTA: per-thread sums [rows][C], the (scale, shift)
+// table [C] (a per-channel scratch before), the published partials [G][3],
+// the combined (mean, rstd) [G][2], all n CTAs' partials gathered [n][G][3],
+// then the chunk when it is held.
+struct GnLayout {
+  int red, ss, part, stat, gath, chunk, bytes;
+};
+
+__host__ __device__ inline GnLayout gn_layout(int C, int G, int n, int threads, int pchunk, int hold) {
+  const int rows = threads / (C / 8);
+  GnLayout L;
+  int off = 0;
+  L.red = off; off += rows * C * 4;
+  L.ss = off; off += C * 8;
+  L.part = off; off += G * 3 * 4;
+  L.stat = off; off += G * 2 * 4;
+  L.gath = off; off += n * G * 3 * 4;
+  off = (off + 15) & ~15;
+  L.chunk = off; if (hold) off += pchunk * C * 2;
+  L.bytes = off;
+  return L;
 }
 
-// the statistics of x [B, HW, C] into ss [B, C] (partials in part [B*G*nsplit])
-int launch_gn_stats(const bf16* x, const bf16* gamma, const bf16* beta, float2* part, int nsplit, int pchunk,
-                    float2* ss, int B, int C, int HW, int G, float eps, cudaStream_t st) {
-  gn_partial_kernel<<<dim3(nsplit, B), GN_THREADS, 0, st>>>(x, HW, C, G, pchunk, part);
-  int e = (int)cudaGetLastError();
-  if (e) return e;
-  gn_finalize_kernel<<<B, 256, 0, st>>>(part, nsplit, pchunk, HW, C, G, gamma, beta, eps, ss);
+// Per-group sums over the block of 8 per-thread channel values acc (threads
+// past the last row hold zeros): rows summed per channel in order, then each
+// group's channels by one warp. All threads must call it.
+__device__ void gn_group_sums(const float* acc, bool active, int row, int vc, int C, int G, float* red, float* chan_sum,
+                              float* out) {
+  const int rows = blockDim.x / (C / 8), cpg = C / G;
+  if (active) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) red[row * C + vc * 8 + e] = acc[e];
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float t = 0.f;
+    for (int r = 0; r < rows; ++r) t += red[r * C + c];
+    chan_sum[c] = t;
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  for (int g = warp; g < G; g += nwarps) {
+    float t = 0.f;
+    for (int c = g * cpg + lane; c < (g + 1) * cpg; c += 32) t += chan_sum[c];
+    t = warp_sum(t);
+    if (lane == 0) out[g] = t;
+  }
+  __syncthreads();
+}
+
+// grid (n, B), cluster (n, 1, 1); blockDim a multiple of 32 with
+// (C / 8) * rows <= blockDim. See the note above.
+__global__ void __launch_bounds__(GN_MAX_THREADS) gn_cluster_kernel(const GnArgs a) {
+  extern __shared__ __align__(16) unsigned char gn_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = a.C, G = a.G, cpg = C / G, vcn = C / 8;
+  const int rows = blockDim.x / vcn, row = threadIdx.x / vcn, vc = threadIdx.x % vcn;
+  const bool active = row < rows;
+  const int j = blockIdx.x, n = gridDim.x, b = blockIdx.y;
+  const int p0 = min(j * a.pchunk, a.HW), npos = min(a.pchunk, a.HW - p0);
+  const GnLayout L = gn_layout(C, G, n, blockDim.x, a.pchunk, a.hold);
+  float* red = reinterpret_cast<float*>(gn_smem + L.red);
+  float2* ss = reinterpret_cast<float2*>(gn_smem + L.ss);
+  float* part = reinterpret_cast<float*>(gn_smem + L.part);
+  float* stat = reinterpret_cast<float*>(gn_smem + L.stat);
+  float* gath = reinterpret_cast<float*>(gn_smem + L.gath);
+  bf16* chunk = reinterpret_cast<bf16*>(gn_smem + L.chunk);
+  const bf16* xs = a.x + ((size_t)b * a.HW + p0) * C + vc * 8;
+
+  // the chunk's per-group sums, the chunk into shared memory on the way
+  float acc[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+  if (active) {
+    for (int p = row; p < npos; p += rows * GN_UNROLL) {
+      uint4 raw[GN_UNROLL];
+#pragma unroll
+      for (int u = 0; u < GN_UNROLL; ++u)
+        if (p + u * rows < npos) raw[u] = *reinterpret_cast<const uint4*>(xs + (size_t)(p + u * rows) * C);
+#pragma unroll
+      for (int u = 0; u < GN_UNROLL; ++u) {
+        const int q = p + u * rows;
+        if (q < npos) {
+          if (a.hold) *reinterpret_cast<uint4*>(chunk + q * C + vc * 8) = raw[u];
+          const bf16* v = reinterpret_cast<const bf16*>(&raw[u]);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[e] += __bfloat162float(v[e]);
+        }
+      }
+    }
+  }
+  float* chan_sum = reinterpret_cast<float*>(ss);
+  gn_group_sums(acc, active, row, vc, C, G, red, chan_sum, stat);
+  const float cnt = (float)(npos * cpg);
+  for (int g = threadIdx.x; g < G; g += blockDim.x) stat[G + g] = npos > 0 ? stat[g] / cnt : 0.f;
+  __syncthreads();
+
+  // the centred sum of squares around the chunk's group means
+  float mu[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    mu[e] = stat[G + (vc * 8 + e) / cpg];
+    acc[e] = 0.f;
+  }
+  if (active) {
+    for (int p = row; p < npos; p += rows * GN_UNROLL) {
+      uint4 raw[GN_UNROLL];
+#pragma unroll
+      for (int u = 0; u < GN_UNROLL; ++u) {
+        const int q = p + u * rows;
+        if (q < npos)
+          raw[u] = a.hold ? *reinterpret_cast<const uint4*>(chunk + q * C + vc * 8)
+                          : *reinterpret_cast<const uint4*>(xs + (size_t)q * C);
+      }
+#pragma unroll
+      for (int u = 0; u < GN_UNROLL; ++u) {
+        if (p + u * rows < npos) {
+          const bf16* v = reinterpret_cast<const bf16*>(&raw[u]);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float dv = __bfloat162float(v[e]) - mu[e];
+            acc[e] += dv * dv;
+          }
+        }
+      }
+    }
+  }
+  gn_group_sums(acc, active, row, vc, C, G, red, chan_sum, stat);
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    part[3 * g] = cnt;
+    part[3 * g + 1] = stat[G + g];
+    part[3 * g + 2] = stat[g];
+  }
+
+  // every CTA gathers all partials of the sample (one remote read a
+  // thread), then combines them in rank order
+  cluster.sync();
+  for (int i = threadIdx.x; i < n * G; i += blockDim.x) {
+    const float* rp = cluster.map_shared_rank(part, i / G) + 3 * (i % G);
+    gath[3 * i] = rp[0];
+    gath[3 * i + 1] = rp[1];
+    gath[3 * i + 2] = rp[2];
+  }
+  cluster.sync();                    // no CTA leaves while another reads its partials
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    float nn = 0.f, mean = 0.f, m2 = 0.f;
+    for (int r = 0; r < n; ++r) chan(nn, mean, m2, gath[3 * (r * G + g)], gath[3 * (r * G + g) + 1],
+                                     gath[3 * (r * G + g) + 2]);
+    stat[2 * g] = mean;
+    stat[2 * g + 1] = rsqrtf(m2 / nn + a.eps);
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    const int g = c / cpg;
+    const float sc = stat[2 * g + 1] * __bfloat162float(a.gamma[c]);
+    const float2 t = make_float2(sc, __bfloat162float(a.beta[c]) - stat[2 * g] * sc);
+    ss[c] = t;
+    if (a.y == nullptr && j == 0) a.ss[(size_t)b * C + c] = t;
+  }
+  if (a.y == nullptr) return;
+  __syncthreads();
+
+  // y = x * scale + shift (+ SiLU), from the held chunk or again from L2
+  if (!active) return;
+  float2 t[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) t[e] = ss[vc * 8 + e];
+  bf16* ys = a.y + ((size_t)b * a.HW + p0) * C + vc * 8;
+  for (int p = row; p < npos; p += rows * GN_UNROLL) {
+    uint4 raw[GN_UNROLL];
+#pragma unroll
+    for (int u = 0; u < GN_UNROLL; ++u) {
+      const int q = p + u * rows;
+      if (q < npos)
+        raw[u] = a.hold ? *reinterpret_cast<const uint4*>(chunk + q * C + vc * 8)
+                        : *reinterpret_cast<const uint4*>(xs + (size_t)q * C);
+    }
+#pragma unroll
+    for (int u = 0; u < GN_UNROLL; ++u) {
+      const int q = p + u * rows;
+      if (q < npos) {
+        const bf16* v = reinterpret_cast<const bf16*>(&raw[u]);
+        uint4 res;
+        bf16* r = reinterpret_cast<bf16*>(&res);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float y = fmaf(__bfloat162float(v[e]), t[e].x, t[e].y);
+          r[e] = __float2bfloat16(a.act ? silu(y) : y);
+        }
+        *reinterpret_cast<uint4*>(ys + (size_t)q * C) = res;
+      }
+    }
+  }
+}
+
+// one gn_cluster_kernel launch over x [B, HW, C]: the plan (n CTAs a sample,
+// pchunk positions each, threads, hold) comes from the wrapper
+int launch_gn(const GnArgs& a, int B, int n, int threads, cudaStream_t st) {
+  if (a.C % 8 || a.C > GN_MAX_C || a.C % a.G || n < 1 || n > GN_MAX_CLUSTER || (n & (n - 1)) ||
+      threads % 32 || threads > GN_MAX_THREADS || threads < a.C / 8 || (long long)n * a.pchunk < a.HW)
+    return (int)cudaErrorInvalidValue;
+  const GnLayout L = gn_layout(a.C, a.G, n, threads, a.pchunk, a.hold);
+  static int configured = -1;
+  if (configured < 0) {
+    cudaError_t e = cudaFuncSetAttribute(gn_cluster_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+    configured = 0;
+  }
+  if (L.bytes > configured) {
+    cudaError_t e = cudaFuncSetAttribute(gn_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+    if (e != cudaSuccess) return (int)e;
+    configured = L.bytes;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)n, (unsigned)B);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = (size_t)L.bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, gn_cluster_kernel, a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -297,35 +459,33 @@ int launch_conv(const ConvArgs& a, cudaStream_t st) {
 extern "C" {
 
 // K12: y = GroupNorm(x) (then SiLU when act) for x [B, HW, C] bf16 (channels
-// contiguous); part [B*G*nsplit] float2 and ss [B, C] float2 are scratch.
-int apk_group_norm_silu(const void* x, const void* gamma, const void* beta, void* part, int nsplit, int pchunk,
-                        void* ss, void* y, int B, int C, int HW, int G, float eps, int act, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C % 8 || C > GN_MAX_C) return (int)cudaErrorInvalidValue;
-  int e = launch_gn_stats((const bf16*)x, (const bf16*)gamma, (const bf16*)beta, (float2*)part, nsplit, pchunk,
-                          (float2*)ss, B, C, HW, G, eps, st);
-  if (e) return e;
-  const long long n8 = (long long)B * HW * C / 8;
-  gn_apply_kernel<<<(unsigned)((n8 + GN_APPLY_THREADS - 1) / GN_APPLY_THREADS), GN_APPLY_THREADS, 0, st>>>(
-      (const bf16*)x, (const float2*)ss, (bf16*)y, n8, HW, C, act);
-  return (int)cudaGetLastError();
+// contiguous), in one clustered launch: n CTAs per sample (a cluster),
+// pchunk positions each, threads per CTA, the chunk held in shared memory
+// when hold (the wrapper's plan, ops/groupnorm.py::gn_cluster_plan).
+int apk_group_norm_silu(const void* x, const void* gamma, const void* beta, void* y, int B, int C, int HW, int G,
+                        int n, int pchunk, int threads, int hold, float eps, int act, void* stream) {
+  GnArgs a = {(const bf16*)x, (const bf16*)gamma, (const bf16*)beta, (bf16*)y, nullptr, HW, C, G, pchunk, hold,
+              eps, act};
+  return launch_gn(a, B, n, threads, static_cast<cudaStream_t>(stream));
 }
 
 // K13: out = shortcut(x) + conv2(silu(gn2(h))) with h = conv1(silu(gn1(x))) +
 // temb; x [B, H*W, Cin], out [B, H*W, Cout] (channels contiguous), conv
 // weights HWIO; temb null, [Cout] (temb_bstride 0) or [B, Cout]; wsc/bsc null
-// for the identity shortcut. part1/ss1 (over Cin), h, part2/ss2 (over Cout)
-// are scratch.
+// for the identity shortcut. The GroupNorm statistics of x and of h are
+// gn_cluster_kernel launches (plans n/pchunk/threads/hold over Cin and Cout)
+// writing ss1/ss2 [B, C] float2; h is scratch.
 int apk_fused_resnet_block(const void* x, const void* temb, int temb_bstride, const void* gn1_w, const void* gn1_b,
                            const void* w1, const void* b1, const void* gn2_w, const void* gn2_b, const void* w2,
-                           const void* b2, const void* wsc, const void* bsc, void* part1, int nsplit1, int pchunk1,
-                           void* ss1, void* h, void* part2, int nsplit2, int pchunk2, void* ss2, void* out, int B,
-                           int Cin, int Cout, int H, int W, int G, float eps, void* stream) {
+                           const void* b2, const void* wsc, const void* bsc, int n1, int pchunk1, int threads1,
+                           int hold1, void* ss1, void* h, int n2, int pchunk2, int threads2, int hold2, void* ss2,
+                           void* out, int B, int Cin, int Cout, int H, int W, int G, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Cin % 32 || Cout % 32 || Cin > GN_MAX_C || Cout > GN_MAX_C) return (int)cudaErrorInvalidValue;
   const int HW = H * W;
-  int e = launch_gn_stats((const bf16*)x, (const bf16*)gn1_w, (const bf16*)gn1_b, (float2*)part1, nsplit1, pchunk1,
-                          (float2*)ss1, B, Cin, HW, G, eps, st);
+  GnArgs g1 = {(const bf16*)x, (const bf16*)gn1_w, (const bf16*)gn1_b, nullptr, (float2*)ss1, HW, Cin, G, pchunk1,
+               hold1, eps, 0};
+  int e = launch_gn(g1, B, n1, threads1, st);
   if (e) return e;
   ConvArgs c1 = {};
   c1.x = (const bf16*)x;
@@ -338,8 +498,9 @@ int apk_fused_resnet_block(const void* x, const void* temb, int temb_bstride, co
   c1.B = B; c1.Cx = Cin; c1.Cin = Cin; c1.Cout = Cout; c1.H = H; c1.W = W;
   e = launch_conv(c1, st);
   if (e) return e;
-  e = launch_gn_stats((const bf16*)h, (const bf16*)gn2_w, (const bf16*)gn2_b, (float2*)part2, nsplit2, pchunk2,
-                      (float2*)ss2, B, Cout, HW, G, eps, st);
+  GnArgs g2 = {(const bf16*)h, (const bf16*)gn2_w, (const bf16*)gn2_b, nullptr, (float2*)ss2, HW, Cout, G, pchunk2,
+               hold2, eps, 0};
+  e = launch_gn(g2, B, n2, threads2, st);
   if (e) return e;
   ConvArgs c2 = {};
   c2.x = (const bf16*)h;

@@ -6,239 +6,511 @@
 //      (heads packed into the 128 lanes when d divides 128)
 //   K6 ap_adapter_tpu/ops/pallas_self_attention.py::pallas_self_attention
 //      (any d, the whole K/V of a head resident in VMEM)
-// The head packing and the K/V residency are answers to the TPU's lane width
-// and VMEM; a Hopper block takes any d that is a multiple of 16 up to 512
-// directly, so one kernel serves both call sites. The path that reaches it is
-// the VAE mid-block attention (one head, d = 512, S = 4000 at edit time and
-// 4096 in training); the smoke also holds it at the UNet's d = 32 and 80.
-//
-// Design. At d = 512 a streamed online-softmax kernel that keeps a 64-row
-// fp32 O beside its Q tile (as common.cuh's attention routine does for
-// d <= 128) needs 128 KB + 64 KB of shared memory before any K/V tile. This
-// kernel takes a stats pass, then a PV pass, inside one block of 8 warps:
-//   1. stream the key tiles once for the row max m and the sum l of
-//      exp(s - m) (fp32, max-subtracted, as K6 at pallas_self_attention.py:
-//      27-47); S = Q K^T per tile with WMMA bf16 16x16x16, fp32 accumulate;
-//   2. stream them again: recompute S, P = exp(s - m) / l rounded to bf16 (as
-//      the plain version and sdpa round the probabilities), O += P V with O
-//      in WMMA accumulator registers, each warp owning a fixed set of 16x16
-//      output fragments; O is already normalised at the end.
-// QK^T is computed twice (3 products where an online softmax needs 2), but O
-// never leaves registers and needs no per-tile rescale. Shared memory at
-// d = 512: Q 32 x 520, K and V 64 x 520 bf16, S and P tiles: 180 KB (one
-// block per SM); at d = 32 a few KB. Ragged key tiles (S = 4000) are
-// zero-filled and masked to -inf before the softmax; rows past S are not
-// stored.
+// The head packing and the K/V residency answer the TPU's lane width and
+// VMEM. On Hopper the entry point routes by head dim: d % 16 == 0 and
+// d <= 128 goes to common.cuh's streamed online-softmax attention routine;
+// d % 64 == 0 with 128 < d <= 512 goes to wgmma_attention_kernel below. The
+// path that reaches it is the VAE mid-block attention (one head, d = 512,
+// S = 4000 at edit time and 4096 in training); the smoke also holds the
+// entry point at the UNet's d = 32 and 80.
 //
 // What bounds it on an H100: 4*B*H*S^2*d operations (QK^T and PV) against
 // 8*B*S*H*d bytes: 33 us of bf16 tensor-core time for [1, 4000, 1, 512]
-// against 16 MB (5 us) of HBM, so operations. The kernel does 1.5x those
-// operations, through mma.sync-class WMMA (not wgmma) with no load pipeline,
-// and each block re-reads K (twice) and V from L2. wgmma, TMA and an online
-// softmax with O in shared memory are later work.
+// against 16 MB (5 us) of HBM, so operations. The first version of this
+// kernel lost to that in four ways; what this design does about each:
+//   1. Two passes (a stats pass, then a PV pass) computed QK^T twice. Here
+//      one pass with an online max-subtracted fp32 softmax: each key tile's
+//      logits are computed once, O is rescaled by exp(m_old - m_new).
+//   2. K was read twice and V once per 32-row query tile. Here a block owns
+//      64 query rows, Q stays resident in shared memory, and each K/V tile
+//      is read once per block: half the L2 traffic of 32-row tiles, a third
+//      of the two-pass kernel's.
+//   3. WMMA 16x16x16 with both fragments reloaded from shared memory, no
+//      load pipeline. Here both products are wgmma: QK^T as m64n32k16 with
+//      Q and K from shared memory, PV as m64n64k16 with P from registers
+//      (the logits' accumulator layout is the A operand's, FA3's trick) and
+//      V from shared memory, transposed. K/V tiles arrive by TMA (128-byte
+//      swizzle) into a ring of two stages, signalled by mbarriers: the
+//      first thread issues each tile's loads one tile ahead, right after
+//      the barrier that already orders the two warpgroups (so the stage it
+//      refills is free). No separate producer warp: with one, ptxas holds
+//      every thread to the launch bound's 168 registers, setmaxnreg or not,
+//      spills, and serializes the wgmmas for want of registers (ptxas
+//      C7512); with 256 threads the d = 512 kernel takes 255 registers and
+//      spills nothing.
+//   4. 5% of the bf16 peak. Two consumer warpgroups split the work: each
+//      owns the 64-column blocks b = w, w + 2, ... of d, for the partial
+//      logits (QK^T over its blocks of d) and for O (its blocks of the
+//      output columns, up to 4 x 32 fp32 registers a thread). The partial
+//      logits are exchanged through shared memory in the accumulator's own
+//      register order (double-buffered, one named barrier a tile), so both
+//      warpgroups hold the full 64 x 32 logits and compute the same softmax.
+//      Where B*H*ceil(S/64) is under the SM count (the edit's 63 tiles), a
+//      2-CTA cluster splits the keys and rank 1's O, max and sum are
+//      combined into rank 0's in fp32 by log-sum-exp through distributed
+//      shared memory: one launch either way.
+// Shared memory at d = 512: Q 64 KB, 2 stages x (K + V) of 32 keys 128 KB,
+// the logit exchange 32 KB: 224 KB of the 227 KB. P is rounded to bf16
+// before PV (unnormalised; the plain version rounds the normalised P): the
+// tolerance is a fraction of max|plain|. Ragged key tiles are zero-filled by
+// TMA and masked to -inf; rows past S are not stored.
 
 #include "common.cuh"
 
+#include <cooperative_groups.h>
+#include <cuda.h>
+#include <dlfcn.h>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int SA_TQ = 32;                  // query rows per block
-constexpr int SA_TK = 64;                  // keys per streamed tile
-constexpr int SA_WARPS = 8;
-constexpr int SA_THREADS = SA_WARPS * 32;
-constexpr int SA_ROWS = SA_TQ / SA_WARPS;  // softmax rows per warp
-constexpr int SA_LDS = SA_TK + 4;          // fp32 row stride of the S tile
-constexpr int SA_LDP = SA_TK + 8;          // bf16 row stride of the P tile
-constexpr int SA_MAX_D = 512;
+constexpr int WA_TQ = 64;                 // query rows per block
+constexpr int WA_TK = 32;                 // keys per pipelined tile
+constexpr int WA_CONSUMERS = 256;         // two warpgroups
+constexpr int WA_THREADS = WA_CONSUMERS;
+constexpr int WA_STAGES = 2;
+// the cluster of a launch: none, or two CTAs of one query tile splitting its
+// key tiles (ops/self_attention.py::CLUSTER_MODES)
+enum WaMode { WA_ALONE = 0, WA_SPLIT_KEYS = 1 };
+constexpr int WA_QBLK = WA_TQ * 128;      // bytes of one 64-column block of the Q tile
+constexpr int WA_KBLK = WA_TK * 128;      // bytes of one 64-column block of a K or V tile
+constexpr int WA_XCHG = 2 * 2 * 16 * 128 * 4;   // parity x warpgroup x 16 logits x 128 threads, fp32
+constexpr int WA_SPLIT_XCHG = (128 + 4) * WA_CONSUMERS * 4;   // rank 1's O, max and sum, after the loop
 
-struct SaLayout {
-  int ld;                                  // bf16 row stride of the Q/K/V tiles
-  size_t q, k, v, s, p, bytes;
+struct WaLayout {
+  int q, k[WA_STAGES], v[WA_STAGES], x, bar, bytes;
 };
 
-__host__ __device__ inline SaLayout sa_layout(int d) {
-  SaLayout L;
-  L.ld = d + 8;
-  size_t off = 0;
-  L.q = off; off = align128(off + (size_t)SA_TQ * L.ld * 2);
-  L.k = off; off = align128(off + (size_t)SA_TK * L.ld * 2);
-  L.v = off; off = align128(off + (size_t)SA_TK * L.ld * 2);
-  L.s = off; off = align128(off + (size_t)SA_TQ * SA_LDS * 4);
-  L.p = off; off = align128(off + (size_t)SA_TQ * SA_LDP * 2);
-  L.bytes = off;
+__host__ __device__ inline WaLayout wa_layout(int d) {
+  const int nb = d / 64;
+  WaLayout L;
+  int off = 0;
+  L.q = off; off += nb * WA_QBLK;
+  for (int s = 0; s < WA_STAGES; ++s) {
+    L.k[s] = off; off += nb * WA_KBLK;
+    L.v[s] = off; off += nb * WA_KBLK;
+  }
+  L.x = off; off += WA_XCHG;
+  if (off < WA_SPLIT_XCHG) off = WA_SPLIT_XCHG;
+  L.bar = off; off += 8 * 8;
+  L.bytes = off + 1024;                    // slack to align the base to 1024 (128-byte swizzle atoms)
   return L;
 }
 
-// rows [row0, row0 + rows) of one head of a [B, S, H, d] tensor into a tile;
-// rows past S are zeros
-__device__ __forceinline__ void sa_load(bf16* dst, int ld, const bf16* __restrict__ src, int ldg, int row0,
-                                        int rows, int S, int d) {
-  const int dv = d / 8;
-  for (int c = threadIdx.x; c < rows * dv; c += SA_THREADS) {
-    const int r = c / dv, cc = (c % dv) * 8, row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < S) val = *reinterpret_cast<const uint4*>(src + (size_t)row * ldg + cc);
-    *reinterpret_cast<uint4*>(dst + r * ld + cc) = val;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// spins on the barrier's phase; a wait past about ten seconds traps (a
+// launch error) rather than hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  const long long t0 = clock64();
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (!done && clock64() - t0 > (1ll << 34)) __trap();
+  } while (!done);
+}
+
+// one box of a 3-D tensor map ({column, row, batch}) into shared memory
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+__device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r) :: "memory"); }
+
+// d[16] (+)= A[64x16] * B[32x16]^T, A and B K-major in shared memory (descriptors)
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[32] += A[64x16] * B[16x64], A in registers (bf16 pairs), B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64_tb(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
+
+// the TMA loads of this CTA's key tile it (of [t0, t1)) into stage it & 1,
+// issued by one thread; the stage's barrier counts their bytes
+__device__ __forceinline__ void load_kv_tile(uint32_t base, const WaLayout& L, const CUtensorMap* map_k,
+                                             const CUtensorMap* map_v, int nb, int it, int t0, int col0, int b) {
+  const int st = it & 1;
+  const uint32_t full = base + L.bar + 8 * st;
+  mbar_expect_tx(full, (uint32_t)(2 * nb * WA_KBLK));
+  const int k0 = (t0 + it) * WA_TK;
+  for (int blk = 0; blk < nb; ++blk) {
+    tma_load_3d(base + L.k[st] + blk * WA_KBLK, map_k, col0 + blk * 64, k0, b, full);
+    tma_load_3d(base + L.v[st] + blk * WA_KBLK, map_v, col0 + blk * 64, k0, b, full);
   }
 }
 
-// S = Q K^T for the tile: 2 x 4 fragments of 16x16, one per warp
-__device__ __forceinline__ void sa_scores(const bf16* Qs, const bf16* Ks, float* Ss, int ld, int d, int warp) {
-  const int sr = (warp >> 2) * 16, sc = (warp & 3) * 16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  wmma::fill_fragment(acc, 0.f);
-  for (int kk = 0; kk < d; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-    wmma::load_matrix_sync(a, Qs + sr * ld + kk, ld);
-    wmma::load_matrix_sync(b, Ks + sc * ld + kk, ld);
-    wmma::mma_sync(acc, a, b, acc);
-  }
-  wmma::store_matrix_sync(Ss + sr * SA_LDS + sc, acc, SA_LDS, wmma::mem_row_major);
-}
-
-// MAXF: output fragments per warp; 2 * d / 16 fragments over 8 warps
-template <int MAXF>
-__global__ void __launch_bounds__(SA_THREADS) self_attention_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v, bf16* __restrict__ out,
-    int S, int H, int d, float sm_scale) {
-  extern __shared__ __align__(128) unsigned char dyn_smem[];
-  const SaLayout L = sa_layout(d);
-  bf16* Qs = reinterpret_cast<bf16*>(dyn_smem + L.q);
-  bf16* Ks = reinterpret_cast<bf16*>(dyn_smem + L.k);
-  bf16* Vs = reinterpret_cast<bf16*>(dyn_smem + L.v);
-  float* Ss = reinterpret_cast<float*>(dyn_smem + L.s);
-  bf16* Ps = reinterpret_cast<bf16*>(dyn_smem + L.p);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * SA_TQ;
-  const int ldg = H * d;
-  const size_t head = (size_t)b * S * ldg + (size_t)h * d;
-  const bf16* qh = q + head;
-  const bf16* kh = k + head;
-  const bf16* vh = v + head;
-
-  sa_load(Qs, L.ld, qh, ldg, q0, SA_TQ, S, d);
-
-  // pass 1: row max and sum of exp(s - max); warp w owns rows w*4 .. w*4+3,
-  // lane l key columns l and l + 32 of each tile
-  float m_r[SA_ROWS], l_r[SA_ROWS];
+// the two warpgroups of wgmma_attention_kernel: online softmax over the
+// key tiles [t0, t1), then the cluster's combine (WA_SPLIT_KEYS), then the
+// bf16 store
+template <int NB>
+__device__ __forceinline__ void consume(unsigned char* smem, uint32_t base, const WaLayout& L, const CUtensorMap* map_k,
+                                        const CUtensorMap* map_v, bf16* __restrict__ out, int S, int H, int d,
+                                        int mode, int rank, int t0, int t1, int b, int q0, int col0,
+                                        float scale_log2) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nb = NB > 0 ? NB : d / 64;
+  const uint32_t bar_full = base + L.bar, bar_q = bar_full + 16;
+  float o[4][32];                          // O: this warpgroup's 64-column blocks 2i + w
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  const int w = warp >> 2;                 // consumer warpgroup (warps 0-7)
+  const int ct = tid & 127;
+  const int quad = lane & 3;
+  const int r0 = (warp & 3) * 16 + (lane >> 2);   // this thread's rows r0 and r0 + 8 of the tile
 #pragma unroll
-  for (int r = 0; r < SA_ROWS; ++r) {
-    m_r[r] = -INFINITY;
-    l_r[r] = 0.f;
-  }
-  for (int k0 = 0; k0 < S; k0 += SA_TK) {
-    __syncthreads();
-    sa_load(Ks, L.ld, kh, ldg, k0, SA_TK, S, d);
-    __syncthreads();
-    sa_scores(Qs, Ks, Ss, L.ld, d, warp);
-    __syncthreads();
-    const bool ok0 = k0 + lane < S, ok1 = k0 + lane + 32 < S;
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int r = 0; r < SA_ROWS; ++r) {
-      const float* srow = Ss + (warp * SA_ROWS + r) * SA_LDS;
-      const float x0 = ok0 ? srow[lane] * sm_scale : -INFINITY;
-      const float x1 = ok1 ? srow[lane + 32] * sm_scale : -INFINITY;
-      const float m_new = fmaxf(m_r[r], warp_max(fmaxf(x0, x1)));
-      l_r[r] = l_r[r] * expf(m_r[r] - m_new) + warp_sum(expf(x0 - m_new) + expf(x1 - m_new));
-      m_r[r] = m_new;
+    for (int e = 0; e < 32; ++e) o[i][e] = 0.f;
+  float* xs = reinterpret_cast<float*>(smem + L.x);
+  mbar_wait(bar_q, 0);
+  for (int it = 0; it < t1 - t0; ++it) {
+    const int st = it & 1;
+    mbar_wait(bar_full + 8 * st, (it >> 1) & 1);
+    // the tiles' shared addresses, opaque to the compiler so that it forms
+    // each descriptor next to its wgmma instead of holding them all in
+    // registers across the loop
+    uint32_t qa = base + L.q, ka = base + L.k[st], va = base + L.v[st];
+    asm volatile("" : "+r"(qa), "+r"(ka), "+r"(va));
+
+    // partial logits over this warpgroup's blocks of d: 64 x 32 fp32
+    float s[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) s[e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) reg_fence(s[e]);
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int blk = 2 * i + w;
+      if (NB > 0 || blk < nb) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n32(s, sw128_desc(qa + blk * WA_QBLK + kk * 32, 16, 1024),
+                       sw128_desc(ka + blk * WA_KBLK + kk * 32, 16, 1024), 1);
+      }
     }
-  }
+    wgmma_commit();
+    wgmma_wait0();
 #pragma unroll
-  for (int r = 0; r < SA_ROWS; ++r) l_r[r] = 1.f / l_r[r];
+    for (int e = 0; e < 16; ++e) reg_fence(s[e]);
 
-  // pass 2: O = P V; fragment f = warp + 8 * i covers rows (f & 1) * 16 and
-  // columns (f >> 1) * 16 of the [32, d] output
-  const int nfrag = 2 * (d / 16);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[MAXF];
+    // exchange the partial logits (the same register order in both warpgroups)
+    float* mine = xs + ((it & 1) * 2 + w) * 16 * 128;
+    const float* theirs = xs + ((it & 1) * 2 + (1 - w)) * 16 * 128;
 #pragma unroll
-  for (int i = 0; i < MAXF; ++i) wmma::fill_fragment(o[i], 0.f);
-  for (int k0 = 0; k0 < S; k0 += SA_TK) {
-    __syncthreads();
-    sa_load(Ks, L.ld, kh, ldg, k0, SA_TK, S, d);
-    sa_load(Vs, L.ld, vh, ldg, k0, SA_TK, S, d);
-    __syncthreads();
-    sa_scores(Qs, Ks, Ss, L.ld, d, warp);
-    __syncthreads();
-    const bool ok0 = k0 + lane < S, ok1 = k0 + lane + 32 < S;
+    for (int e = 0; e < 16; ++e) mine[e * 128 + ct] = s[e];
+    consumers_sync();
+    // every thread is past tile it - 1 now: refill its stage with tile it + 1
+    if (tid == 0 && it >= 1 && it + 1 < t1 - t0) load_kv_tile(base, L, map_k, map_v, nb, it + 1, t0, col0, b);
 #pragma unroll
-    for (int r = 0; r < SA_ROWS; ++r) {
-      const int gr = warp * SA_ROWS + r;
-      const float* srow = Ss + gr * SA_LDS;
-      const float p0 = ok0 ? expf(srow[lane] * sm_scale - m_r[r]) * l_r[r] : 0.f;
-      const float p1 = ok1 ? expf(srow[lane + 32] * sm_scale - m_r[r]) * l_r[r] : 0.f;
-      Ps[gr * SA_LDP + lane] = __float2bfloat16(p0);
-      Ps[gr * SA_LDP + lane + 32] = __float2bfloat16(p1);
+    for (int e = 0; e < 16; ++e) s[e] += theirs[e * 128 + ct];
+
+    // online softmax in the log2 domain; keys past S masked
+    const int kb = (t0 + it) * WA_TK + 2 * quad;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * j + e] * scale_log2;
+        if (kb + 8 * j + (e & 1) >= S) x = -INFINITY;
+        s[4 * j + e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x);
+        else mx1 = fmaxf(mx1, x);
+      }
+    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+    const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[4 * j] = exp2f(s[4 * j] - m0);
+      s[4 * j + 1] = exp2f(s[4 * j + 1] - m0);
+      s[4 * j + 2] = exp2f(s[4 * j + 2] - m1);
+      s[4 * j + 3] = exp2f(s[4 * j + 3] - m1);
+      ps0 += s[4 * j] + s[4 * j + 1];
+      ps1 += s[4 * j + 2] + s[4 * j + 3];
     }
-    __syncthreads();
+    l0 = l0 * c0 + ps0;
+    l1 = l1 * c1 + ps1;
+    uint32_t pa[2][4];
 #pragma unroll
-    for (int i = 0; i < MAXF; ++i) {
-      const int f = warp + SA_WARPS * i;
-      if (f < nfrag) {
-        const int rr = (f & 1) * 16, cf = (f >> 1) * 16;
+    for (int js = 0; js < 2; ++js) {
+      pa[js][0] = pack_bf16(s[8 * js], s[8 * js + 1]);
+      pa[js][1] = pack_bf16(s[8 * js + 2], s[8 * js + 3]);
+      pa[js][2] = pack_bf16(s[8 * js + 4], s[8 * js + 5]);
+      pa[js][3] = pack_bf16(s[8 * js + 6], s[8 * js + 7]);
+    }
+
+    // O = O * corr + P V over this warpgroup's column blocks
 #pragma unroll
-        for (int kk = 0; kk < SA_TK; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bb;
-          wmma::load_matrix_sync(a, Ps + rr * SA_LDP + kk, SA_LDP);
-          wmma::load_matrix_sync(bb, Vs + kk * L.ld + cf, L.ld);
-          wmma::mma_sync(o[i], a, bb, o[i]);
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[i][4 * j] *= c0;
+        o[i][4 * j + 1] *= c0;
+        o[i][4 * j + 2] *= c1;
+        o[i][4 * j + 3] *= c1;
+      }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) reg_fence(o[i][e]);
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int blk = 2 * i + w;
+      if (NB > 0 || blk < nb) {
+#pragma unroll
+        for (int js = 0; js < 2; ++js)
+          wgmma_rs_n64_tb(o[i], pa[js], sw128_desc(va + blk * WA_KBLK + js * 16 * 128, WA_KBLK, 1024));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) reg_fence(o[i][e]);
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+
+  if (mode == WA_SPLIT_KEYS) {
+    // rank 1 hands its O, max and sum to rank 0 through distributed shared
+    // memory (its Q and K/V stages are free now); rank 0 combines them
+    cg::cluster_group cluster = cg::this_cluster();
+    float* xo = reinterpret_cast<float*>(smem);              // [128 registers][256 consumer threads]
+    float* xml = xo + 128 * WA_CONSUMERS;                   // [256 consumer threads][4]
+    if (rank == 1) {
+      consumers_sync();
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) xo[(i * 32 + e) * WA_CONSUMERS + tid] = o[i][e];
+      *reinterpret_cast<float4*>(xml + 4 * tid) = make_float4(m0, m1, l0, l1);
+    }
+    cluster.sync();
+    if (rank == 0) {
+      const float* ro = cluster.map_shared_rank(xo, 1);
+      const float4 rml = *reinterpret_cast<const float4*>(cluster.map_shared_rank(xml, 1) + 4 * tid);
+      const float n0 = fmaxf(m0, rml.x), n1 = fmaxf(m1, rml.y);
+      const float a0 = exp2f(m0 - n0), b0 = exp2f(rml.x - n0);
+      const float a1 = exp2f(m1 - n1), b1 = exp2f(rml.y - n1);
+      l0 = l0 * a0 + rml.z * b0;
+      l1 = l1 * a1 + rml.w * b1;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (NB > 0 || 2 * i + w < nb) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int e = 4 * j;
+            o[i][e] = o[i][e] * a0 + ro[(i * 32 + e) * WA_CONSUMERS + tid] * b0;
+            o[i][e + 1] = o[i][e + 1] * a0 + ro[(i * 32 + e + 1) * WA_CONSUMERS + tid] * b0;
+            o[i][e + 2] = o[i][e + 2] * a1 + ro[(i * 32 + e + 2) * WA_CONSUMERS + tid] * b1;
+            o[i][e + 3] = o[i][e + 3] * a1 + ro[(i * 32 + e + 3) * WA_CONSUMERS + tid] * b1;
+          }
         }
       }
     }
+    cluster.sync();                       // rank 1's shared memory stays until rank 0 has read it
+    if (rank != 0) return;
   }
-
-  // the S tile is free after the last softmax: stage each fragment there
-  // (16x16 fp32 per warp) and store it as bf16
-  float* stage = Ss + warp * 256;
-  bf16* oh = out + head;
+  // O / l, rounded once to bf16
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const int ldg = H * d;
+  const int row0 = q0 + r0, row1 = row0 + 8;
+  bf16* ob = out + (size_t)b * S * ldg + col0;
 #pragma unroll
-  for (int i = 0; i < MAXF; ++i) {
-    const int f = warp + SA_WARPS * i;
-    if (f < nfrag) {
-      const int rr = (f & 1) * 16, cf = (f >> 1) * 16;
-      wmma::store_matrix_sync(stage, o[i], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = q0 + rr + e / 16;
-        if (row < S) oh[(size_t)row * ldg + cf + e % 16] = __float2bfloat16(stage[e]);
+  for (int i = 0; i < 4; ++i) {
+    const int blk = 2 * i + w;
+    if (NB > 0 || blk < nb) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = blk * 64 + 8 * j + 2 * quad;
+        if (row0 < S)
+          *reinterpret_cast<uint32_t*>(ob + (size_t)row0 * ldg + col) = pack_bf16(o[i][4 * j] * inv0, o[i][4 * j + 1] * inv0);
+        if (row1 < S)
+          *reinterpret_cast<uint32_t*>(ob + (size_t)row1 * ldg + col) =
+              pack_bf16(o[i][4 * j + 2] * inv1, o[i][4 * j + 3] * inv1);
       }
-      __syncwarp();
     }
   }
 }
 
-template <int MAXF>
-int launch_self_attention(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int S, int H, int d,
-                          cudaStream_t st) {
-  const SaLayout L = sa_layout(d);
-  static size_t configured = 0;
-  if (L.bytes > configured) {
-    cudaError_t e = cudaFuncSetAttribute(self_attention_kernel<MAXF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L.bytes);
-    if (e != cudaSuccess) return (int)e;
-    configured = L.bytes;
+// grid (ceil(S / 64), H, B), WA_THREADS threads; with WA_SPLIT_KEYS twice
+// the query tiles in x and clusters of (2, 1, 1).
+// d = 64 * nb, 3 <= nb <= 8; NB = nb where it is known at compile time (8:
+// no branch around a wgmma, which would serialize them), else 0. Thread
+// t: warpgroup w = t / 128; thread 0 also issues every TMA load.
+template <int NB>
+__global__ void __launch_bounds__(WA_THREADS, 1) wgmma_attention_kernel(
+    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ out, int S, int H, int d, int mode,
+    float scale_log2) {
+  extern __shared__ unsigned char wa_smem_raw[];
+  const uint32_t raw = smem_u32(wa_smem_raw);
+  unsigned char* smem = wa_smem_raw + (((raw + 1023) & ~1023u) - raw);
+  const uint32_t base = smem_u32(smem);
+  const int nb = NB > 0 ? NB : d / 64;
+  const WaLayout L = wa_layout(d);
+  const uint32_t bar_full = base + L.bar, bar_q = bar_full + 16;
+
+  const int tid = threadIdx.x;
+  const int rank = mode != WA_ALONE ? (int)(blockIdx.x & 1) : 0;
+  const int qt = mode == WA_SPLIT_KEYS ? blockIdx.x >> 1 : blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * WA_TQ, col0 = h * d;
+  const int ntiles = (S + WA_TK - 1) / WA_TK;
+  const int per = mode == WA_SPLIT_KEYS ? (ntiles + 1) / 2 : ntiles;
+  const int t0 = mode == WA_SPLIT_KEYS ? rank * per : 0, t1 = min(ntiles, t0 + per);
+
+  if (tid == 0) {
+    for (int s = 0; s < WA_STAGES; ++s) mbar_init(bar_full + 8 * s, 1);
+    mbar_init(bar_q, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // Q once, and the first two key tiles (the ring starts empty)
+    mbar_expect_tx(bar_q, (uint32_t)(nb * WA_QBLK));
+    for (int blk = 0; blk < nb; ++blk) tma_load_3d(base + L.q + blk * WA_QBLK, &map_q, col0 + blk * 64, q0, b, bar_q);
+    for (int it = 0; it < WA_STAGES && it < t1 - t0; ++it) load_kv_tile(base, L, &map_k, &map_v, nb, it, t0, col0, b);
   }
-  dim3 grid((S + SA_TQ - 1) / SA_TQ, H, B);
-  self_attention_kernel<MAXF><<<grid, SA_THREADS, L.bytes, st>>>(q, k, v, out, S, H, d, 1.f / sqrtf((float)d));
-  return (int)cudaGetLastError();
+  __syncthreads();
+  consume<NB>(smem, base, L, &map_k, &map_v, out, S, H, d, mode, rank, t0, t1, b, q0, col0, scale_log2);
 }
 
-static_assert(2 * (SA_MAX_D / 16) <= 8 * SA_WARPS, "MAXF = 8 covers d = 512");
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the libcuda the process has loaded (PyTorch
+// loaded it), so that the library links against nothing but the runtime
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib != nullptr) fn = reinterpret_cast<EncodeTiledFn>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// the [B, S, H*d] bf16 tensor as {column, row, batch}; boxes of 64 columns x rows, 128-byte swizzle
+int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int d, int rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)H * d, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)H * d * 2, (cuuint64_t)S * H * d * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, estr,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+int launch_wgmma_attention(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int S, int H, int d,
+                           int mode, cudaStream_t st) {
+  CUtensorMap mq, mk, mv;
+  int e = make_map(&mq, q, B, S, H, d, WA_TQ);
+  if (!e) e = make_map(&mk, k, B, S, H, d, WA_TK);
+  if (!e) e = make_map(&mv, v, B, S, H, d, WA_TK);
+  if (e) return e;
+  const WaLayout L = wa_layout(d);
+  auto kernel = d == 512 ? wgmma_attention_kernel<8> : wgmma_attention_kernel<0>;
+  static int configured[2] = {0, 0};
+  int& done = configured[d == 512];
+  if (L.bytes > done) {
+    cudaError_t r = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+    if (r != cudaSuccess) return (int)r;
+    done = L.bytes;
+  }
+  cudaLaunchConfig_t cfg = {};
+  const int nq = (S + WA_TQ - 1) / WA_TQ;
+  cfg.gridDim = dim3((unsigned)(mode == WA_SPLIT_KEYS ? 2 * nq : nq), (unsigned)H, (unsigned)B);
+  cfg.blockDim = dim3(WA_THREADS);
+  cfg.dynamicSmemBytes = (size_t)L.bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = mode == WA_ALONE ? 1u : 2u;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)d);
+  cudaError_t r = cudaLaunchKernelEx(&cfg, kernel, mq, mk, mv, out, S, H, d, mode, scale_log2);
+  if (r != cudaSuccess) return (int)r;
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
 // K5/K6: out = softmax(q k^T / sqrt(d)) v per (batch, head); q/k/v/out
-// [B, S, H, d] bf16, d % 16 == 0, d <= 512 (checked by the wrapper).
-int apk_self_attention(const void* q, const void* k, const void* v, void* out, int B, int S, int H, int d,
+// [B, S, H, d] bf16. d % 16 == 0 and d <= 128: the streamed routine
+// (mode must be 0); d % 64 == 0 and 128 < d <= 512: the wgmma kernel, its
+// 2-CTA cluster as mode says (WaMode). Anything else is refused.
+int apk_self_attention(const void* q, const void* k, const void* v, void* out, int B, int S, int H, int d, int mode,
                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d % 16 || d > SA_MAX_D) return (int)cudaErrorInvalidValue;
-  if (d <= 128)
-    return launch_self_attention<2>((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, B, S, H, d, st);
-  return launch_self_attention<8>((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, B, S, H, d, st);
+  if (d % 16 == 0 && d <= 128 && mode == WA_ALONE)
+    return launch_attention<bf16>((const bf16*)q, S, (const bf16*)k, (const bf16*)v, S, nullptr, nullptr, nullptr, 0,
+                                  0.f, (bf16*)out, B, H * d, H, 1.f / sqrtf((float)d), st);
+  if (d % 64 == 0 && d > 128 && d <= 512 && (mode == WA_ALONE || mode == WA_SPLIT_KEYS))
+    return launch_wgmma_attention((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, B, S, H, d, mode, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

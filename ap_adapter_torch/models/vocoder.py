@@ -64,5 +64,10 @@ class HiFiGAN(nn.Module):
                 y = self.resblocks[i * nk + j](x)
                 acc = y if acc is None else acc + y
             x = acc / nk
-        x = self.conv_post(F.leaky_relu(x, c.leaky_relu_slope))
+        # The last LeakyReLU takes torch's default slope (0.01), not the
+        # config's, as transformers' SpeechT5HifiGan.forward calls it
+        # (modeling_speecht5.py, `nn.functional.leaky_relu(hidden_states)`
+        # before `conv_post`). A deliberate difference from the JAX package,
+        # whose vocoder applies the config's 0.1 here.
+        x = self.conv_post(F.leaky_relu(x))
         return torch.tanh(x)[:, 0]

@@ -44,9 +44,9 @@ _SIGNATURES = {
     "apk_fused_ln_self_attention_int8": [_P] * 17 + [_I] * 4 + [_F, _F, _P],
     "apk_fused_ln_cross_attention_int8": [_P, _P, _I, _I, _I] + [_P] * 11 + [_F] + [_P] * 10
     + [_I] * 4 + [_F, _F, _P],
-    "apk_self_attention": [_P] * 4 + [_I] * 4 + [_P],
-    "apk_group_norm_silu": [_P] * 4 + [_I] * 2 + [_P] * 2 + [_I] * 4 + [_F, _I, _P],
-    "apk_fused_resnet_block": [_P] * 2 + [_I] + [_P] * 11 + [_I] * 2 + [_P] * 3 + [_I] * 2 + [_P] * 2
+    "apk_self_attention": [_P] * 4 + [_I] * 5 + [_P],
+    "apk_group_norm_silu": [_P] * 4 + [_I] * 8 + [_F, _I, _P],
+    "apk_fused_resnet_block": [_P] * 2 + [_I] + [_P] * 10 + [_I] * 4 + [_P] * 2 + [_I] * 4 + [_P] * 2
     + [_I] * 6 + [_F, _P],
     "apk_dual_kv_attention": [_P] * 3 + [_I] + [_P] * 2 + [_I, _F, _P] + [_I] * 4 + [_P],
 }
@@ -123,7 +123,7 @@ def build() -> Path:
             failed.append(f"{cmd[-1]} ({proc.returncode}):\n{stderr[-4000:]}")
     if not failed:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs), "-ldl"]
         res = subprocess.run(cmd, capture_output=True, text=True)
         log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
         if res.returncode != 0:

@@ -12,14 +12,16 @@ Kernel (``csrc/resnet.cu``, ``apk_group_norm_silu``): the UNet's NCHW
 tensors are channels-last in memory (``[B, H·W, C]`` rows), and the kernel
 reads them so, with no transpose; ``x`` must be channels-last contiguous
 (``x.is_contiguous(memory_format=torch.channels_last)``), on the CPU too, so
-that a layout fault shows in the CPU tests. A block takes a chunk of
-positions of one sample (about 4,096 values), reduces each channel by
-Welford and combines each group's channels by Chan's rule in a fixed order;
-a finalize pass combines a group's chunks into each channel's fp32 scale
-and shift, and an apply pass writes ``x * scale + shift`` (SiLU in fp32, one
+that a layout fault shows in the CPU tests. One launch a call and no
+scratch: the ``n`` CTAs of a sample form a thread-block cluster
+(``gn_cluster_plan``); each takes a contiguous chunk of positions (held in
+shared memory where it fits), computes its per-group sum, mean and centred
+sum of squares, and after a cluster barrier every CTA combines all the
+chunks' (count, mean, M2) through distributed shared memory by Chan's rule
+in rank order, then writes ``x * scale + shift`` (SiLU in fp32, one
 rounding). No atomics, and no ``E[x²] − E[x]²`` (the TPU kernel's form,
 which cancels when |mean| ≫ std). What bounds it on an H100: bytes, one read
-and one write of x (the statistics read x once more).
+and one write of x.
 
 The plain version computes GroupNorm and SiLU in fp32 and rounds once, as
 the TPU kernel does; the port's default resnet path (``F.silu(norm(x))`` in
@@ -30,28 +32,49 @@ backward is autograd over the plain version (pallas_groupnorm.py:189-207).
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from ap_adapter_torch.ops import cuda_kernels as ck
 
-GN_CHUNK = 4096     # values of a sample per statistics block
-GN_MAX_SPLIT = 256
-GN_MAX_C = 2048     # channels a statistics block holds
+GN_MAX_C = 2048             # channels a block holds (8 per thread)
+GN_MAX_CLUSTER = 16         # CTAs of a sample (a non-portable cluster size)
+GN_MAX_THREADS = 512
+GN_CTA_BYTES = 16 * 1024    # the bytes of a sample a CTA aims at
+SMEM_LIMIT = 232_448        # shared memory a block can use on an H100
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def gn_split(hw: int, c: int) -> Tuple[int, int]:
-    """(statistics blocks per sample, positions per block) for a [hw, c] sample."""
+class GnPlan(NamedTuple):
+    n: int          # CTAs of a sample: the cluster
+    pchunk: int     # positions a CTA takes: [j * pchunk, (j + 1) * pchunk) of the sample
+    threads: int    # threads a CTA, 8 channels each, (c // 8) * rows of them used
+    hold: bool      # the chunk stays in shared memory between the passes
+    smem: int       # shared memory bytes a CTA (csrc/resnet.cu::gn_layout)
 
-    nsplit = max(1, min(GN_MAX_SPLIT, _cdiv(hw * c, GN_CHUNK)))
-    pchunk = _cdiv(hw, nsplit)
-    return _cdiv(hw, pchunk), pchunk
+
+@functools.lru_cache(maxsize=None)
+def gn_cluster_plan(hw: int, c: int, groups: int) -> GnPlan:
+    """The launch of K12 (and of K13's statistics) on a [hw, c] sample: the
+    fewest CTAs, a power of two up to 16, that keep each near
+    ``GN_CTA_BYTES`` of the sample, the chunk held when it fits."""
+
+    vc = c // 8
+    rows = max(1, GN_MAX_THREADS // vc)
+    threads = _cdiv(vc * rows, 32) * 32
+    n = 1
+    while n < GN_MAX_CLUSTER and n < hw and n * GN_CTA_BYTES < hw * c * 2:
+        n *= 2
+    pchunk = _cdiv(hw, n)
+    fixed = -(-(rows * c * 4 + c * 8 + groups * 5 * 4 + n * groups * 3 * 4) // 16) * 16
+    hold = fixed + pchunk * c * 2 <= SMEM_LIMIT
+    return GnPlan(n, pchunk, threads, hold, fixed + (pchunk * c * 2 if hold else 0))
 
 
 def group_norm_silu_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int,
@@ -84,12 +107,10 @@ def group_norm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, gr
     if c % 8 or c > GN_MAX_C:
         raise ValueError(f"{op}: kernel needs C % 8 == 0 and C <= {GN_MAX_C} (C={c})")
     ck.check_operands(op, x, x=x, gamma=gamma, beta=beta)
-    nsplit, pchunk = gn_split(h * w, c)
-    part = x.new_empty(b * groups * nsplit, 2, dtype=torch.float32)
-    ss = x.new_empty(b, c, 2, dtype=torch.float32)
+    plan = gn_cluster_plan(h * w, c, groups)
     y = torch.empty_like(x, memory_format=torch.channels_last)
-    ck.launch(op, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), part.data_ptr(), nsplit, pchunk,
-              ss.data_ptr(), y.data_ptr(), b, c, h * w, groups, eps, int(act))
+    ck.launch(op, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), b, c, h * w, groups, plan.n,
+              plan.pchunk, plan.threads, int(plan.hold), eps, int(act))
     return y
 
 

@@ -14,7 +14,8 @@ the torch weights (``models/unet.py::prepare_resnet_kernel_weights_``).
 
 Kernel (``csrc/resnet.cu``, ``apk_fused_resnet_block``): the GroupNorm
 statistics need a whole sample before either conv can start, so one wrapper
-runs six launches: the statistics of x (K12's partial and finalize passes),
+runs four launches: the statistics of x (K12's clustered kernel without its
+apply pass, writing the per-channel scale and shift),
 conv1 as an implicit GEMM with GN1+SiLU applied as its activation tile is
 gathered and bias + temb in its epilogue (h stored in bf16, as the TPU
 kernel stages it), the statistics of h, and conv2 with GN2+SiLU in its
@@ -36,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ap_adapter_torch.ops import cuda_kernels as ck
-from ap_adapter_torch.ops.groupnorm import GN_MAX_C, gn_split, group_norm_silu_plain
+from ap_adapter_torch.ops.groupnorm import GN_MAX_C, gn_cluster_plan, group_norm_silu_plain
 
 
 def fused_resnet_block_plain(x, temb, gn1_scale, gn1_bias, conv1_w, conv1_b, gn2_scale, gn2_bias, conv2_w,
@@ -99,10 +100,7 @@ def fused_resnet_block(x, temb, gn1_scale, gn1_bias, conv1_w, conv1_b, gn2_scale
         raise ValueError(f"{op}: kernel needs C_in and C_out multiples of 32, at most {GN_MAX_C} "
                          f"(C_in={cin}, C_out={cout})")
     ck.check_operands(op, x, **operands)
-    n1, p1 = gn_split(h * w, cin)
-    n2, p2 = gn_split(h * w, cout)
-    part1 = x.new_empty(b * groups * n1, 2, dtype=torch.float32)
-    part2 = x.new_empty(b * groups * n2, 2, dtype=torch.float32)
+    g1, g2 = gn_cluster_plan(h * w, cin, groups), gn_cluster_plan(h * w, cout, groups)
     ss1 = x.new_empty(b, cin, 2, dtype=torch.float32)
     ss2 = x.new_empty(b, cout, 2, dtype=torch.float32)
     hbuf = x.new_empty(b, h, w, cout)
@@ -110,9 +108,9 @@ def fused_resnet_block(x, temb, gn1_scale, gn1_bias, conv1_w, conv1_b, gn2_scale
     temb_stride = 0 if temb is None or temb.ndim == 1 else cout
     ck.launch(op, x.data_ptr(), ck.ptr(temb), temb_stride, gn1_scale.data_ptr(), gn1_bias.data_ptr(),
               conv1_w.data_ptr(), conv1_b.data_ptr(), gn2_scale.data_ptr(), gn2_bias.data_ptr(), conv2_w.data_ptr(),
-              conv2_b.data_ptr(), ck.ptr(sc_w), ck.ptr(sc_b), part1.data_ptr(), n1, p1, ss1.data_ptr(),
-              hbuf.data_ptr(), part2.data_ptr(), n2, p2, ss2.data_ptr(), out.data_ptr(), b, cin, cout, h, w,
-              groups, eps)
+              conv2_b.data_ptr(), ck.ptr(sc_w), ck.ptr(sc_b), g1.n, g1.pchunk, g1.threads, int(g1.hold),
+              ss1.data_ptr(), hbuf.data_ptr(), g2.n, g2.pchunk, g2.threads, int(g2.hold), ss2.data_ptr(),
+              out.data_ptr(), b, cin, cout, h, w, groups, eps)
     return out
 
 

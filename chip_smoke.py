@@ -50,9 +50,12 @@ prints its seconds:
    (same seed and inputs) in log-mel (``audio/mel.py``): cosine > 0.99 and
    mean abs difference < 0.1, with the waveform's relative error;
 11. resnet kernels: the K5/K6 self-attention at [1, 4000, 1, 512] (an edit's
-   VAE decode), [8, 4096, 1, 512] (a training batch's VAE encode),
-   [2, 1000, 8, 32] and [2, 1000, 8, 80]; K12 at every resnet GroupNorm
-   shape of the edit (B=2), SiLU on and off; K13 at every distinct resnet
+   VAE decode), [8, 4096, 1, 512] (a training batch's VAE encode), both on
+   the one-pass wgmma kernel (the first with its keys split over a 2-CTA
+   cluster), and [2, 1000, 8, 32] and [2, 1000, 8, 80] on the streamed
+   routine (each case logs its route); K12 at every resnet GroupNorm
+   shape of the edit (B=2), SiLU on and off, then two calls at the largest
+   shape, which must be bit-equal; K13 at every distinct resnet
    shape of the edit, with a per-sample temb and without; each against its
    plain version (limit 2e-2 of max|plain|), with both times, the bound and
    ``library_ms`` (``F.scaled_dot_product_attention`` for the attention,
@@ -406,7 +409,7 @@ def resnet_kernel_phase(device, unet_config) -> dict:
 
     from ap_adapter_torch.ops.groupnorm import group_norm_silu, group_norm_silu_plain
     from ap_adapter_torch.ops.resnet import fused_resnet_block, fused_resnet_block_plain
-    from ap_adapter_torch.ops.self_attention import self_attention_kernel, self_attention_plain
+    from ap_adapter_torch.ops.self_attention import attention_plan, self_attention_kernel, self_attention_plain
 
     gen = torch.Generator(device=device).manual_seed(6)
 
@@ -414,10 +417,13 @@ def resnet_kernel_phase(device, unet_config) -> dict:
         return (torch.randn(*shape, generator=gen, device=device) * scale).to(torch.bfloat16)
 
     results = new_results(RESNET_KERNELS)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     for b, s, h, d in ATTN_SHAPES:
         q, k, v = r(b, s, h, d), r(b, s, h, d), r(b, s, h, d)
         bd = bound(4 * b * h * s * s * d, 4 * 2 * b * s * h * d)
-        run_case(results, "self_attention", "self", (b, s, h, d), {}, lambda: self_attention_kernel(q, k, v),
+        route, cluster = attention_plan(b, s, h, d, sms)
+        run_case(results, "self_attention", "self", (b, s, h, d), {"route": route, "cluster": cluster},
+                 lambda: self_attention_kernel(q, k, v),
                  lambda: self_attention_plain(q, k, v), TOL, bd=bd,
                  library=lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
                                                                 v.transpose(1, 2)))
@@ -433,6 +439,15 @@ def resnet_kernel_phase(device, unet_config) -> dict:
                      lambda: group_norm_silu(x, gamma, beta, groups, eps, act),
                      lambda: group_norm_silu_plain(x, gamma, beta, groups, eps, act), TOL, bd=bd,
                      library=None if act else lambda: F.group_norm(x, groups, gamma, beta, eps))
+    # K12's combine has a fixed order and no atomics: two calls, the same bits
+    hh, ww, c = max(gn_shapes, key=lambda t: t[0] * t[1] * t[2])
+    x = (r(b, hh, ww, c) + 1.0).permute(0, 3, 1, 2)
+    gamma, beta = 1 + r(c, scale=0.1), r(c, scale=0.1)
+    first, second = (group_norm_silu(x, gamma, beta, groups, eps, True) for _ in range(2))
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        raise RuntimeError(f"group_norm_silu {(b, hh, ww, c)}: two calls differ")
+    log(f"kernel group_norm_silu deterministic at B={b} H={hh} W={ww} C={c}: two calls bit-equal")
     for hh, ww, cin, cout in sorted(set(shapes)):
         sc = cin != cout
         x = r(b, hh, ww, cin)

@@ -2,22 +2,27 @@
 """Order the port's kernels for redesign from one ``chip_smoke.py`` run.
 
     python3 chip_smoke.py > smoke.log
-    python3 scripts/kernel_redesign_order.py smoke.log
+    python3 scripts/profile_kernels.py      # writes build/profile_kernels.json
+    python3 scripts/kernel_redesign_order.py smoke.log [build/profile_kernels.json]
 
-Reads the ``{"kernels": [...]}`` line that ``chip_smoke.py`` prints and
+Reads the ``{"kernels": [...]}`` line that ``chip_smoke.py`` prints and,
+where given, the device times of ``scripts/profile_kernels.py``, and
 prints two lists:
 
 1. the kernels slower than one PyTorch call for the same function (those
    with ``library_ms``), the largest factor first: kernel ms on the cases
-   that have a library call over the library's ms;
+   that have a library call over the library's ms, by device time where
+   the profile has it, else by CUDA events (which enclose the wrapper's
+   host path);
 2. every kernel by its excess time per unit of its path,
    launches x (ms per launch - bound per launch), the largest first. A
-   kernel's ms per launch is its summed ms over the path's shapes divided
-   by the number of shapes and variants it was timed at (each is one call
-   at one shape of the path), the same for the bound; launches are the
-   kernels line's count divided by the units the smoke's run covered (two
-   bf16 and two int8 edit requests, six training micro-steps, one request
-   under each resnet switch and under use_pallas_attention).
+   kernel's ms per launch is its summed device ms (else event ms) over the
+   path's shapes divided by the number of shapes and variants it was timed
+   at (each is one call at one shape of the path), the same for the bound;
+   launches are the kernels line's count divided by the units the smoke's
+   run covered (two bf16 and two int8 edit requests, six training
+   micro-steps, one request under each resnet switch and under
+   use_pallas_attention).
 
 Runs anywhere: it reads a log, it touches no card.
 """
@@ -55,22 +60,36 @@ def kernels_line(path: str) -> list:
 
 
 def main(argv=None) -> None:
-    kernels = kernels_line((argv or sys.argv[1:])[0])
+    argv = argv or sys.argv[1:]
+    kernels = kernels_line(argv[0])
+    device = {}
+    if len(argv) > 1:
+        with open(argv[1]) as f:
+            device = json.load(f)["kernels"]
     print("slower than one PyTorch call (kernel ms / library ms on the same cases):")
-    slow = sorted((k["library_cases_ms"] / k["library_ms"], k["name"]) for k in kernels
-                  if k["library_ms"] and k["library_cases_ms"] > k["library_ms"])
-    for ratio, name in reversed(slow):
-        print(f"  {name}: {ratio:.3f}x")
+    slow = []
+    for k in kernels:
+        dev = device.get(k["name"], {})
+        if dev.get("library_device_ms"):
+            slow.append((dev["library_cases_device_ms"] / dev["library_device_ms"], k["name"], "device"))
+        elif k["library_ms"]:
+            slow.append((k["library_cases_ms"] / k["library_ms"], k["name"], "events"))
+    for ratio, name, by in sorted(slow, reverse=True):
+        if ratio > 1:
+            print(f"  {name}: {ratio:.3f}x ({by})")
     print("launches x (ms per launch - bound per launch), per unit of the kernel's path:")
     rows = []
     for k in kernels:
         n = len(k["cases"])
         units, unit = UNITS[k["name"]]
-        per_launch, bound = k["ms"] / n, k["bound_ms"] / n
+        by = "device" if k["name"] in device else "events"
+        ms = device[k["name"]]["device_ms"] if by == "device" else k["ms"]
+        per_launch, bound = ms / n, k["bound_ms"] / n
         launches = k["launches"] / units
-        rows.append((launches * (per_launch - bound), k["name"], launches, unit, per_launch, bound))
-    for excess, name, launches, unit, per_launch, bound in sorted(rows, reverse=True):
-        print(f"  {name}: {excess:.1f} ms per {unit} ({launches:g} launches x ({per_launch:.4f} - {bound:.4f}) ms)")
+        rows.append((launches * (per_launch - bound), k["name"], launches, unit, per_launch, bound, by))
+    for excess, name, launches, unit, per_launch, bound, by in sorted(rows, reverse=True):
+        print(f"  {name}: {excess:.1f} ms per {unit} ({launches:g} launches x ({per_launch:.4f} - {bound:.4f}) ms, "
+              f"{by})")
 
 
 if __name__ == "__main__":

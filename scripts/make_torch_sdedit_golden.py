@@ -1,7 +1,7 @@
 """Write ``tests/golden/torch_sdedit.npz``: the JAX package's SDEdit edit
 (``pipeline/style_transfer.py::sdedit_generate_waveform``) at the tiny
-config, the reference that ``tests/test_torch_tasks.py`` holds the PyTorch
-port's to.
+config, the reference that ``tests/test_torch_pipeline.py`` holds the
+PyTorch port's to.
 
     JAX_PLATFORMS=cpu python scripts/make_torch_sdedit_golden.py
 
@@ -13,12 +13,16 @@ noise), stored so that the port gets the same numbers. 4 CFG DDIM steps of a
 0.2 s clip (the truncated schedule keeps all 4), adapter live. Stored beside
 the result: a fingerprint of every weight (``param_fingerprints``) and a
 digest of the JAX sources (``jax_source_digest``), which the test checks
-against what it runs. Tracing the whole edit takes about half a minute on a
+against what it runs. What is stored is the VAE-decoded mel (``mel``), the
+vocoder's input: the JAX function runs unchanged with ``JaxMelTap`` in place
+of its vocoder, since the port's vocoder follows the reference's
+``SpeechT5HifiGan`` where JAX's differs (the test applies a live one). Tracing the whole edit takes about half a minute on a
 CPU, which is why the test reads this file instead of running it.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import sys
 
@@ -40,9 +44,11 @@ def main() -> None:
     from ap_adapter_tpu.pipeline.pipeline import AudioLDM2Pipeline, TextBatch
     from ap_adapter_tpu.pipeline.style_transfer import sdedit_generate_waveform
     from ap_adapter_tpu.pipeline.tokenize import make_text_batch
-    from tests.torch_port_common import jax_source_digest, jax_tiny, param_fingerprints
+    from tests.torch_port_common import JaxMelTap, jax_source_digest, jax_tiny, param_fingerprints
 
     mods, params = jax_tiny()
+    mods = copy.copy(mods)
+    mods.vocoder = JaxMelTap()
     cfg = mods.config
     rng = np.random.default_rng(0)
     sr = cfg.mel.sample_rate
@@ -65,18 +71,18 @@ def main() -> None:
 
     fn = jax.jit(lambda p, src, fb, tp, tn: sdedit_generate_waveform(
         mods, p, key, src, fb, tp, tn, mel_frames=mel_frames, **SETTINGS))
-    wav = np.asarray(fn(params, jnp.asarray(source), jnp.asarray(fbank), tb(pos), tb(neg)))
+    mel = np.asarray(fn(params, jnp.asarray(source), jnp.asarray(fbank), tb(pos), tb(neg)))
 
     out = {"in/source": source, "in/fbank": fbank, "in/vae_noise": np.asarray(vae_noise),
            "in/noise": np.asarray(noise), "in/mel_frames": np.asarray(mel_frames)}
     for name, batch in (("pos", pos), ("neg", neg)):
         for f in ("clap_ids", "clap_mask", "t5_ids", "t5_mask"):
             out[f"in/{name}/{f}"] = np.asarray(getattr(batch, f))
-    out["wav"] = wav
+    out["mel"] = mel
     out.update(param_fingerprints(params, trees=sorted(params)))
     out["jax_source_sha256"] = np.asarray(jax_source_digest())
     np.savez_compressed(OUT, **out)
-    print(f"wrote {OUT}: wav {wav.shape}, max|wav| {np.abs(wav).max():.6g}")
+    print(f"wrote {OUT}: mel {mel.shape}, max|mel| {np.abs(mel).max():.6g}")
 
 
 if __name__ == "__main__":

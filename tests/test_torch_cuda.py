@@ -275,10 +275,15 @@ def _r(g, device, *shape, scale=1.0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(1, 4000, 1, 512), (2, 1000, 8, 80), (1, 37, 2, 32)])
+@pytest.mark.parametrize("shape", [(1, 4000, 1, 512), (2, 1000, 8, 80), (1, 37, 2, 32), (8, 1100, 1, 512),
+                                   (1, 333, 2, 192), (1, 40, 1, 256), (9, 960, 1, 256)])
 def test_self_attention_kernel_matches_plain(cuda_device, shape):
-    """K5/K6 at the VAE mid block's edit shape (one head, d = 512, a ragged
-    last key tile), at the UNet's d = 80, and at a size below one tile."""
+    """K5/K6 at the VAE mid block's edit shape (one head, d = 512: the wgmma
+    kernel with its keys split over a 2-CTA cluster), at the UNet's d = 80
+    and below one tile (the streamed routine), and on the wgmma kernel:
+    without a cluster (144 query tiles, more than the 132 SMs), d = 192 with
+    its keys split (three column blocks, a ragged query and key tile), two
+    key tiles split one each, and at d = 256 without a cluster."""
 
     g = torch.Generator(device=cuda_device).manual_seed(5)
     q, k, v = (_r(g, cuda_device, *shape) for _ in range(3))
@@ -303,6 +308,21 @@ def test_group_norm_kernel_matches_plain(cuda_device, act):
     _check(got, group_norm_silu_plain(x, gamma, beta, 32, 1e-5, act))
     moved = {n: cuda_kernels.LAUNCHES[n] - before[n] for n in before}
     assert moved == {**dict.fromkeys(before, 0), "group_norm_silu": 1}
+
+
+@pytest.mark.gpu
+def test_group_norm_kernel_is_deterministic(cuda_device):
+    """K12 at the largest edit GroupNorm sample (B=2, 384 channels, 250x16:
+    a 16-CTA cluster holding its chunks) gives the same bits on two calls."""
+
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    x = (_r(g, cuda_device, 2, 250, 16, 384) + 2).permute(0, 3, 1, 2)
+    gamma, beta = 1 + _r(g, cuda_device, 384, scale=0.1), _r(g, cuda_device, 384, scale=0.1)
+    a = group_norm_silu(x, gamma, beta, 32, 1e-5, True)
+    b = group_norm_silu(x, gamma, beta, 32, 1e-5, True)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _check(a, group_norm_silu_plain(x, gamma, beta, 32, 1e-5, True))
 
 
 @pytest.mark.gpu
@@ -349,6 +369,10 @@ def test_new_kernels_refuse_what_they_cannot_take(cuda_device):
     q24 = torch.zeros(1, 600, 1, 24, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError):           # d % 16 != 0
         self_attention_kernel(q24, q24, q24)
+    for d in (144, 576):                      # past the streamed routine, not a multiple of 64 / past 512
+        qd = torch.zeros(1, 600, 1, d, device=cuda_device, dtype=torch.bfloat16)
+        with pytest.raises(ValueError):
+            self_attention_kernel(qd, qd, qd)
     with pytest.raises(RuntimeError):         # grad mode, an operand that requires grad
         self_attention_kernel(q.clone().requires_grad_(), q, q)
     assert self_attention_vjp(q, q, q).shape == q.shape

@@ -3,6 +3,7 @@ conditioning encoder and decoder, held against the JAX package at the tiny
 config on the same weights (fp32, CPU)."""
 
 import dataclasses
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -19,7 +20,8 @@ from ap_adapter_torch import configs
 from ap_adapter_torch.convert import from_jax
 from ap_adapter_torch.models.gpt2 import generate_hidden_states
 from ap_adapter_torch.pipeline import tokenize
-from tests.torch_port_common import close, jax_tiny, one_torch_thread, port_tiny  # noqa: F401 (autouse fixture)
+from tests.torch_port_common import (  # noqa: F401 (autouse fixture)
+    close, hf_vocoder, jax_tiny, one_torch_thread, port_tiny)
 
 # UNet switches that exist only for the TPU build and are not ported
 TPU_ONLY = {"use_weight_prep", "force_xla_core", "remat", "scan_unroll"}
@@ -158,10 +160,45 @@ def test_vae_decode_matches_jax(rng):
     close(got, want, atol=1e-5)
 
 
-def test_vocoder_matches_jax(rng):
-    jm, params = jax_tiny()
-    mel = rng.standard_normal((2, 6, 64)).astype(np.float32)
-    want = jm.vocoder.apply({"params": params["vocoder"]}, jnp.asarray(mel))
-    got = port_tiny().vocoder(torch.from_numpy(mel))
-    assert got.shape == (2, 6 * 16)
-    close(got, want, atol=1e-6)
+@pytest.mark.parametrize("oracle", ["live", "golden"])
+def test_vocoder_matches_speecht5_hifigan(rng, oracle):
+    """The port's HiFi-GAN against the reference model, transformers'
+    ``SpeechT5HifiGan``, not against JAX (whose last LeakyReLU takes the
+    config's slope where the reference takes 0.01). ``live``: the tiny
+    vocoder at N(0, 0.3) weights, so that the tanh saturates, loaded into a
+    live HF module; ``golden``: ``tests/golden/vocoder.npz`` (written from HF)
+    through ``from_jax``. Each bound is absolute and relative to max|want|:
+    the golden's max|want| is 8.1e-6, so an atol alone would guard nothing."""
+
+    import json
+
+    from flax.traverse_util import unflatten_dict
+
+    from ap_adapter_torch.models.vocoder import HiFiGAN
+
+    if oracle == "live":
+        voc = HiFiGAN(configs.tiny_pipeline_config().vocoder).eval()
+        with torch.no_grad():
+            for p in voc.parameters():
+                p.copy_(torch.from_numpy(rng.normal(0.0, 0.3, p.shape).astype(np.float32)))
+        mel = rng.standard_normal((2, 6, 64)).astype(np.float32)
+        with torch.no_grad():
+            want = hf_vocoder(voc)(torch.from_numpy(mel)).numpy()
+        assert np.abs(want).max() > 0.99          # saturated: the last slope decides the result
+    else:
+        with np.load(Path(__file__).parent / "golden" / "vocoder.npz") as f:
+            cfg = configs.VocoderConfig(**{k: tuple(map(tuple, v)) if k == "resblock_dilation_sizes" else
+                                           tuple(v) if isinstance(v, list) else v
+                                           for k, v in json.loads(str(f["config_json"])).items()})
+            tree = unflatten_dict({k[len("param/"):]: f[k] for k in f.files if k.startswith("param/")}, sep="/")
+            mel, want = f["mel"], f["want"]
+        voc = HiFiGAN(cfg).eval()
+        sd = from_jax.vocoder_state_dict(tree, cfg)
+        if not cfg.normalize_before:
+            sd = {k: v for k, v in sd.items() if k not in ("mean", "scale")}
+        voc.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    with torch.no_grad():
+        got = voc(torch.from_numpy(mel)).numpy()
+    assert got.shape == want.shape == (2, mel.shape[1] * voc.config.upsample_factor)
+    err = np.abs(got - want).max()
+    assert err <= 1e-6 and err <= 1e-6 * np.abs(want).max(), (err, np.abs(want).max())

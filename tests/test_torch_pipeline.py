@@ -2,12 +2,18 @@
 generate, and the SDEdit edit) held against the JAX pipeline at the tiny
 config, plus the package's import isolation and its random-weight rules.
 
-The SDEdit reference is ``tests/golden/torch_sdedit.npz``, written by
-``scripts/make_torch_sdedit_golden.py`` from the JAX
+Both edits are held against JAX at the VAE-decoded mel, the vocoder's input,
+and their waveforms against a live transformers ``SpeechT5HifiGan`` (the
+reference's vocoder) applied to the JAX mel: the port's vocoder differs from
+JAX's on purpose (its last LeakyReLU takes the reference's slope, 0.01).
+The JAX functions run unchanged, with ``JaxMelTap`` in place of their
+vocoder. The SDEdit reference is ``tests/golden/torch_sdedit.npz``, written
+by ``scripts/make_torch_sdedit_golden.py`` from the JAX
 ``sdedit_generate_waveform`` on ``jax_tiny()``'s weights with the JAX
 function's own random draws (tracing the whole JAX edit takes about half a
 minute, so the test reads the stored result)."""
 
+import copy
 import subprocess
 import sys
 from pathlib import Path
@@ -28,18 +34,44 @@ from ap_adapter_torch.pipeline.pipeline import AudioLDM2Pipeline, PipelineModule
 from ap_adapter_torch.pipeline.style_transfer import sdedit_generate_waveform
 from ap_adapter_torch.pipeline.tokenize import make_text_batch
 from tests.torch_port_common import (  # noqa: F401 (autouse fixture)
-    jax_source_digest, jax_tiny, one_torch_thread, param_fingerprints, port_tiny)
+    JaxMelTap, hf_vocoder, jax_source_digest, jax_tiny, one_torch_thread, param_fingerprints, port_tiny,
+    vocoder_input)
 
 GOLDEN = Path(__file__).parent / "golden" / "torch_sdedit.npz"
 
 
+def within(got, want, what):
+    """Within 1e-3 absolute and 1e-3 of max|want|: the waveform is
+    tanh-bounded and small with the random 0.02-std weights, the mel is not."""
+
+    assert got.shape == want.shape and np.all(np.isfinite(got)) and np.abs(want).max() > 0, what
+    err = np.abs(got - want).max()
+    assert err <= 1e-3 and err <= 1e-3 * np.abs(want).max(), (what, err, np.abs(want).max())
+
+
+def check_edit(run, jax_mel):
+    """``run()`` is a port edit: its mel against JAX's, then its waveform
+    against the live HF vocoder on the JAX mel."""
+
+    cuda_kernels.reset_launch_counts()
+    with vocoder_input(port_tiny()) as mels:
+        wav = run().numpy()
+    assert len(mels) == 1 and set(cuda_kernels.LAUNCHES.values()) == {0}
+    within(mels[0].numpy(), jax_mel, "mel")
+    with torch.no_grad():
+        want = hf_vocoder(port_tiny().vocoder)(torch.from_numpy(jax_mel)).numpy()
+    within(wav, want, "waveform")
+    return wav
+
+
 def test_generate_waveform_matches_jax():
     """4 CFG DDIM steps with the adapter live, the same init latents, hoisted
-    step invariants on both sides. The waveform is tanh-bounded; with the
-    random 0.02-std weights it is small, so the check is both absolute (1e-3)
-    and relative to its peak (1e-3)."""
+    step invariants on both sides: the mel against JAX's, the waveform
+    against the HF vocoder on JAX's mel."""
 
     jm, params = jax_tiny()
+    jm = copy.copy(jm)
+    jm.vocoder = JaxMelTap()
     cfg = tiny_pipeline_config()
     pos = make_text_batch(cfg, ["a recording of a violin solo"], t5_len=8)
     neg = make_text_batch(cfg, ["a recording of a piano solo"], t5_len=8)
@@ -54,23 +86,20 @@ def test_generate_waveform_matches_jax():
 
     fn = jax.jit(lambda p, f, a, b, lat: jm.generate_waveform(
         p, jax.random.PRNGKey(0), f, a, b, init_latents=lat, **kw))
-    want = np.asarray(fn(params, jnp.asarray(fbank), jtb(pos), jtb(neg), jnp.asarray(latents)))
+    jax_mel = np.asarray(fn(params, jnp.asarray(fbank), jtb(pos), jtb(neg), jnp.asarray(latents)))
+    assert jax_mel.shape == (1, 4 * 4, 64)
 
-    cuda_kernels.reset_launch_counts()
-    got = port_tiny().generate_waveform(torch.from_numpy(fbank), pos, neg,
-                                        init_latents=torch.from_numpy(latents), **kw).numpy()
-    assert got.shape == want.shape == (1, 4 * 4 * 16)
-    assert np.all(np.isfinite(got)) and np.abs(want).max() > 0
-    err = np.abs(got - want).max()
-    assert err <= 1e-3 and err <= 1e-3 * np.abs(want).max(), err
-    assert set(cuda_kernels.LAUNCHES.values()) == {0}
+    wav = check_edit(lambda: port_tiny().generate_waveform(torch.from_numpy(fbank), pos, neg,
+                                                           init_latents=torch.from_numpy(latents), **kw), jax_mel)
+    assert wav.shape == (1, 4 * 4 * 16)
 
 
 def test_sdedit_matches_jax():
     """The port's SDEdit (VAE encode of the source's mel, add_noise at the
     truncated schedule's first step, 4 hoisted CFG DDIM steps with the
-    adapter live, decode, vocoder) on the JAX draws, against the JAX edit:
-    within 1e-3 absolute and 1e-3 of max|wav|, as the generate test holds."""
+    adapter live, decode, vocoder) on the JAX draws: the mel against the JAX
+    edit's, the waveform against the HF vocoder on it, as the generate test
+    holds them."""
 
     ref = np.load(GOLDEN)
     _, params = jax_tiny()
@@ -83,17 +112,11 @@ def test_sdedit_matches_jax():
     def text(name):
         return TextBatch(*(ref[f"in/{name}/{f}"] for f in ("clap_ids", "clap_mask", "t5_ids", "t5_mask")))
 
-    cuda_kernels.reset_launch_counts()
-    got = sdedit_generate_waveform(
+    check_edit(lambda: sdedit_generate_waveform(
         port_tiny(), torch.from_numpy(ref["in/source"]), torch.from_numpy(ref["in/fbank"]), text("pos"), text("neg"),
         num_inference_steps=4, guidance_scale=3.0, ap_scale=0.5, time_pool=2, freq_pool=2,
         mel_frames=int(ref["in/mel_frames"]), vae_noise=torch.from_numpy(ref["in/vae_noise"]),
-        noise=torch.from_numpy(ref["in/noise"])).numpy()
-    want = ref["wav"]
-    assert got.shape == want.shape and np.all(np.isfinite(got)) and np.abs(want).max() > 0
-    err = np.abs(got - want).max()
-    assert err <= 1e-3 and err <= 1e-3 * np.abs(want).max(), err
-    assert set(cuda_kernels.LAUNCHES.values()) == {0}
+        noise=torch.from_numpy(ref["in/noise"])), ref["mel"])
 
 
 def test_generate_entry_point_on_cpu():

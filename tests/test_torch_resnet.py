@@ -16,7 +16,8 @@ import torch
 import ap_adapter_tpu.ops.pallas_groupnorm as pg
 from ap_adapter_tpu.ops import pallas_resnet as prn
 from ap_adapter_torch.ops import cuda_kernels
-from ap_adapter_torch.ops.groupnorm import gn_split, group_norm_silu, group_norm_silu_plain, group_norm_silu_vjp
+from ap_adapter_torch.ops.groupnorm import (
+    SMEM_LIMIT, gn_cluster_plan, group_norm_silu, group_norm_silu_plain, group_norm_silu_vjp)
 from ap_adapter_torch.ops.resnet import fused_resnet_block, fused_resnet_block_plain, fused_resnet_block_vjp
 from tests.torch_port_common import close, one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -61,12 +62,16 @@ def test_group_norm_matches_jax(rng, monkeypatch, route, act):
 
 @pytest.mark.parametrize("hw,c", [(1, 8), (64, 640), (252, 384), (4000, 128), (4000, 384), (300_000, 64)])
 def test_gn_split_covers_every_position(hw, c):
-    """The statistics blocks of a sample: every position in exactly one
-    chunk, at most 256 blocks, about 4,096 values a block."""
+    """K12's cluster plan for a sample: every position in exactly one CTA's
+    chunk, at most 16 CTAs (a power of two), threads for all channels, and
+    the shared memory of a block; a chunk too large to hold is read again."""
 
-    n, pchunk = gn_split(hw, c)
-    assert 1 <= n <= 256 and (n - 1) * pchunk < hw <= n * pchunk
-    assert pchunk * c <= max(4096 + c, -(-hw // 256) * c)
+    plan = gn_cluster_plan(hw, c, 32 if c % 32 == 0 else 8)
+    chunks = [range(j * plan.pchunk, min((j + 1) * plan.pchunk, hw)) for j in range(plan.n)]
+    assert sorted(p for ch in chunks for p in ch) == list(range(hw))
+    assert 1 <= plan.n <= 16 and plan.n & (plan.n - 1) == 0 and plan.n <= hw
+    assert plan.threads % 32 == 0 and c // 8 <= plan.threads <= 512
+    assert plan.smem <= SMEM_LIMIT and plan.hold == (plan.smem >= plan.pchunk * c * 2)
 
 
 # -- K13 --------------------------------------------------------------------

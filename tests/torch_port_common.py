@@ -8,6 +8,7 @@ test processes of a run and for later runs."""
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import os
@@ -71,6 +72,51 @@ def port_tiny() -> PipelineModules:
     cfg = tiny_pipeline_config()
     return PipelineModules(cfg).load_state_dicts(from_jax.pipeline_state_dicts(jax_tiny()[1], cfg),
                                                 device="cpu")
+
+
+def hf_vocoder(vocoder):
+    """A live transformers ``SpeechT5HifiGan`` built from the port
+    ``HiFiGAN``'s config, holding its weights: the reference model of the
+    vocoder, an oracle independent of the JAX package. Only ``mean``/``scale``
+    may be missing (the port has them only with ``normalize_before``)."""
+
+    os.environ.setdefault("USE_TF", "0")     # transformers would import tensorflow first: 6 s
+    from transformers import SpeechT5HifiGan, SpeechT5HifiGanConfig
+
+    c = vocoder.config
+    hf = SpeechT5HifiGan(SpeechT5HifiGanConfig(
+        model_in_dim=c.model_in_dim, sampling_rate=c.sampling_rate,
+        upsample_initial_channel=c.upsample_initial_channel, upsample_rates=list(c.upsample_rates),
+        upsample_kernel_sizes=list(c.upsample_kernel_sizes), resblock_kernel_sizes=list(c.resblock_kernel_sizes),
+        resblock_dilation_sizes=[list(d) for d in c.resblock_dilation_sizes],
+        leaky_relu_slope=c.leaky_relu_slope, normalize_before=c.normalize_before)).eval()
+    missing, unexpected = hf.load_state_dict(vocoder.state_dict(), strict=False)
+    assert not unexpected and set(missing) <= {"mean", "scale"}, (missing, unexpected)
+    return hf
+
+
+class JaxMelTap:
+    """Stands in for a JAX ``PipelineModules.vocoder``: ``apply`` returns its
+    input, so the JAX package's own generate and SDEdit functions, unchanged,
+    return the VAE-decoded mel [B, T, F] (the vocoder's input) in place of the
+    waveform. Set it on a ``copy.copy`` of the modules."""
+
+    @staticmethod
+    def apply(variables, mel):
+        return mel
+
+
+@contextlib.contextmanager
+def vocoder_input(modules: PipelineModules):
+    """Around a port run: yields a list that receives the mel each call of
+    ``modules.vocoder`` is given."""
+
+    mels = []
+    handle = modules.vocoder.register_forward_pre_hook(lambda mod, args: mels.append(args[0].detach().clone()))
+    try:
+        yield mels
+    finally:
+        handle.remove()
 
 
 def param_fingerprints(params, trees=("unet", "vae")) -> dict:
