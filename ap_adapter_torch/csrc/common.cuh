@@ -10,8 +10,8 @@
 //     Optional LayerNorm prologue (fp32 row statistics computed by the block
 //     itself, normalised rows rounded to bf16 on their way into shared
 //     memory). Epilogues: bf16 store, fp32 store, fp32 accumulate, bias +
-//     residual, GEGLU (a * gelu_erf(g) from two accumulators: value rows
-//     [0, N) and gate rows [N, 2N) of W) and its backward.
+//     residual, and the GEGLU backward (from two accumulators: value rows
+//     [0, N) and gate rows [N, 2N) of W). K1 and K3 run on hopper_gemm.cuh.
 //   * attention_kernel: one block per (query tile of 64, head, batch); K/V
 //     streamed through shared memory in tiles of 64 keys with an online
 //     max-subtracted fp32 softmax; optional fp32 additive key bias [B, Sk];
@@ -48,7 +48,6 @@ constexpr int LDC = BN + 4;   // fp32 row stride of the output tile
 enum Epilogue {
   EPI_STORE = 0,        // bf16 C
   EPI_BIAS_RESID = 1,   // bf16 C = acc + bias + resid
-  EPI_GEGLU = 2,        // bf16 C[M, N] = (acc + b1[:N]) * gelu(acc2 + b1[N:])
   EPI_STORE_F32 = 3,    // fp32 C
   EPI_ADD_F32 = 4,      // fp32 C += acc
   EPI_GEGLU_BWD = 5,    // bf16 C[M, 2N] = [gh * gelu(g) | gh * a * gelu'(g)], gh = aux [M, N] fp32
@@ -106,8 +105,8 @@ static_assert(BK * LDB <= BM * LDS, "a [BK, BN] B tile must fit the [BN, BK] slo
 // the caller); rows are masked against M.
 template <bool LN, bool WT, int EPI>
 __global__ void __launch_bounds__(THREADS) gemm_kernel(const GemmArgs g) {
-  constexpr bool DUAL = EPI == EPI_GEGLU || EPI == EPI_GEGLU_BWD;
-  static_assert(!(DUAL && WT), "the GEGLU epilogues take W in Linear layout");
+  constexpr bool DUAL = EPI == EPI_GEGLU_BWD;
+  static_assert(!(DUAL && WT), "the GEGLU backward epilogue takes W in Linear layout");
   __shared__ __align__(128) unsigned char smem[GEMM_SMEM];
   __shared__ float s_mean[BM];
   __shared__ float s_rstd[BM];
@@ -301,17 +300,6 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(const GemmArgs g) {
       const bf16* b8 = reinterpret_cast<const bf16*>(&bv);
 #pragma unroll
       for (int e = 0; e < 8; ++e) v[e] += __bfloat162float(r8[e]) + __bfloat162float(b8[e]);
-    } else if (EPI == EPI_GEGLU) {
-      const uint4 av = *reinterpret_cast<const uint4*>(g.bias + col);
-      const uint4 gv = *reinterpret_cast<const uint4*>(g.bias + N + col);
-      const bf16* a8 = reinterpret_cast<const bf16*>(&av);
-      const bf16* g8 = reinterpret_cast<const bf16*>(&gv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float a = v[e] + __bfloat162float(a8[e]);
-        const float gate = Cs2[r * LDC + cc + e] + __bfloat162float(g8[e]);
-        v[e] = a * (0.5f * gate * (1.f + erff(gate * 0.70710678118654752f)));
-      }
     }
     uint4 o;
     __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&o);

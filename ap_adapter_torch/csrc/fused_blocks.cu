@@ -1,62 +1,32 @@
-// Hopper (sm_90a) kernels for the three fused UNet transformer-block ops and
-// the bare dual-KV attention.
+// Hopper (sm_90a) kernels for the fused UNet cross-attention block and the
+// bare dual-KV attention.
 //
 // Replaces the TPU Pallas kernels
-//   K1 ap_adapter_tpu/ops/pallas_fused_block.py::fused_ln_self_attention
 //   K2 ap_adapter_tpu/ops/pallas_fused_cross.py::fused_ln_cross_attention_kv
-//   K3 ap_adapter_tpu/ops/pallas_fused_ff.py::fused_ln_geglu_ff
 //   K10 ap_adapter_tpu/ops/pallas_attention.py::fused_dual_kv_attention
 // with the two device routines of common.cuh (the WMMA GEMM with its
 // LayerNorm prologue and epilogues, and the streamed online-softmax
 // attention). The op entry points (extern "C", plain C ABI for ctypes) chain
 // them:
-//   K1 = LN+QKV GEMM (3 weight sets, one launch) -> attention -> out GEMM +
-//        bias + residual
 //   K2 = LN+Q GEMM -> (dual) attention over hoisted K/V -> out GEMM + bias +
 //        residual
-//   K3 = LN+W1 GEMM + bias + GEGLU -> W2 GEMM + bias + residual
 //   K10 = the attention routine alone, over both key sets
-// Intermediates (q/k/v, the attention output, the GEGLU product) go through
-// device memory; the caller allocates them. Every entry point returns the
-// cudaGetLastError() code of its first failing launch (0 on success).
+// K1 and K3 moved to fused_hopper.cu (wgmma/TMA GEMMs and a register-resident
+// attention); K2 moves onto those routines in later work.
+// Intermediates (q, the attention output) go through device memory; the
+// caller allocates them. Every entry point returns the cudaGetLastError()
+// code of its first failing launch (0 on success).
 //
 // What bounds these on an H100: at the UNet's widths (C = 256/384/640) the
-// GEMMs are small (K <= 2560) and the attention logits per head are
-// 1000x1000 at most, so the kernels are bound by shared-memory traffic and
-// per-launch latency rather than by HBM bandwidth or tensor-core peak. The
-// design keeps every operand tile in shared memory once per block and the
-// softmax statistics in registers; wgmma/TMA pipelines are later work.
+// GEMMs are small (K <= 2560) and the attention's keys are few (8-512), so
+// the kernels are bound by shared-memory traffic and per-launch latency
+// rather than by HBM bandwidth or tensor-core peak. The design keeps every
+// operand tile in shared memory once per block and the softmax statistics
+// in registers.
 
 #include "common.cuh"
 
 extern "C" {
-
-// K1: out = x + Wo . MHA(LN(x) Wq, LN(x) Wk, LN(x) Wv) + bo, x [B, S, C].
-// q/k/v/attn are [B, S, C] scratch buffers.
-int apk_fused_ln_self_attention(const void* x, const void* ln_w, const void* ln_b, const void* wq,
-                                const void* wk, const void* wv, const void* wo, const void* bo, void* q,
-                                void* k, void* v, void* attn, void* out, int B, int S, int C, int heads,
-                                float eps, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = B * S;
-  GemmArgs qkv = gemm_args(x, M, C, C);
-  qkv.ln_w = (const bf16*)ln_w;
-  qkv.ln_b = (const bf16*)ln_b;
-  qkv.eps = eps;
-  qkv.w[0] = (const bf16*)wq; qkv.w[1] = (const bf16*)wk; qkv.w[2] = (const bf16*)wv;
-  qkv.c[0] = q; qkv.c[1] = k; qkv.c[2] = v;
-  int e = launch_gemm<true, false, EPI_STORE>(qkv, 3, st);
-  if (e) return e;
-  e = launch_attention((const bf16*)q, S, (const bf16*)k, (const bf16*)v, S, nullptr, nullptr, nullptr, 0, 0.f,
-                       (bf16*)attn, B, C, heads, head_scale(C, heads), st);
-  if (e) return e;
-  GemmArgs o = gemm_args(attn, M, C, C);
-  o.w[0] = (const bf16*)wo;
-  o.c[0] = out;
-  o.bias = (const bf16*)bo;
-  o.resid = (const bf16*)x;
-  return launch_gemm<false, false, EPI_BIAS_RESID>(o, 1, st);
-}
 
 // K2: out = x + Wo . [softmax(q k^T + bias) v + s * softmax(q ki^T) vi] + bo with
 // q = LN(x) Wq against precomputed K/V [B, Sk, C] (ki/vi [B, Sk_ip, C] may be
@@ -84,30 +54,6 @@ int apk_fused_ln_cross_attention_kv(const void* x, const void* ln_w, const void*
   o.w[0] = (const bf16*)wo;
   o.c[0] = out;
   o.bias = (const bf16*)bo;
-  o.resid = (const bf16*)x;
-  return launch_gemm<false, false, EPI_BIAS_RESID>(o, 1, st);
-}
-
-// K3: out = x + W2 . (a * gelu_erf(g)) + b2 with [a | g] = LN(x) W1 + b1;
-// w1 [2*inner, C], w2 [C, inner]; y is an [B, S, inner] scratch buffer.
-int apk_fused_ln_geglu_ff(const void* x, const void* ln_w, const void* ln_b, const void* w1, const void* b1,
-                          const void* w2, const void* b2, void* y, void* out, int B, int S, int C, int inner,
-                          float eps, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = B * S;
-  GemmArgs g = gemm_args(x, M, C, inner);
-  g.ln_w = (const bf16*)ln_w;
-  g.ln_b = (const bf16*)ln_b;
-  g.eps = eps;
-  g.w[0] = (const bf16*)w1;
-  g.c[0] = y;
-  g.bias = (const bf16*)b1;
-  int e = launch_gemm<true, false, EPI_GEGLU>(g, 1, st);
-  if (e) return e;
-  GemmArgs o = gemm_args(y, M, inner, C);
-  o.w[0] = (const bf16*)w2;
-  o.c[0] = out;
-  o.bias = (const bf16*)b2;
   o.resid = (const bf16*)x;
   return launch_gemm<false, false, EPI_BIAS_RESID>(o, 1, st);
 }

@@ -1,0 +1,398 @@
+// A Hopper GEMM for the fused blocks' projections, C = epilogue(A @ W^T)
+// with A [M, K] row-major and W [N, K] (torch Linear layout), both bf16,
+// fp32 accumulation; and the LayerNorm row pass that feeds it.
+//
+//   * ln_rows_kernel: y = LN(x) rounded to bf16, one warp a row, fp32
+//     two-pass statistics from registers. Each row's statistics are
+//     computed once, where common.cuh's gemm_kernel recomputes them in every
+//     block of a row (12-30 times for K1's QKV GEMM). The rounding point is
+//     the one of common.cuh's prologue and of the JAX kernel: the normalised
+//     row, (x - mean) * rstd * w + b in fp32, rounded to bf16 before the
+//     product. The weights are not folded (that would move the rounding and
+//     cancel badly where a row's mean is large against its spread).
+//   * hgemm_kernel<BN, EPI>: one CTA a 64 x BN output tile (and one k-slice
+//     of it under split-K): one producer warp (its first lane issues the
+//     TMA loads: A's 64 x 64 box and W's BN x 64 box, 128-byte swizzle)
+//     into a ring of 2-4 stages (as the plan says) guarded by full/empty
+//     mbarriers, and one consumer warpgroup running wgmma m64nBNk16 from
+//     both shared tiles, one k-block's group kept in flight while the next
+//     one's loads land.
+//     Epilogues from the accumulator registers, no fp32 tile in shared
+//     memory: bf16 store (HG_STORE, up to three weight sets by grid z, the
+//     QKV projections in one launch), bias + residual (HG_BIAS_RESID), and
+//     GEGLU (HG_GEGLU: value rows [n0, n0 + 64) and gate rows [N + n0, ...)
+//     of W into two accumulators; out = (a + b1) * gelu_erf(g + b1'), erff).
+//   * Split-K where the output tiles are few or the k-loop long (the
+//     wrapper's plan, ops/hopper_gemm.py::gemm_plan):
+//     the ksplit CTAs of one output tile form a thread-block cluster along
+//     x, each runs an equal share of the k-blocks; then each writes its
+//     accumulators to its own shared memory (the drained ring) in register
+//     order, and after a cluster barrier rank r sums the column groups
+//     [r * U / ks, (r + 1) * U / ks) of the U = BN / 8 over all ranks, in
+//     rank order (deterministic, no atomics), and applies the epilogue.
+//     One launch either way; the bias + residual stays in it.
+//
+// Ragged M: A's boxes past row M are zero-filled by TMA and rows >= M are
+// not stored. Requires K % 64 == 0, N % BN == 0 (checked by launch_hgemm).
+
+#pragma once
+
+#include "common.cuh"
+#include "hopper.cuh"
+
+#include <cooperative_groups.h>
+
+#include <functional>
+#include <mutex>
+#include <unordered_map>
+
+namespace {
+
+constexpr int HG_BM = 64;           // output rows of a CTA: the consumer warpgroup's m64
+constexpr int HG_BK = 64;           // k per stage: one 128-byte swizzle row of bf16
+constexpr int HG_THREADS = 160;     // consumer warpgroup (warps 0-3) + producer warp (warp 4)
+constexpr int HG_MIN_STAGES = 2;    // the consumer releases a stage one k-block late
+constexpr int HG_MAX_STAGES = 4;
+constexpr int HG_MAX_SPLIT = 8;     // portable cluster size
+constexpr int HG_A_BYTES = HG_BM * 128;
+
+enum HgEpilogue { HG_STORE = 0, HG_BIAS_RESID = 1, HG_GEGLU = 2 };
+
+struct HgArgs {
+  CUtensorMap a;          // A [M, K]
+  CUtensorMap w[3];       // per grid-z set: W [N, K] (GEGLU: [2N, K])
+  bf16* c[3];             // per set: C [M, N]
+  const bf16* bias;       // BIAS_RESID: [N]; GEGLU: [2N]
+  const bf16* resid;      // BIAS_RESID: [M, N]
+  int M, N, K;
+  int ksplit;             // CTAs of a cluster, splitting the k-blocks
+  int stages;
+};
+
+__host__ __device__ inline int hg_stage_bytes(int bn, bool dual) { return HG_A_BYTES + bn * 128 * (dual ? 2 : 1); }
+
+// the ring, or the split-K partials where they are larger ([BN / 2 (x2)] x 128 fp32)
+__host__ __device__ inline int hg_ring_bytes(int bn, bool dual, int stages, int ksplit) {
+  const int ring = stages * hg_stage_bytes(bn, dual);
+  const int part = ksplit > 1 ? bn / 2 * (dual ? 2 : 1) * 128 * 4 : 0;
+  return ring > part ? ring : part;
+}
+
+// dynamic shared memory of a launch: ring, 2 x HG_MAX_STAGES mbarriers, 1024 of alignment slack
+__host__ __device__ inline int hg_smem_bytes(int bn, bool dual, int stages, int ksplit) {
+  return hg_ring_bytes(bn, dual, stages, ksplit) + 2 * HG_MAX_STAGES * 8 + 1024;
+}
+
+__device__ __forceinline__ float gelu_erf(float g) { return 0.5f * g * (1.f + erff(g * 0.70710678118654752f)); }
+
+// the epilogue of two neighbouring columns (col, col + 1) of one row
+template <int EPI>
+__device__ __forceinline__ void hg_store_pair(const HgArgs& g, int set, int row, int col, float v0, float v1,
+                                              float g0, float g1) {
+  if (row >= g.M) return;
+  const size_t off = (size_t)row * g.N + col;
+  if (EPI == HG_BIAS_RESID) {
+    const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g.resid + off));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g.bias + col));
+    v0 += r.x + b.x;
+    v1 += r.y + b.y;
+  } else if (EPI == HG_GEGLU) {
+    const float2 ba = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g.bias + col));
+    const float2 bg = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g.bias + g.N + col));
+    v0 = (v0 + ba.x) * gelu_erf(g0 + bg.x);
+    v1 = (v1 + ba.y) * gelu_erf(g1 + bg.y);
+  }
+  *reinterpret_cast<uint32_t*>(g.c[set] + off) = pack_bf16(v0, v1);
+}
+
+// grid ((N / BN) * ksplit, ceil(M / 64), sets), HG_THREADS threads, clusters
+// of (ksplit, 1, 1). Thread t < 128: consumer, accumulator element e at row
+// 16 * (t / 32) + (t % 32) / 4 + 8 * ((e / 2) % 2), column 8 * (e / 4) +
+// 2 * (t % 4) + e % 2 of the tile (wgmma's m64nN layout).
+template <int BN, int EPI>
+__global__ void __launch_bounds__(HG_THREADS, 1) hgemm_kernel(const __grid_constant__ HgArgs g) {
+  constexpr bool DUAL = EPI == HG_GEGLU;
+  constexpr int NACC = BN / 2;
+  constexpr int STAGE = HG_A_BYTES + BN * 128 * (DUAL ? 2 : 1);
+  extern __shared__ unsigned char hg_smem_raw[];
+  const uint32_t raw = smem_u32(hg_smem_raw);
+  unsigned char* smem = hg_smem_raw + (((raw + 1023) & ~1023u) - raw);
+  const uint32_t base = smem_u32(smem);
+  const int ks = g.ksplit, stages = g.stages;
+  const uint32_t bars = base + hg_ring_bytes(BN, DUAL, stages, ks);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rank = (int)(blockIdx.x % ks);        // == the cluster rank: clusters span ks consecutive x
+  const int n0 = (int)(blockIdx.x / ks) * BN, m0 = blockIdx.y * HG_BM, set = blockIdx.z;
+  const int nkb = g.K / HG_BK;
+  const int kb0 = rank * nkb / ks, nk = (rank + 1) * nkb / ks - kb0;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (HG_MAX_STAGES + s), 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  float acc[NACC];
+  float acc2[NACC];                             // used only by GEGLU
+  if (warp == 4) {
+    if (lane == 0) {
+      const CUtensorMap* wmap = &g.w[set];
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % stages;
+        if (i >= stages) mbar_wait(bars + 8 * (HG_MAX_STAGES + s), ((i / stages) - 1) & 1);
+        const uint32_t full = bars + 8 * s, sa = base + s * STAGE;
+        mbar_expect_tx(full, STAGE);
+        const int kc = (kb0 + i) * HG_BK;
+        tma_load_2d(sa, &g.a, kc, m0, full);
+        tma_load_2d(sa + HG_A_BYTES, wmap, kc, n0, full);
+        if (DUAL) tma_load_2d(sa + HG_A_BYTES + BN * 128, wmap, kc, g.N + n0, full);
+      }
+    }
+    __syncwarp();
+  } else {
+#pragma unroll
+    for (int e = 0; e < NACC; ++e) {
+      acc[e] = 0.f;
+      if (DUAL) acc2[e] = 0.f;
+    }
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % stages;
+      mbar_wait(bars + 8 * s, (i / stages) & 1);
+      uint32_t sa = base + s * STAGE;
+      asm volatile("" : "+r"(sa));
+#pragma unroll
+      for (int e = 0; e < NACC; ++e) {
+        reg_fence(acc[e]);
+        if (DUAL) reg_fence(acc2[e]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HG_BK / 16; ++kk) {
+        const uint64_t da = sw128_desc(sa + kk * 32, 16, 1024);
+        const uint64_t db = sw128_desc(sa + HG_A_BYTES + kk * 32, 16, 1024);
+        if constexpr (BN == 128) wgmma_ss_n128(acc, da, db);
+        else wgmma_ss_n64(acc, da, db);
+        if constexpr (DUAL) wgmma_ss_n64(acc2, da, sw128_desc(sa + HG_A_BYTES + BN * 128 + kk * 32, 16, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();                          // k-block i - 1's products are done: free its stage
+#pragma unroll
+      for (int e = 0; e < NACC; ++e) {
+        reg_fence(acc[e]);
+        if (DUAL) reg_fence(acc2[e]);
+      }
+      if (i > 0) mbar_arrive(bars + 8 * (HG_MAX_STAGES + (i - 1) % stages));
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int e = 0; e < NACC; ++e) {
+      reg_fence(acc[e]);
+      if (DUAL) reg_fence(acc2[e]);
+    }
+  }
+
+  const int quad = lane & 3;
+  const int r0 = m0 + 16 * (warp & 3) + (lane >> 2), r1 = r0 + 8;
+  if (ks == 1) {
+    if (warp < 4) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * quad;
+        hg_store_pair<EPI>(g, set, r0, col, acc[4 * j], acc[4 * j + 1], DUAL ? acc2[4 * j] : 0.f,
+                           DUAL ? acc2[4 * j + 1] : 0.f);
+        hg_store_pair<EPI>(g, set, r1, col, acc[4 * j + 2], acc[4 * j + 3], DUAL ? acc2[4 * j + 2] : 0.f,
+                           DUAL ? acc2[4 * j + 3] : 0.f);
+      }
+    }
+    return;
+  }
+
+  // split-K: the partials through distributed shared memory, summed in rank order
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  float* part = reinterpret_cast<float*>(smem);         // [NACC (x2)][128 consumer threads]
+  if (warp < 4) {
+#pragma unroll
+    for (int e = 0; e < NACC; ++e) {
+      part[e * 128 + tid] = acc[e];
+      if (DUAL) part[(NACC + e) * 128 + tid] = acc2[e];
+    }
+  }
+  cluster.sync();
+  if (warp < 4) {
+    const int u0 = rank * (BN / 8) / ks, u1 = (rank + 1) * (BN / 8) / ks;
+    for (int j = u0; j < u1; ++j) {
+      float v[4] = {0.f, 0.f, 0.f, 0.f}, gt[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int rr = 0; rr < ks; ++rr) {
+        const float* rp = cluster.map_shared_rank(part, rr);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          v[e] += rp[(4 * j + e) * 128 + tid];
+          if (DUAL) gt[e] += rp[(NACC + 4 * j + e) * 128 + tid];
+        }
+      }
+      const int col = n0 + 8 * j + 2 * quad;
+      hg_store_pair<EPI>(g, set, r0, col, v[0], v[1], gt[0], gt[1]);
+      hg_store_pair<EPI>(g, set, r1, col, v[2], v[3], gt[2], gt[3]);
+    }
+  }
+  cluster.sync();                                       // no CTA leaves while another reads its partials
+}
+
+template <int BN, int EPI>
+int launch_hgemm_t(const HgArgs& g, int sets, cudaStream_t st) {
+  const int smem = hg_smem_bytes(BN, EPI == HG_GEGLU, g.stages, g.ksplit);
+  static int configured = 0;
+  if (smem > configured) {
+    cudaError_t e = cudaFuncSetAttribute(hgemm_kernel<BN, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(g.N / BN * g.ksplit), (unsigned)((g.M + HG_BM - 1) / HG_BM), (unsigned)sets);
+  cfg.blockDim = dim3(HG_THREADS);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)g.ksplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, hgemm_kernel<BN, EPI>, g);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// make_map_2d, remembered: a tensor map is a pure function of (address,
+// rows, cols, box rows), and the weights' (and, through the caching
+// allocator, most activations') recur call after call. Saves the host an
+// encode per operand per call; bounded at 4096 entries.
+int cached_map_2d(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  struct Key {
+    const void* p;
+    int rows, cols, box;
+    bool operator==(const Key& o) const { return p == o.p && rows == o.rows && cols == o.cols && box == o.box; }
+  };
+  struct Hash {
+    size_t operator()(const Key& k) const {
+      return std::hash<const void*>()(k.p) ^ ((size_t)k.rows * 0x9E3779B97F4A7C15ull) ^ ((size_t)k.cols << 24) ^
+             (size_t)k.box;
+    }
+  };
+  static std::mutex mu;
+  static std::unordered_map<Key, CUtensorMap, Hash> cache;
+  const Key key{ptr, rows, cols, box_rows};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *map = it->second;
+    return 0;
+  }
+  const int e = make_map_2d(map, ptr, rows, cols, box_rows);
+  if (e) return e;
+  if (cache.size() >= 4096) cache.clear();
+  cache.emplace(key, *map);
+  return 0;
+}
+
+// fills g's maps and sizes, checks the plan (bn, ksplit, stages; the
+// wrapper's ops/hopper_gemm.py::gemm_plan) and launches:
+// C[set] = epi(A @ W[set]^T) for set < sets.
+int launch_hgemm(HgArgs& g, const void* a, const void* const* w, int sets, int M, int N, int K, int bn, int ksplit,
+                 int stages, int epi, cudaStream_t st) {
+  const int nkb = K / HG_BK;
+  if (M <= 0 || K % HG_BK || bn <= 0 || N % bn || sets < 1 || sets > 3 || ksplit < 1 || ksplit > HG_MAX_SPLIT ||
+      ksplit > nkb || ksplit > bn / 8 || !(bn == 64 || bn == 128) || (epi == HG_GEGLU && bn != 64) ||
+      stages < HG_MIN_STAGES || stages > HG_MAX_STAGES)
+    return (int)cudaErrorInvalidValue;
+  g.M = M;
+  g.N = N;
+  g.K = K;
+  g.ksplit = ksplit;
+  g.stages = stages;
+  int e = cached_map_2d(&g.a, a, M, K, HG_BM);
+  for (int s = 0; s < sets && !e; ++s) e = cached_map_2d(&g.w[s], w[s], epi == HG_GEGLU ? 2 * N : N, K, bn);
+  if (e) return e;
+  if (epi == HG_STORE)
+    return bn == 128 ? launch_hgemm_t<128, HG_STORE>(g, sets, st) : launch_hgemm_t<64, HG_STORE>(g, sets, st);
+  if (epi == HG_BIAS_RESID)
+    return bn == 128 ? launch_hgemm_t<128, HG_BIAS_RESID>(g, sets, st) : launch_hgemm_t<64, HG_BIAS_RESID>(g, sets, st);
+  if (epi == HG_GEGLU) return launch_hgemm_t<64, HG_GEGLU>(g, sets, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+constexpr int LN_ROWS = 8;          // rows (warps) a block
+constexpr int LN_MAX_CHUNKS = 8;    // 16-byte chunks a lane holds: C <= 8 * 8 * 32 = 2048
+
+// y[m] = bf16((x[m] - mean) * rstd * w + b), one warp a row, the row in registers
+__global__ void __launch_bounds__(32 * LN_ROWS) ln_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                                                              const bf16* __restrict__ b, bf16* __restrict__ y, int M,
+                                                              int C, float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * LN_ROWS + warp;
+  if (row >= M) return;
+  const int nch = C / 8;
+  const bf16* xr = x + (size_t)row * C;
+  float v[LN_MAX_CHUNKS][8];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < LN_MAX_CHUNKS; ++i) {
+    const int c = lane + 32 * i;
+    if (c < nch) {
+      const uint4 u = *reinterpret_cast<const uint4*>(xr + 8 * c);
+      const __nv_bfloat162* u2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(u2[e]);
+        v[i][2 * e] = f.x;
+        v[i][2 * e + 1] = f.y;
+        s += f.x + f.y;
+      }
+    }
+  }
+  const float mean = warp_sum(s) / C;
+  float var = 0.f;
+#pragma unroll
+  for (int i = 0; i < LN_MAX_CHUNKS; ++i)
+    if (lane + 32 * i < nch) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float d = v[i][e] - mean;
+        var += d * d;
+      }
+    }
+  const float rstd = rsqrtf(warp_sum(var) / C + eps);
+#pragma unroll
+  for (int i = 0; i < LN_MAX_CHUNKS; ++i) {
+    const int c = lane + 32 * i;
+    if (c < nch) {
+      const uint4 wv = *reinterpret_cast<const uint4*>(w + 8 * c);
+      const uint4 bv = *reinterpret_cast<const uint4*>(b + 8 * c);
+      const __nv_bfloat162* w2 = reinterpret_cast<const __nv_bfloat162*>(&wv);
+      const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&bv);
+      uint4 o;
+      uint32_t* o32 = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 wf = __bfloat1622float2(w2[e]);
+        const float2 bf = __bfloat1622float2(b2[e]);
+        o32[e] = pack_bf16((v[i][2 * e] - mean) * rstd * wf.x + bf.x, (v[i][2 * e + 1] - mean) * rstd * wf.y + bf.y);
+      }
+      *reinterpret_cast<uint4*>(y + (size_t)row * C + 8 * c) = o;
+    }
+  }
+}
+
+int launch_ln_rows(const void* x, const void* w, const void* b, void* y, int M, int C, float eps, cudaStream_t st) {
+  if (C % 64 || C > LN_MAX_CHUNKS * 8 * 32) return (int)cudaErrorInvalidValue;
+  ln_rows_kernel<<<(M + LN_ROWS - 1) / LN_ROWS, 32 * LN_ROWS, 0, st>>>((const bf16*)x, (const bf16*)w,
+                                                                      (const bf16*)b, (bf16*)y, M, C, eps);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

@@ -13,6 +13,7 @@ Importing this module touches neither ``nvcc`` nor the GPU.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -30,10 +31,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "apk_fused_ln_self_attention": [_P] * 13 + [_I] * 4 + [_F, _P],
+    "apk_fused_ln_self_attention": [_P] * 10 + [_I] * 4 + [_F] + [_I] * 6 + [_P],
     "apk_fused_ln_cross_attention_kv": [_P] * 8 + [_I, _P, _P, _P, _I, _F, _P, _P, _P]
     + [_I] * 4 + [_F, _P],
-    "apk_fused_ln_geglu_ff": [_P] * 9 + [_I] * 4 + [_F, _P],
+    "apk_fused_ln_geglu_ff": [_P] * 9 + [_I] * 4 + [_F] + [_I] * 5 + [_P],
     "apk_fused_ln_cross_attention": [_P, _P, _I, _I, _I] + [_P] * 9 + [_F] + [_P] * 8
     + [_I] * 4 + [_F, _P],
     "apk_fused_ln_self_attention_bwd_dx": [_P] * 19 + [_I] * 4 + [_F, _P],
@@ -72,6 +73,7 @@ LAUNCHES: Dict[str, int] = {
 
 _lock = threading.Lock()
 _lib = None
+_entries: Dict[str, Callable] = {}      # op -> the library's bound apk_<op>
 
 
 def reset_launch_counts() -> None:
@@ -157,11 +159,12 @@ def library() -> ctypes.CDLL:
 def launch(op: str, *args) -> None:
     """Call ``apk_<op>`` on the current stream; raise on a launch error."""
 
-    lib = library()
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(lib, f"apk_{op}")(*args, stream)
+    fn = _entries.get(op)
+    if fn is None:
+        fn = _entries[op] = getattr(library(), f"apk_{op}")
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{op}: CUDA launch failed: {lib.apk_error_string(rc).decode()} ({rc})")
+        raise RuntimeError(f"{op}: CUDA launch failed: {library().apk_error_string(rc).decode()} ({rc})")
     LAUNCHES[op] += 1
 
 
@@ -209,16 +212,24 @@ def check_operands(op: str, ref: torch.Tensor, dtypes: Dict[str, torch.dtype] | 
     ``ref``'s device, of the type ``dtypes`` names for it, else fp32 for
     names starting with ``bias`` and bf16 for the rest."""
 
-    if ref.device.type != "cuda":
+    if not ref.is_cuda:
         raise RuntimeError(f"{op}: no kernel for device {ref.device}")
+    index = ref.get_device()
     for name, t in tensors.items():
         if t is None:
             continue
         want = (dtypes or {}).get(name, torch.float32 if name.startswith("bias") else torch.bfloat16)
-        if t.device != ref.device or t.dtype != want:
+        if t.dtype != want or not t.is_cuda or t.get_device() != index:
             raise ValueError(f"{op}: {name} must be {want} on {ref.device}, got {t.dtype} on {t.device}")
         if t.data_ptr() % 16:
             raise ValueError(f"{op}: {name} must be 16-byte aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (the launch plans fill them)."""
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_heads(op: str, c: int, heads: int) -> int:

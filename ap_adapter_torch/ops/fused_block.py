@@ -7,24 +7,28 @@ reorderings compute this one function). It runs at every UNet
 self-attention site: attn1 of every transformer block and attn2 of the
 double-self-attention groups.
 
-Kernel (``csrc/fused_blocks.cu``, ``apk_fused_ln_self_attention``): one
-LN+QKV GEMM launch (LayerNorm statistics in fp32 inside the GEMM block, the
-normalised rows rounded to bf16 on their way into shared memory, the three
-weight matrices as three grid slices), a streamed online-softmax attention
-(one block per 64 queries x head x batch, K/V tiles of 64 keys), and an out
-GEMM with bias and residual in its epilogue. What bounds it on an H100: at
-S <= 1024 and C <= 640 it is latency- and shared-memory-bound, not HBM- or
-tensor-core-bound; q/k/v and the attention output make one round trip
-through device memory (the TPU kernel kept them in VMEM), which later work
-can remove by fusing the projections into the attention block.
+Kernel (``csrc/fused_hopper.cu``, ``apk_fused_ln_self_attention``), four
+launches a call: the LayerNorm row pass (fp32 statistics once per row, the
+normalised rows rounded to bf16, as the TPU kernel rounds before its
+product); the QKV GEMM, three weight sets in one launch, on the Hopper GEMM
+of ``csrc/hopper_gemm.cuh`` (TMA into a ring of stages, ``wgmma``, the bf16
+store from registers); the register-resident attention (one warp 16 query
+rows, ``mma.sync`` with ``ldmatrix``, logits, probabilities and output in
+registers, K/V tiles of 64 keys double-buffered by ``cp.async``); and the
+out GEMM with bias and residual in its epilogue, its k-blocks split over a
+thread-block cluster where the output tiles do not fill the SMs
+(``k1_plan``). What bounds it on an H100 at the edit's shapes: operations
+(QKV, QKᵀ, PV, out); q/k/v and the attention output make one round trip
+through device memory, in one scratch allocation a call.
 
 K7 replaces ``pallas_fused_block.py::fused_ln_self_attention_bwd_dx``
 (``csrc/train_blocks.cu``, ``apk_fused_ln_self_attention_bwd_dx``): q/k/v
 recomputed by the LN+QKV GEMM, ``gattn = g·Wo``, a dq pass per query tile
 (row log-sum-exp, D = rowsum(P·dP), dq) and a dk/dv pass per key tile over
 all query tiles, ``gxn = dq·Wq + dk·Wk + dv·Wv`` in fp32, and the LayerNorm
-backward with the residual per row. It is bound by shared-memory traffic
-and its eight launches, like K1.
+backward with the residual per row, on common.cuh's WMMA GEMM and
+streamed attention routines. It is bound by shared-memory traffic and its
+eight launches.
 
 The softmax is max-subtracted (the TPU kernel's is clamp-50 and max-free;
 the two agree to fp32 rounding for logits in (-86, 50)); K7 recomputes the
@@ -34,12 +38,17 @@ the JAX ``_xla_reference`` and autograd over it.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
 from ap_adapter_torch.models.layers import layer_norm_f32
 from ap_adapter_torch.ops import cuda_kernels as ck
 from ap_adapter_torch.ops.attention import sdpa
+from ap_adapter_torch.ops.hopper_gemm import H100_SMS, GemmPlan, check_ln_width, gemm_plan
+
 
 
 def fused_ln_self_attention_plain(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads: int,
@@ -54,6 +63,23 @@ def fused_ln_self_attention_plain(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads: int,
     v = F.linear(xn, wv).reshape(b, s, heads, d)
     attn = sdpa(q, k, v).reshape(b, s, c)
     return x + F.linear(attn, wo, bo).to(x.dtype)
+
+
+class K1Plan(NamedTuple):
+    qkv: GemmPlan       # LN(x) [M, C] x three [C, C] weights, bf16 store
+    out: GemmPlan       # attention [M, C] x Wo, bias + residual
+
+
+@functools.lru_cache(maxsize=None)
+def k1_plan(b: int, s: int, c: int, heads: int, sms: int = H100_SMS) -> K1Plan:
+    """The launches of K1's GEMMs on x [b, s, c], by ``gemm_plan`` (the
+    attention's grid is fixed: 64 query rows a CTA). Raises on a width the
+    kernels do not take (``ck.check_heads``)."""
+
+    ck.check_heads("fused_ln_self_attention", c, heads)
+    check_ln_width("fused_ln_self_attention", c)
+    m = b * s
+    return K1Plan(gemm_plan(m, c, c, sets=3, sms=sms), gemm_plan(m, c, c, sms=sms))
 
 
 def _check_weights(op: str, c: int, **weights) -> None:
@@ -75,12 +101,13 @@ def fused_ln_self_attention(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads: int,
     ck.check_no_grad(op, **operands)
     if x.device.type == "cpu":
         return fused_ln_self_attention_plain(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads, eps)
-    ck.check_heads(op, c, heads)
+    plan = k1_plan(b, s, c, heads, ck.sm_count(x.device))
     ck.check_operands(op, x, **operands)
-    q, k, v, attn, out = (torch.empty_like(x) for _ in range(5))
+    scratch = x.new_empty(5, b * s, c)       # LN(x), q, k, v, attention output
+    out = torch.empty_like(x)
     ck.launch(op, x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wq.data_ptr(), wk.data_ptr(),
-              wv.data_ptr(), wo.data_ptr(), bo.data_ptr(), q.data_ptr(), k.data_ptr(),
-              v.data_ptr(), attn.data_ptr(), out.data_ptr(), b, s, c, heads, eps)
+              wv.data_ptr(), wo.data_ptr(), bo.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, s, c, heads,
+              eps, *plan.qkv.launch_args, *plan.out.launch_args)
     return out
 
 

@@ -4,15 +4,18 @@
 K3 replaces ``ap_adapter_tpu/ops/pallas_fused_ff.py::fused_ln_geglu_ff``. It
 runs at the norm3 + feed-forward of every UNet transformer block.
 
-Kernel (``csrc/fused_blocks.cu``, ``apk_fused_ln_geglu_ff``): an LN+W1 GEMM
-whose blocks accumulate the value and the gate halves of one output tile
-side by side and apply bias and exact-erf GELU (``erff``) in the epilogue,
-writing only the [S, 4C] product; then a W2 GEMM with bias and residual in
-its epilogue. This is the largest matmul work of the block (W1 [C, 8C],
-W2 [4C, C]); on an H100 the simple WMMA tiles without a load pipeline keep
-it well below the tensor-core peak, which is the first thing later work on
-this kernel should change. The [S, 4C] product makes one round trip through
-device memory.
+Kernel (``csrc/fused_hopper.cu``, ``apk_fused_ln_geglu_ff``), three launches
+a call, on the Hopper GEMM of ``csrc/hopper_gemm.cuh`` (TMA into a ring of
+stages, ``wgmma``, epilogues from the accumulator registers): the
+LayerNorm row pass (fp32 statistics once per row, rounded to bf16 before
+the product); the W1 GEMM, whose 64-wide tiles accumulate the value and the
+gate columns side by side and apply bias and exact-erf GELU (``erff``) in
+the epilogue, writing only the [S, 4C] product; then the W2 GEMM with bias
+and residual in its epilogue, its k-blocks (K = 4C) split over a
+thread-block cluster where the output tiles do not fill the SMs
+(``k3_plan``: M = 128 at the edit's 640 level). What bounds it on an H100:
+operations (W1 [C, 8C], W2 [4C, C]). LN(x) and the [S, 4C] product make one
+round trip through device memory, in one scratch allocation a call.
 
 K9 replaces ``pallas_fused_ff.py::fused_ln_geglu_ff_bwd_dx``
 (``csrc/train_blocks.cu``, ``apk_fused_ln_geglu_ff_bwd_dx``), row-local like
@@ -21,7 +24,7 @@ backward epilogue (exact-erf derivative ``Phi(g) + g·phi(g)``) writing
 ``[gh·gelu(g) ‖ gh·a·gelu'(g)]`` in bf16, ``gxn = gy1·W1`` (K = 8C) in fp32,
 and the LayerNorm backward with the residual per row. The TPU ran its kernel
 only where the weights fit VMEM (not at C = 640); this one runs at every
-width. Three GEMMs of the forward's size, the same bounds as K3.
+width. Three GEMMs of the forward's size on common.cuh's WMMA GEMM.
 
 The TPU kernels used an Abramowitz-Stegun erf (error <= 1.5e-7); the CUDA
 kernels use ``erff`` and the plain versions the exact GELU.
@@ -29,11 +32,15 @@ kernels use ``erff`` and the plain versions the exact GELU.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
 from ap_adapter_torch.models.layers import layer_norm_f32
 from ap_adapter_torch.ops import cuda_kernels as ck
+from ap_adapter_torch.ops.hopper_gemm import H100_SMS, GemmPlan, check_ln_width, gemm_plan
 
 
 def fused_ln_geglu_ff_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5) -> torch.Tensor:
@@ -59,6 +66,22 @@ def _check_widths(op: str, c: int, inner: int) -> None:
         raise ValueError(f"{op}: kernel needs C % 64 == 0 and inner % 64 == 0 (C={c}, inner={inner})")
 
 
+class K3Plan(NamedTuple):
+    w1: GemmPlan        # LN(x) [M, C] x W1 [2·inner, C], GEGLU epilogue
+    w2: GemmPlan        # GEGLU product [M, inner] x W2 [C, inner], bias + residual
+
+
+@functools.lru_cache(maxsize=None)
+def k3_plan(b: int, s: int, c: int, inner: int, sms: int = H100_SMS) -> K3Plan:
+    """The launches of K3 on x [b, s, c]: both GEMMs by ``gemm_plan``.
+    Raises on a width the kernels do not take."""
+
+    _check_widths("fused_ln_geglu_ff", c, inner)
+    check_ln_width("fused_ln_geglu_ff", c)
+    m = b * s
+    return K3Plan(gemm_plan(m, inner, c, geglu=True, sms=sms), gemm_plan(m, c, inner, sms=sms))
+
+
 def fused_ln_geglu_ff(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5) -> torch.Tensor:
     """K3 on a CUDA tensor (bf16), the plain version on a CPU tensor. Records
     no autograd graph: differentiable callers use ``fused_ln_geglu_ff_vjp``."""
@@ -71,12 +94,13 @@ def fused_ln_geglu_ff(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5) -> torch
     ck.check_no_grad(op, **operands)
     if x.device.type == "cpu":
         return fused_ln_geglu_ff_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
-    _check_widths(op, c, inner)
+    plan = k3_plan(b, s, c, inner, ck.sm_count(x.device))
     ck.check_operands(op, x, **operands)
-    y = x.new_empty(b, s, inner)
+    scratch = x.new_empty(b * s * (c + inner))     # LN(x) [M, C], then the GEGLU product [M, inner]
     out = torch.empty_like(x)
     ck.launch(op, x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-              w2.data_ptr(), b2.data_ptr(), y.data_ptr(), out.data_ptr(), b, s, c, inner, eps)
+              w2.data_ptr(), b2.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, s, c, inner, eps,
+              *plan.w1.launch_args[1:], *plan.w2.launch_args)
     return out
 
 

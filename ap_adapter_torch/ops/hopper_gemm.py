@@ -1,0 +1,140 @@
+"""Launch plan of the Hopper GEMM that K1's and K3's projections run on
+(``csrc/hopper_gemm.cuh``), a pure function the CPU can check.
+
+The kernel computes ``C = epilogue(A @ Wᵀ)`` for A [M, K] and W [N, K]
+(torch Linear layout), one CTA a 64 x ``bn`` output tile: a producer warp
+keeps TMA loads of 64-deep k-blocks in flight through a ring of 2-4 stages
+and one consumer warpgroup runs ``wgmma``. Where the output tiles are fewer
+than the card's SMs, the k-blocks of a tile are split over a thread-block
+cluster of ``ksplit`` CTAs (at most 8, the portable size), whose partial sums
+are combined in rank order through distributed shared memory, the epilogue
+in the same launch. ``gemm_plan`` picks ``bn`` and ``ksplit``; ``gemm_blocks``
+lists the (row, column, set, k-blocks) of each CTA by the kernel's own
+formulas, so that the tests can check the coverage.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Iterator, NamedTuple, Tuple
+
+H100_SMS = 132
+BM = 64                 # output rows of a CTA: the consumer warpgroup's m64
+BK = 64                 # k per stage: one 128-byte swizzle row of bf16
+MIN_STAGES = 2
+MAX_STAGES = 4
+MAX_SPLIT = 8           # the portable cluster size
+SMEM_LIMIT = 232_448    # shared memory a block can use on an H100
+SMEM_PER_SM = 233_472   # an SM's shared memory, 1 KB of it reserved per resident block
+CTAS_PER_SM = 4         # resident CTAs an SM can hold by registers (160 threads, up to 90 registers each)
+LONG_K_BLOCKS = 16      # k-blocks (K >= 1024) from which a tile's k-loop is split whenever the grid is short
+LN_MAX_C = 2048         # widest row of the LayerNorm row pass (8 chunks of 8 a lane)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class GemmPlan(NamedTuple):
+    bn: int             # output columns of a CTA: 128 or 64 (GEGLU: 64, value and gate side by side)
+    ksplit: int         # CTAs of a cluster, each an equal share of the k-blocks
+    stages: int         # ring stages
+    smem: int           # dynamic shared memory bytes a CTA (hg_smem_bytes)
+    grid: Tuple[int, int, int]   # ((N / bn) * ksplit, ceil(M / 64), sets)
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    @property
+    def launch_args(self) -> Tuple[int, int, int]:
+        """(bn, ksplit, stages), as the C entry points take a GEMM's plan."""
+
+        return self.bn, self.ksplit, self.stages
+
+
+def hg_stages(nkb: int, ksplit: int) -> int:
+    """A stage per k-block of a slice, 2 to 4."""
+
+    return min(MAX_STAGES, max(MIN_STAGES, _cdiv(nkb, ksplit)))
+
+
+def resident_ctas(smem: int) -> int:
+    """CTAs of ``smem`` dynamic shared memory an SM holds at once."""
+
+    return min(CTAS_PER_SM, SMEM_PER_SM // (smem + 1024))
+
+
+def hg_smem_bytes(bn: int, geglu: bool, stages: int, ksplit: int) -> int:
+    """The ring (or the split-K partials, [bn/2 (x2)] x 128 fp32, where
+    larger), 2 x MAX_STAGES mbarriers and 1024 bytes of alignment slack."""
+
+    dual = 2 if geglu else 1
+    ring = stages * (BM * 128 + bn * 128 * dual)
+    part = bn // 2 * dual * 128 * 4 if ksplit > 1 else 0
+    return max(ring, part) + 2 * MAX_STAGES * 8 + 1024
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_plan(m: int, n: int, k: int, sets: int = 1, geglu: bool = False, sms: int = H100_SMS) -> GemmPlan:
+    """The launch of ``sets`` products [m, k] x [k, n] (GEGLU: n output
+    columns from 2n weight rows): the widest tile (128, else 64) whose grid
+    reaches ``sms`` CTAs. Where none does and the 64-wide tiles fill less
+    than half the SMs, or each tile has ``LONG_K_BLOCKS`` k-blocks or more,
+    their k-blocks are split over a cluster of the fewest CTAs, a power of
+    two, that reach ``sms`` (at most 8, at least one k-block each); a short
+    k-loop on more than half the SMs ran slower split than not. The
+    ring has a stage per k-block of a slice (2-4), fewer where that keeps
+    the grid in one wave of resident CTAs (more CTAs to hide the loads'
+    latency). The choices follow ``scripts/sweep_block_plans.py``. Raises
+    on a width the kernel does not take: n % 64, k % 64, m < 1, sets outside
+    1-3."""
+
+    if m < 1 or n < 64 or n % 64 or k < BK or k % BK or not 1 <= sets <= 3:
+        raise ValueError(f"hopper gemm: needs M >= 1, N % 64 == 0, K % 64 == 0 and 1-3 weight sets "
+                         f"(M={m}, N={n}, K={k}, sets={sets})")
+    mt, nkb = _cdiv(m, BM), k // BK
+
+    def plan(bn: int, ks: int) -> GemmPlan:
+        grid = ((n // bn) * ks, mt, sets)
+        ctas = grid[0] * grid[1] * grid[2]
+        stages = hg_stages(nkb, ks)
+        for st in range(stages, MIN_STAGES - 1, -1):     # the most stages that keep the grid in one wave
+            if ctas <= sms * resident_ctas(hg_smem_bytes(bn, geglu, st, ks)):
+                stages = st
+                break
+        return GemmPlan(bn, ks, stages, hg_smem_bytes(bn, geglu, stages, ks), grid)
+
+    for bn in ((64,) if geglu else (128, 64)):
+        if n % bn == 0 and mt * (n // bn) * sets >= sms:
+            return plan(bn, 1)
+    tiles = mt * (n // 64) * sets
+    ks = 1
+    if 2 * tiles < sms or nkb >= LONG_K_BLOCKS:
+        while ks < min(MAX_SPLIT, nkb) and tiles * ks < sms:
+            ks *= 2
+    return plan(64, min(ks, nkb))
+
+
+def check_ln_width(op: str, c: int) -> None:
+    """Raise unless the LayerNorm row pass takes rows of width c."""
+
+    if c % 64 or not 0 < c <= LN_MAX_C:
+        raise ValueError(f"{op}: the LayerNorm row pass needs C % 64 == 0 and C <= {LN_MAX_C} (C={c})")
+
+
+def gemm_blocks(plan: GemmPlan, m: int, n: int, k: int) -> Iterator[Tuple[int, int, int, int, int, range]]:
+    """Each CTA of the launch as (m0, n0, set, kb0, kb1, groups) by the
+    kernel's formulas: rank = x % ksplit, n0 = (x / ksplit) * bn, its
+    k-blocks [kb0, kb1) = [rank * nkb / ks, (rank + 1) * nkb / ks), and the
+    8-column groups of its tile that it stores: all U = bn / 8, or under
+    split-K the ones it combines, [rank * U / ks, (rank + 1) * U / ks)."""
+
+    ks, nkb, units = plan.ksplit, k // BK, plan.bn // 8
+    gx, gy, gz = plan.grid
+    for z in range(gz):
+        for y in range(gy):
+            for x in range(gx):
+                rank = x % ks
+                groups = range(units) if ks == 1 else range(rank * units // ks, (rank + 1) * units // ks)
+                yield (y * BM, (x // ks) * plan.bn, z, rank * nkb // ks, (rank + 1) * nkb // ks, groups)

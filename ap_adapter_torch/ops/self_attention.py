@@ -89,7 +89,7 @@ def self_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     if q.device.type == "cpu":
         return self_attention_plain(q, k, v)
     b, s, h, d = q.shape
-    _, cluster = attention_plan(b, s, h, d, torch.cuda.get_device_properties(q.device).multi_processor_count)
+    _, cluster = attention_plan(b, s, h, d, ck.sm_count(q.device))
     ck.check_operands(op, q, q=q, k=k, v=v)
     out = torch.empty_like(q)
     ck.launch(op, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d, CLUSTER_MODES[cluster])

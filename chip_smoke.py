@@ -14,7 +14,11 @@ prints its seconds:
 3. kernels: K1, K2 (adapter on; T5 with its bias) and K3 at each edit-path
    shape, B=2, bf16 inputs from a seeded generator: max abs and relative
    error against the plain PyTorch version (limit 2e-2 of max|plain|) and
-   both times (CUDA events, median of 20 after warm-up);
+   both times (CUDA events, median of 20 after warm-up); K1's and K3's
+   cases also list their device kernels with each one's device ms a call
+   (torch.profiler), and K1's times ``F.scaled_dot_product_attention`` on
+   q/k/v of its shape [2, S, 8, C/8] as information (K1 computes more than
+   attention, so it is not K1's library call);
 4. training kernels: K4 (forward; adapter context 8 + 512 tokens, T5 with
    its bias), K7, K8 (dx, dk_ip/dv_ip and the adapter weight gradients) and
    K9 (dx) at the three training levels, B=8, against the plain version and
@@ -134,11 +138,11 @@ LOGMEL_COS = 0.99       # int8 vs bf16 request, log-mel cosine (PARITY.md end-to
 LOGMEL_MAD = 0.1        # int8 vs bf16 request, mean abs log-mel difference
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 KERNELS = {
-    "fused_ln_self_attention": ("ap_adapter_torch/csrc/fused_blocks.cu",
+    "fused_ln_self_attention": ("ap_adapter_torch/csrc/fused_hopper.cu",
                                 "ap_adapter_tpu/ops/pallas_fused_block.py:508"),
     "fused_ln_cross_attention_kv": ("ap_adapter_torch/csrc/fused_blocks.cu",
                                     "ap_adapter_tpu/ops/pallas_fused_cross.py:288"),
-    "fused_ln_geglu_ff": ("ap_adapter_torch/csrc/fused_blocks.cu",
+    "fused_ln_geglu_ff": ("ap_adapter_torch/csrc/fused_hopper.cu",
                           "ap_adapter_tpu/ops/pallas_fused_ff.py:70"),
     "fused_ln_cross_attention": ("ap_adapter_torch/csrc/train_blocks.cu",
                                  "ap_adapter_tpu/ops/pallas_fused_cross.py:150"),
@@ -162,6 +166,7 @@ KERNELS = {
     "dual_kv_attention": ("ap_adapter_torch/csrc/fused_blocks.cu", "ap_adapter_tpu/ops/pallas_attention.py:57"),
 }
 EDIT_KERNELS = ("fused_ln_self_attention", "fused_ln_cross_attention_kv", "fused_ln_geglu_ff")
+REDESIGNED = ("fused_ln_self_attention", "fused_ln_geglu_ff")   # on csrc/hopper_gemm.cuh: cases list device kernels
 TRAIN_KERNELS = ("fused_ln_cross_attention", "fused_ln_self_attention_bwd_dx", "fused_ln_cross_attention_bwd",
                  "fused_ln_geglu_ff_bwd_dx")
 INT8_KERNELS = ("fused_ln_self_attention_int8", "fused_ln_cross_attention_int8", "fused_ln_geglu_ff_int8")
@@ -191,6 +196,28 @@ def time_ms(fn, iters: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_split(fn, iters: int = 10) -> dict:
+    """Device ms per call of ``fn`` by device kernel name (torch.profiler,
+    10 calls after 3 warm-up); empty where the tracer recorded no device
+    event."""
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            split[e.name] = split.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / iters / 1e3
+    return split
 
 
 def ops_ms(flops: float, int8_ops: float = 0.0) -> float:
@@ -271,6 +298,7 @@ def kernel_phase(device) -> dict:
     """K1/K2/K3 against their plain versions at the main-path shapes."""
 
     import torch
+    import torch.nn.functional as F
 
     from ap_adapter_torch.ops.fused_block import fused_ln_self_attention, fused_ln_self_attention_plain
     from ap_adapter_torch.ops.fused_cross import (
@@ -282,6 +310,7 @@ def kernel_phase(device) -> dict:
     def r(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=device) * scale).to(torch.bfloat16)
 
+    info_gen = torch.Generator(device=device).manual_seed(8)
     results = new_results(EDIT_KERNELS)
     for s, c in SHAPES:
         x = r(2, s, c)
@@ -295,6 +324,8 @@ def kernel_phase(device) -> dict:
         w2, b2 = r(c, 4 * c, scale=(4 * c) ** -0.5), r(c, scale=0.1)
         k_txt, v_txt, k_ip, v_ip = r(2, 8, c), r(2, 8, c), r(2, 128, c), r(2, 128, c)
         k_t5, v_t5 = r(2, 64, c), r(2, 64, c)
+        qh, kh, vh = (torch.randn(2, HEADS, s, c // HEADS, generator=info_gen, device=device, dtype=torch.bfloat16)
+                      for _ in range(3))      # K1's attention shape, heads-major, for the sdpa information
         cases = [
             ("fused_ln_self_attention", "self", {},
              lambda: fused_ln_self_attention(x, ln_w, ln_b, wq, wk, wv, wo, bo, HEADS),
@@ -313,7 +344,8 @@ def kernel_phase(device) -> dict:
              lambda: fused_ln_geglu_ff_plain(x, ln_w, ln_b, w1, b1, w2, b2)),
         ]
         for name, variant, keys, kernel, plain in cases:
-            run_case(results, name, variant, (2, s, c), keys, kernel, plain, TOL)
+            info = {"sdpa": lambda: F.scaled_dot_product_attention(qh, kh, vh)} if name == EDIT_KERNELS[0] else None
+            run_case(results, name, variant, (2, s, c), keys, kernel, plain, TOL, split=name in REDESIGNED, info=info)
     return results
 
 
@@ -509,11 +541,14 @@ def new_results(names) -> dict:
                    "library_cases_ms": 0.0, "cases": []} for name in names}
 
 
-def run_case(results, name, variant, shape, keys, kernel, plain, tol, bd=None, library=None) -> None:
+def run_case(results, name, variant, shape, keys, kernel, plain, tol, bd=None, library=None, split=False,
+             info=None) -> None:
     """Compare ``kernel()`` with ``plain()`` (a tensor or a tuple of them,
     each within ``tol`` of its own max|plain|), time both (and ``library``,
     one PyTorch call computing the same function, where there is one), add
-    the bound (``bd``, else ``work(name, *shape, **keys)``)."""
+    the bound (``bd``, else ``work(name, *shape, **keys)``). ``split``: also
+    list the kernel's device kernels with their device ms a call; ``info``:
+    name -> a call timed beside the kernel as information only."""
 
     import torch
 
@@ -538,6 +573,14 @@ def run_case(results, name, variant, shape, keys, kernel, plain, tol, bd=None, l
         + (f" library_ms={library_ms:.4f}" if library_ms is not None else ""))
     if not rel <= tol:
         raise RuntimeError(f"{name}/{variant} {shape}: error {errs} over {tol} of max|plain|")
+    extra = {}
+    if split:
+        extra["device_split_ms"] = device_split(kernel)
+        log("  device kernels: " + (", ".join(f"{n} {t:.4f} ms" for n, t in extra["device_split_ms"].items())
+                                    or "none recorded by the profiler"))
+    if info:
+        extra["info_ms"] = {k: time_ms(fn) for k, fn in info.items()}
+        log("  information, not a library call: " + ", ".join(f"{k} {t:.4f} ms" for k, t in extra["info_ms"].items()))
     res = results[name]
     res["max_abs_err"] = max(res["max_abs_err"], err)
     res["ms"] += ms
@@ -547,7 +590,7 @@ def run_case(results, name, variant, shape, keys, kernel, plain, tol, bd=None, l
         res["library_ms"] = (res["library_ms"] or 0.0) + library_ms
         res["library_cases_ms"] += ms
     res["cases"].append({"variant": variant, "shape": list(shape), **keys, "max_abs_err": err, "rel_err": rel,
-                         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bd})
+                         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bd, **extra})
 
 
 def train_kernel_phase(device) -> dict:

@@ -15,7 +15,10 @@ prints two lists:
    the profile has it, else by CUDA events (which enclose the wrapper's
    host path);
 2. every kernel by its excess time per unit of its path,
-   launches x (ms per launch - bound per launch), the largest first. A
+   launches x (ms per launch - bound per launch), the largest first: first
+   the kernels of the main path (the default bf16 edit request, which
+   ``bench.py`` and the smoke's edit requests run), then the rest (the
+   training step and the serving switches, off by default). A
    kernel's ms per launch is its summed device ms (else event ms) over the
    path's shapes divided by the number of shapes and variants it was timed
    at (each is one call at one shape of the path), the same for the bound;
@@ -32,22 +35,22 @@ from __future__ import annotations
 import json
 import sys
 
-# (units of the smoke's run, unit) for each kernel's launches
+# (units of the smoke's run, unit, on the main path: the default bf16 request) for each kernel's launches
 UNITS = {
-    "fused_ln_self_attention": (2, "bf16 request"),
-    "fused_ln_cross_attention_kv": (2, "bf16 request"),
-    "fused_ln_geglu_ff": (2, "bf16 request"),
-    "self_attention": (2, "bf16 request"),
-    "fused_ln_cross_attention": (6, "training micro-step"),
-    "fused_ln_self_attention_bwd_dx": (6, "training micro-step"),
-    "fused_ln_cross_attention_bwd": (6, "training micro-step"),
-    "fused_ln_geglu_ff_bwd_dx": (6, "training micro-step"),
-    "fused_ln_geglu_ff_int8": (2, "int8 request"),
-    "fused_ln_self_attention_int8": (2, "int8 request"),
-    "fused_ln_cross_attention_int8": (2, "int8 request"),
-    "group_norm_silu": (1, "K12 request"),
-    "fused_resnet_block": (1, "K13 request"),
-    "dual_kv_attention": (1, "K10 request"),
+    "fused_ln_self_attention": (2, "bf16 request", True),
+    "fused_ln_cross_attention_kv": (2, "bf16 request", True),
+    "fused_ln_geglu_ff": (2, "bf16 request", True),
+    "self_attention": (2, "bf16 request", True),
+    "fused_ln_cross_attention": (6, "training micro-step", False),
+    "fused_ln_self_attention_bwd_dx": (6, "training micro-step", False),
+    "fused_ln_cross_attention_bwd": (6, "training micro-step", False),
+    "fused_ln_geglu_ff_bwd_dx": (6, "training micro-step", False),
+    "fused_ln_geglu_ff_int8": (2, "int8 request", False),
+    "fused_ln_self_attention_int8": (2, "int8 request", False),
+    "fused_ln_cross_attention_int8": (2, "int8 request", False),
+    "group_norm_silu": (1, "K12 request", False),
+    "fused_resnet_block": (1, "K13 request", False),
+    "dual_kv_attention": (1, "K10 request", False),
 }
 
 
@@ -78,18 +81,20 @@ def main(argv=None) -> None:
         if ratio > 1:
             print(f"  {name}: {ratio:.3f}x ({by})")
     print("launches x (ms per launch - bound per launch), per unit of the kernel's path:")
-    rows = []
+    rows = {True: [], False: []}
     for k in kernels:
         n = len(k["cases"])
-        units, unit = UNITS[k["name"]]
+        units, unit, main_path = UNITS[k["name"]]
         by = "device" if k["name"] in device else "events"
         ms = device[k["name"]]["device_ms"] if by == "device" else k["ms"]
         per_launch, bound = ms / n, k["bound_ms"] / n
         launches = k["launches"] / units
-        rows.append((launches * (per_launch - bound), k["name"], launches, unit, per_launch, bound, by))
-    for excess, name, launches, unit, per_launch, bound, by in sorted(rows, reverse=True):
-        print(f"  {name}: {excess:.1f} ms per {unit} ({launches:g} launches x ({per_launch:.4f} - {bound:.4f}) ms, "
-              f"{by})")
+        rows[main_path].append((launches * (per_launch - bound), k["name"], launches, unit, per_launch, bound, by))
+    for main_path, title in ((True, "main path (the default bf16 request)"), (False, "other paths")):
+        print(f" {title}:")
+        for excess, name, launches, unit, per_launch, bound, by in sorted(rows[main_path], reverse=True):
+            print(f"  {name}: {excess:.1f} ms per {unit} ({launches:g} launches x ({per_launch:.4f} - {bound:.4f}) ms, "
+                  f"{by})")
 
 
 if __name__ == "__main__":

@@ -2,10 +2,13 @@
 """Where the time of one edit request goes on one NVIDIA GPU, bf16 against
 the int8 W8A8 serving configuration (``UNetConfig.use_int8``).
 
-    python3 scripts/profile_edit_request.py [--batches 1,4] [--pairs 3]
+    python3 scripts/profile_edit_request.py [--batches 1,4] [--pairs 3] [--configs bf16,int8] [--root DIR]
 
 Full-width ``PipelineConfig()`` in bf16 with random weights (seed 0); the
 int8 pipeline serves the same weights (shared tensors), quantized once.
+``--configs bf16`` serves bf16 alone; ``--root`` imports ``ap_adapter_torch``
+from another tree (an unpacked ``git archive`` of another commit), so that
+runs of two commits can alternate within one call.
 Requests are ``AudioLDM2Pipeline.generate`` with the ``timbre_transfer``
 settings (10 s, 50 DDIM steps, guidance 7.5, ap_scale 0.5, pool 2/2) at each
 batch of ``--batches`` clips. For each batch it prints:
@@ -55,14 +58,19 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batches", default="1,4", help="comma-separated clips per request")
     ap.add_argument("--pairs", type=int, default=3)
+    ap.add_argument("--configs", default="bf16,int8", help="comma-separated: bf16, int8")
+    ap.add_argument("--root", default=ROOT, help="the tree whose ap_adapter_torch serves the requests")
     args = ap.parse_args()
+    configs = args.configs.split(",")
+    if not configs or set(configs) - {"bf16", "int8"}:
+        ap.error("--configs takes bf16 and int8")
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("profile_edit_request: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.root))
     from torch.profiler import ProfilerActivity, profile
 
     from ap_adapter_torch.configs import PipelineConfig, get_task_config
@@ -74,12 +82,15 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     config = PipelineConfig()
     pipes = {"bf16": AudioLDM2Pipeline.from_random(config, seed=0, device=dev, dtype=torch.bfloat16)}
-    int8_config = config.replace(unet=dataclasses.replace(config.unet, use_int8=True))
-    mods = PipelineModules(int8_config)
-    mods.load_state_dict(pipes["bf16"].modules.state_dict(), strict=True, assign=True)
-    pipes["int8"] = AudioLDM2Pipeline(int8_config, mods)
+    if "int8" in configs:
+        int8_config = config.replace(unet=dataclasses.replace(config.unet, use_int8=True))
+        mods = PipelineModules(int8_config)
+        mods.load_state_dict(pipes["bf16"].modules.state_dict(), strict=True, assign=True)
+        pipes["int8"] = AudioLDM2Pipeline(int8_config, mods)
+    if "bf16" not in configs:
+        del pipes["bf16"]
     task = get_task_config("timbre_transfer")
-    summary = {"card": card, "batches": {}}
+    summary = {"card": card, "root": os.path.abspath(args.root), "batches": {}}
 
     for b in (int(v) for v in args.batches.split(",")):
         pos = make_text_batch(config, [task.positive_text_prompts[0]] * b)
@@ -96,12 +107,12 @@ def main() -> int:
             torch.cuda.synchronize()
             return time.perf_counter() - t0
 
-        walls = {"bf16": [], "int8": []}
+        walls = {name: [] for name in configs}
         peaks = {}
         for name in walls:
             request(name)                                  # warm-up
         for i in range(args.pairs):
-            for name in (("bf16", "int8") if i % 2 == 0 else ("int8", "bf16")):
+            for name in (configs if i % 2 == 0 else configs[::-1]):
                 torch.cuda.reset_peak_memory_stats()
                 walls[name].append(request(name))
                 peaks[name] = torch.cuda.max_memory_allocated()

@@ -12,8 +12,10 @@ each case's kernel (and its library call, where the smoke times one) runs
 3 times to warm up, then 10 times under the profiler (CPU and CUDA
 activities) with a synchronise at the end. Per call: the device time, the
 sum of the CUDA events' durations (kernels, memsets, copies), and the
-number of device events, with their names. The plain versions are not run:
-``chip_smoke.py`` holds the kernels against them.
+number of device events, with their names and each name's device ms (the
+split of a call by device kernel); and the device ms of any call the smoke
+times beside a case as information (``sdpa`` beside K1). The plain
+versions are not run: ``chip_smoke.py`` holds the kernels against them.
 
 Prints one line per case and one per kernel (device ms summed over its
 cases, device kernels per call, the library call's device ms summed over the
@@ -58,8 +60,11 @@ def device_profile(fn, iters: int = ITERS) -> dict:
         raise RuntimeError("the profiler recorded no device events")
     total_us = sum(e.time_range.end - e.time_range.start for e in events)
     names = collections.Counter(e.name for e in events)
+    names_ms = collections.Counter()
+    for e in events:
+        names_ms[e.name] += (e.time_range.end - e.time_range.start) / iters / 1e3
     return {"device_ms": total_us / iters / 1e3, "device_kernels": len(events) / iters,
-            "names": {n: c / iters for n, c in names.items()}}
+            "names": {n: c / iters for n, c in names.items()}, "names_ms": dict(names_ms)}
 
 
 def main(argv=None) -> int:
@@ -92,11 +97,13 @@ def main(argv=None) -> int:
 
     per_kernel: dict = {}
 
-    def profile_case(results, name, variant, shape, keys, kernel, plain, tol, bd=None, library=None) -> None:
+    def profile_case(results, name, variant, shape, keys, kernel, plain, tol, bd=None, library=None, split=False,
+                     info=None) -> None:
         got = device_profile(kernel)
         lib = device_profile(library) if library is not None else None
         case = {"variant": variant, "shape": list(shape), **{k: v for k, v in keys.items()}, **got,
-                "library_device_ms": lib["device_ms"] if lib else None}
+                "library_device_ms": lib["device_ms"] if lib else None,
+                "info_device_ms": {k: device_profile(fn)["device_ms"] for k, fn in (info or {}).items()}}
         k = per_kernel.setdefault(name, {"device_ms": 0.0, "device_kernels": [], "library_device_ms": None,
                                          "library_cases_device_ms": 0.0, "cases": []})
         k["device_ms"] += got["device_ms"]
@@ -106,10 +113,12 @@ def main(argv=None) -> int:
             k["library_cases_device_ms"] += got["device_ms"]
         k["cases"].append(case)
         results[name]["cases"].append(case)      # the phase reads its last case
-        names = ", ".join(f"{n[:60]} x{c:g}" for n, c in got["names"].items())
+        names = ", ".join(f"{n[:60]} x{c:g} {got['names_ms'][n]:.4f} ms" for n, c in got["names"].items())
         print(f"case {name:30s} {variant:8s} {tuple(shape)} {keys}: device_ms={got['device_ms']:.4f} "
               f"kernels/call={got['device_kernels']:g} [{names}]"
-              + (f" library_device_ms={lib['device_ms']:.4f}" if lib else ""), flush=True)
+              + (f" library_device_ms={lib['device_ms']:.4f}" if lib else "")
+              + "".join(f" {k}_device_ms={t:.4f} (information)" for k, t in case["info_device_ms"].items()),
+              flush=True)
 
     chip_smoke.run_case = profile_case
     chip_smoke.build_phase()

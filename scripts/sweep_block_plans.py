@@ -1,0 +1,123 @@
+#!/usr/bin/env python3
+"""Device time of K1's and K3's kernels under other launch plans than the
+wrappers' own, at the edit path's shapes, on one NVIDIA GPU.
+
+    python3 scripts/sweep_block_plans.py
+
+For K1 (``fused_ln_self_attention``) and K3 (``fused_ln_geglu_ff``) at B=2
+and each (S, C) of ``chip_smoke.SHAPES``, bf16 inputs: the C entry point is
+called with the plan of ``k1_plan`` / ``k3_plan``, then with one choice
+changed at a time (each GEMM's tile width and split-K, then its ring's
+stage count), and ``chip_smoke.device_split`` gives each device kernel's
+device ms a call (torch.profiler, 10 calls after 3 warm-up). Every variant
+is checked against the plain version (``chip_smoke.TOL`` of max|plain|).
+Prints one line per variant, the wrapper's plan marked, then the card's
+``nvidia-smi`` line. Fails without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("sweep_block_plans: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from ap_adapter_torch.ops import cuda_kernels as ck
+    from ap_adapter_torch.ops.fused_block import fused_ln_self_attention_plain, k1_plan
+    from ap_adapter_torch.ops.fused_ff import fused_ln_geglu_ff_plain, k3_plan
+
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+    card = chip_smoke.card_line()
+    print(f"card: {card}", flush=True)
+    ck.library()
+    heads, eps = chip_smoke.HEADS, 1e-5
+    for s, c in chip_smoke.SHAPES:
+        b, m = 2, 2 * s
+        x, ln_w, ln_b = r(b, s, c), 1 + r(c, scale=0.1), r(c, scale=0.1)
+        wq, wk, wv, wo = (r(c, c, scale=c ** -0.5) for _ in range(4))
+        bo = r(c, scale=0.1)
+        w1, b1 = r(8 * c, c, scale=c ** -0.5), r(8 * c, scale=0.1)
+        w2, b2 = r(c, 4 * c, scale=(4 * c) ** -0.5), r(c, scale=0.1)
+        scratch = x.new_empty(5 * m * c)
+        out = torch.empty_like(x)
+
+        def k1(qkv, o):
+            ck.launch("fused_ln_self_attention", x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wq.data_ptr(),
+                      wk.data_ptr(), wv.data_ptr(), wo.data_ptr(), bo.data_ptr(), scratch.data_ptr(),
+                      out.data_ptr(), b, s, c, heads, eps, *qkv, *o)
+            return out
+
+        def k3(w1p, w2p):
+            ck.launch("fused_ln_geglu_ff", x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
+                      b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, s, c,
+                      4 * c, eps, *w1p[1:], *w2p)
+            return out
+
+        p1, p3 = k1_plan(b, s, c, heads), k3_plan(b, s, c, 4 * c)
+        base1 = (p1.qkv.launch_args, p1.out.launch_args)
+        variants = [base1] + [(v, base1[1]) for v in gemm_variants(p1.qkv, c, False)]
+        variants += [(base1[0], v) for v in gemm_variants(p1.out, c, False)]
+        want = fused_ln_self_attention_plain(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads).float()
+        for v in dict.fromkeys(variants):
+            run(chip_smoke, "K1", (s, c), v, v == base1, lambda: k1(*v), want)
+        base3 = (p3.w1.launch_args, p3.w2.launch_args)
+        variants = [base3] + [(v, base3[1]) for v in gemm_variants(p3.w1, c, True)]
+        variants += [(base3[0], v) for v in gemm_variants(p3.w2, 4 * c, False)]
+        want = fused_ln_geglu_ff_plain(x, ln_w, ln_b, w1, b1, w2, b2).float()
+        for v in dict.fromkeys(variants):
+            run(chip_smoke, "K3", (s, c), v, v == base3, lambda: k3(*v), want)
+    print(card, flush=True)
+    return 0
+
+
+def gemm_variants(plan, k: int, geglu: bool) -> list:
+    """(bn, ksplit, stages) around ``plan`` for a GEMM of depth k: each
+    width and split the kernel takes (with the plan's stage rule), then the
+    plan's width and split with each stage count."""
+
+    from ap_adapter_torch.ops.hopper_gemm import MAX_STAGES, MIN_STAGES, hg_stages
+
+    nkb = k // 64
+    out = [(bn, ks, hg_stages(nkb, ks)) for bn in ((64,) if geglu else (64, 128))
+           for ks in (1, 2, 3, 4, 6, 8) if ks <= min(nkb, bn // 8)]
+    return out + [(plan.bn, plan.ksplit, st) for st in range(MIN_STAGES, MAX_STAGES + 1)]
+
+
+def short(name: str) -> str:
+    """``hgemm_kernel<64, 1>`` of ``void (anonymous namespace)::hgemm_kernel<64, 1>(...)``."""
+
+    found = re.search(r"::(\w+(?:<[^>]*>)?)\(", name)
+    return found.group(1) if found else name[:40]
+
+
+def run(chip_smoke, name, shape, variant, planned, fn, want) -> None:
+    import torch
+
+    got = fn().float()
+    torch.cuda.synchronize()
+    rel = (got - want).abs().max().item() / want.abs().max().item()
+    if not rel <= chip_smoke.TOL:
+        raise RuntimeError(f"{name} {shape} {variant}: error {rel} of max|plain|")
+    split = chip_smoke.device_split(fn)
+    kernels = ", ".join(f"{short(n)} {t:.4f}" for n, t in split.items())
+    print(f"sweep {name} S={shape[0]} C={shape[1]} {variant}{' (plan)' if planned else ''}: "
+          f"device {sum(split.values()):.4f} ms [{kernels}]", flush=True)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -96,6 +96,51 @@ def test_kernels_match_plain(cuda_device, s, c):
                      "fused_ln_geglu_ff": 1}
 
 
+def _block_operands(device, b, s, c, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=device) * scale).to(torch.bfloat16)
+
+    x = r(b, s, c)
+    ln_w, ln_b = 1 + r(c, scale=0.1), r(c, scale=0.1)
+    sa = (ln_w, ln_b, *(r(c, c, scale=c ** -0.5) for _ in range(4)), r(c, scale=0.1))
+    ff = (ln_w, ln_b, r(8 * c, c, scale=c ** -0.5), r(8 * c, scale=0.1), r(c, 4 * c, scale=(4 * c) ** -0.5),
+          r(c, scale=0.1))
+    return x, sa, ff
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,c", [(1, 1000, 256), (1, 252, 384), (2, 63, 640), (1, 63, 384), (3, 17, 256),
+                                   (1, 65, 640), (8, 256, 384), (8, 64, 640), (8, 1024, 256)])
+def test_redesigned_k1_k3_match_plain(cuda_device, b, s, c):
+    """K1 and K3 on the Hopper GEMM (split-K where the plan splits) and K1's
+    register-resident attention: ragged M (S = 1000 and 252 at B = 1, S = 63
+    and 17, S = 65 whose second key tile holds one key), d = 48 and 80 (the
+    head's columns end inside a 128-byte swizzle row), and the training
+    shapes (B = 8); one launch each."""
+
+    x, sa, ff = _block_operands(cuda_device, b, s, c, 3)
+    before = dict(cuda_kernels.LAUNCHES)
+    _check(fused_ln_self_attention(x, *sa, 8), fused_ln_self_attention_plain(x, *sa, 8))
+    _check(fused_ln_geglu_ff(x, *ff), fused_ln_geglu_ff_plain(x, *ff))
+    moved = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
+    assert moved == {**dict.fromkeys(before, 0), "fused_ln_self_attention": 1, "fused_ln_geglu_ff": 1}
+
+
+@pytest.mark.gpu
+def test_redesigned_k1_k3_are_deterministic(cuda_device):
+    """The split-K clusters combine in rank order, with no atomics: two calls
+    at the 640 level (K1's out GEMM and K3's W2 GEMM split 8 ways) give the
+    same bits."""
+
+    x, sa, ff = _block_operands(cuda_device, 2, 64, 640, 4)
+    for fn, args in ((fused_ln_self_attention, (*sa, 8)), (fused_ln_geglu_ff, ff)):
+        first, second = fn(x, *args), fn(x, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), fn.__name__
+
+
 @pytest.mark.gpu
 def test_kernels_refuse_what_they_cannot_take(cuda_device):
     """A CUDA tensor never falls back to the plain path: unsupported widths,
