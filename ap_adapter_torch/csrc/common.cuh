@@ -1,5 +1,9 @@
-// Device routines shared by the fused-block kernels (fused_blocks.cu) and
-// their backward and context-projecting variants (train_blocks.cu).
+// Device routines of the training kernels (train_blocks.cu: K4 and the
+// backwards K7-K9), the int8 kernels (int8_blocks.cu: K11a-c) and the
+// streamed d <= 128 route of the self-attention (self_attention.cu), with
+// helpers that resnet.cu and hopper_gemm.cuh use too. K1, K2, K3 and K10
+// run on fused_hopper.cu's routines (hopper_gemm.cuh and a register-resident
+// attention), none of these.
 //
 //   * gemm_kernel: C = epilogue(prologue(A) @ W^T) for W in torch Linear
 //     layout [N, K], or C = epilogue(A @ W) for W given as [K, N]
@@ -11,7 +15,7 @@
 //     itself, normalised rows rounded to bf16 on their way into shared
 //     memory). Epilogues: bf16 store, fp32 store, fp32 accumulate, bias +
 //     residual, and the GEGLU backward (from two accumulators: value rows
-//     [0, N) and gate rows [N, 2N) of W). K1 and K3 run on hopper_gemm.cuh.
+//     [0, N) and gate rows [N, 2N) of W).
 //   * attention_kernel: one block per (query tile of 64, head, batch); K/V
 //     streamed through shared memory in tiles of 64 keys with an online
 //     max-subtracted fp32 softmax; optional fp32 additive key bias [B, Sk];

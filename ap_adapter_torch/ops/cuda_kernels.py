@@ -32,8 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "apk_fused_ln_self_attention": [_P] * 10 + [_I] * 4 + [_F] + [_I] * 6 + [_P],
-    "apk_fused_ln_cross_attention_kv": [_P] * 8 + [_I, _P, _P, _P, _I, _F, _P, _P, _P]
-    + [_I] * 4 + [_F, _P],
+    "apk_fused_ln_cross_attention_kv": [_P] * 8 + [_I, _P, _P, _P, _I, _F, _P, _P] + [_I] * 4 + [_F]
+    + [_I] * 8 + [_P],
     "apk_fused_ln_geglu_ff": [_P] * 9 + [_I] * 4 + [_F] + [_I] * 5 + [_P],
     "apk_fused_ln_cross_attention": [_P, _P, _I, _I, _I] + [_P] * 9 + [_F] + [_P] * 8
     + [_I] * 4 + [_F, _P],
@@ -49,7 +49,7 @@ _SIGNATURES = {
     "apk_group_norm_silu": [_P] * 4 + [_I] * 8 + [_F, _I, _P],
     "apk_fused_resnet_block": [_P] * 2 + [_I] + [_P] * 10 + [_I] * 4 + [_P] * 2 + [_I] * 4 + [_P] * 2
     + [_I] * 6 + [_F, _P],
-    "apk_dual_kv_attention": [_P] * 3 + [_I] + [_P] * 2 + [_I, _F, _P] + [_I] * 4 + [_P],
+    "apk_dual_kv_attention": [_P] * 3 + [_I] + [_P] * 2 + [_I, _F, _P] + [_I] * 6 + [_P],
 }
 
 # Launch counts per op, incremented by each wrapper right after its kernels

@@ -14,15 +14,19 @@ fp32 with a max-subtracted softmax and no mask, the text branch plus
 the end. That is not ``ops/attention.py::dual_kv_attention``, which rounds
 each branch to q's dtype before the sum (the XLA route's counterpart).
 
-Kernel (``csrc/fused_blocks.cu``, ``apk_dual_kv_attention``): the repo's
-streamed online-softmax attention routine (``common.cuh``) with the second
-key set, 64 queries and one head per block, each set normalised in fp32 and
-combined before one bf16 store. The TPU wrapper pads D to 128 lanes and the
-key sets to 128 rows; the Hopper routine takes any D % 16 == 0 up to 128 and
-masks the ragged key tile itself, so nothing is padded. At the UNet's
-shapes (S = 1000/252/64 queries, d = 32/48/80, 8 text and 32-512 audio
-keys) it is bound by bytes, q and out dominating, and runs at launch
-latency; at S = 64 its grid is only 16 blocks on 132 SMs. The JAX package
+Kernel (``csrc/fused_hopper.cu``, ``apk_dual_kv_attention``): one launch
+of the register-resident two-key-set attention that K2 runs (64 queries
+and one head a CTA, one warp 16 query rows, ``mma.sync`` with logits,
+probabilities and output in registers): the text tiles, then the audio
+tiles, through one double buffer, each set with its own online softmax and
+normalised in fp32, combined before one bf16 store. Each set's key tile
+(16, 32 or 64 keys) follows its count (``fused_cross.key_tile``). The TPU
+wrapper pads D to 128 lanes and the key sets to 128 rows; the Hopper kernel
+takes any D % 16 == 0 up to 128 and masks the last key tile of each set
+itself, so nothing is padded. At the UNet's shapes (S = 1000/252/64
+queries, d = 32/48/80, 8 text and 32-512 audio keys) it is bound by bytes,
+q and out dominating, and runs at its launch's latency and its
+exponentials; at S = 64 its grid is only 16 CTAs on 132 SMs. The JAX package
 has no backward for K10, so there is no autograd Function: the wrapper
 refuses operands that require grad under grad mode.
 """
@@ -34,6 +38,7 @@ from typing import Optional
 import torch
 
 from ap_adapter_torch.ops import cuda_kernels as ck
+from ap_adapter_torch.ops.fused_cross import key_tile
 
 MAX_HEAD_DIM = 128
 
@@ -91,5 +96,5 @@ def fused_dual_kv_attention(q: torch.Tensor, k_text: torch.Tensor, v_text: torch
     ck.check_operands(op, q, **operands)
     out = torch.empty_like(q)
     ck.launch(op, q.data_ptr(), k_text.data_ptr(), v_text.data_ptr(), st, k_ip.data_ptr(), v_ip.data_ptr(), si,
-              float(ip_scale), out.data_ptr(), b, sq, h, d)
+              float(ip_scale), out.data_ptr(), b, sq, h, d, key_tile(st), key_tile(si))
     return out

@@ -10,20 +10,29 @@ T5 stream with its padding bias. The conditioning K/V are projected once per
 generate (``models/hoist.py``) and arrive in the natural ``[B, Sk, heads*d]``
 layout.
 
-Kernel (``csrc/fused_blocks.cu``, ``apk_fused_ln_cross_attention_kv``): an
-LN+Q GEMM, the streamed online-softmax attention run over the text K/V (with
-the fp32 key bias) and then over the adapter K/V, combined as
-``out + s·out_ip`` in fp32 before one bf16 rounding, and an out GEMM with
-bias and residual in its epilogue. Contexts are short (8 + 128 or 64 keys),
-so on an H100 the cost is the two [S, C]x[C, C] projections and the launch
-latency; the attention itself is one key tile per set.
+Kernel (``csrc/fused_hopper.cu``, ``apk_fused_ln_cross_attention_kv``),
+four launches a call, on the Hopper routines K1 runs on: the LayerNorm row
+pass; the Q GEMM (``csrc/hopper_gemm.cuh``: TMA into a ring of stages,
+``wgmma``, split-K clusters where the output tiles do not fill the SMs); the
+register-resident two-key-set attention (``mma.sync``, logits, probabilities
+and output in registers), which runs the text K/V (with the fp32 key bias,
+if any) and then the adapter K/V through one double buffer, each set with
+its own online softmax, and stores ``out + s·out_ip``, combined in fp32, with
+one bf16 rounding; and the out GEMM with bias and residual in its epilogue.
+``k2_plan`` plans the GEMMs, ``key_tile`` each set's key tile (16, 32 or 64
+keys: at d = 32 a tile's time is its exponentials, so GPT-2's 8 keys take a
+16-key tile). LN(x), q and the attention output make one round trip through
+device memory, in one scratch allocation a call. Contexts are short (8 + 128
+or 64 keys), so on an H100 the cost is the two [S, C]x[C, C] projections and
+the launches' own latency.
 
 K4 replaces ``pallas_fused_cross.py::fused_ln_cross_attention`` (``_kernel``):
 the cross site when K/V are not hoisted, as in training. The kernel
 (``csrc/train_blocks.cu``, ``apk_fused_ln_cross_attention``) projects the
 text K/V from the first ``num_ip_tokens`` context rows and the adapter K/V
-from the rest with the repo's GEMM routine (the rows gathered from the
-strided context in place), then runs K2's chain. The projections are
+from the rest with ``common.cuh``'s WMMA GEMM (the rows gathered from the
+strided context in place), then its LN+Q GEMM, its streamed two-set
+attention and its out GEMM. The projections are
 [B·Sk, Dc]x[Dc, C] with Dc = 768 or 1024 and Sk up to 520; at pool 1 they
 are as large as the query projection.
 
@@ -40,7 +49,8 @@ JAX package leaves them to XLA.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +58,9 @@ import torch.nn.functional as F
 from ap_adapter_torch.models.layers import layer_norm_f32
 from ap_adapter_torch.ops import cuda_kernels as ck
 from ap_adapter_torch.ops.attention import sdpa
+from ap_adapter_torch.ops.hopper_gemm import H100_SMS, GemmPlan, check_ln_width, gemm_plan
+
+KEY_TILES = (16, 32, 64)    # keys a tile of the register-resident attention (a stage holds 64)
 
 
 def fused_ln_cross_attention_kv_plain(
@@ -70,6 +83,44 @@ def fused_ln_cross_attention_kv_plain(
     if ki is not None:
         out = out + torch.as_tensor(ip_scale, dtype=out.dtype) * attn(ki, vi, None)
     return x + F.linear(out.reshape(b, s, c), wo, bo).to(x.dtype)
+
+
+def key_tile(n: int) -> int:
+    """Keys a tile of the register-resident attention (``fused_hopper.cu``)
+    for a key set of n keys: the narrowest of ``KEY_TILES`` that holds the
+    set, else the widest (``scripts/sweep_block_plans.py``)."""
+
+    return next((tk for tk in KEY_TILES if n <= tk), KEY_TILES[-1])
+
+
+def key_tiles(n: int, n_ip: int) -> Iterator[Tuple[int, int, int, bool]]:
+    """The attention's key tiles in the order it runs them, by the kernel's
+    formulas: the first set's ``ceil(n / tk)`` tiles, then the second's, as
+    (set, first key, keys, masks) with masks = first key + keys > the set's
+    count."""
+
+    for kset, count in enumerate((n, n_ip)):
+        tk = key_tile(count)
+        for it in range(-(-count // tk)):
+            yield kset, it * tk, tk, it * tk + tk > count
+
+
+class K2Plan(NamedTuple):
+    q: GemmPlan         # LN(x) [M, C] x Wq, bf16 store
+    out: GemmPlan       # attention [M, C] x Wo, bias + residual
+
+
+@functools.lru_cache(maxsize=None)
+def k2_plan(b: int, s: int, c: int, heads: int, sms: int = H100_SMS) -> K2Plan:
+    """The launches of K2's GEMMs on x [b, s, c], by ``gemm_plan`` (the
+    attention's grid is fixed: 64 query rows a CTA). Raises on a width the
+    kernels do not take (``ck.check_heads``)."""
+
+    op = "fused_ln_cross_attention_kv"
+    ck.check_heads(op, c, heads)
+    check_ln_width(op, c)
+    plan = gemm_plan(b * s, c, c, sms=sms)      # both [M, C] x [C, C]
+    return K2Plan(plan, plan)
 
 
 def _check_wq_wo(op: str, c: int, wq, wo) -> None:
@@ -106,13 +157,14 @@ def fused_ln_cross_attention_kv(
         return fused_ln_cross_attention_kv_plain(
             x, k, v, ln_w, ln_b, wq, wo, bo, heads, ki=ki, vi=vi, ip_scale=ip_scale,
             bias=bias, eps=eps)
-    ck.check_heads(op, c, heads)
+    plan = k2_plan(b, s, c, heads, ck.sm_count(x.device))
     ck.check_operands(op, x, **operands)
-    q, attn, out = (torch.empty_like(x) for _ in range(3))
+    scratch = x.new_empty(3, b * s, c)       # LN(x), q, attention output
+    out = torch.empty_like(x)
     ck.launch(op, x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wq.data_ptr(), wo.data_ptr(),
               bo.data_ptr(), k.data_ptr(), v.data_ptr(), sk, ck.ptr(bias), ck.ptr(ki), ck.ptr(vi),
-              sk_ip, float(ip_scale), q.data_ptr(), attn.data_ptr(), out.data_ptr(), b, s, c, heads,
-              eps)
+              sk_ip, float(ip_scale), scratch.data_ptr(), out.data_ptr(), b, s, c, heads, eps,
+              key_tile(sk), key_tile(sk_ip), *plan.q.launch_args, *plan.out.launch_args)
     return out
 
 

@@ -14,8 +14,8 @@ prints its seconds:
 3. kernels: K1, K2 (adapter on; T5 with its bias) and K3 at each edit-path
    shape, B=2, bf16 inputs from a seeded generator: max abs and relative
    error against the plain PyTorch version (limit 2e-2 of max|plain|) and
-   both times (CUDA events, median of 20 after warm-up); K1's and K3's
-   cases also list their device kernels with each one's device ms a call
+   both times (CUDA events, median of 20 after warm-up); every case also
+   lists its device kernels with each one's device ms a call
    (torch.profiler), and K1's times ``F.scaled_dot_product_attention`` on
    q/k/v of its shape [2, S, 8, C/8] as information (K1 computes more than
    attention, so it is not K1's library call);
@@ -80,9 +80,10 @@ prints its seconds:
 
 14. dual-KV kernel: K10 at B=2, the three UNet levels, 8 text keys and
    each of 32, 128 and 512 audio keys, ip_scale 0.55, against its plain
-   version (limit 2e-2 of max|plain|), with both times and the bound; two
-   ``F.scaled_dot_product_attention`` calls plus the add are timed beside it
-   as information (no single PyTorch call computes K10);
+   version (limit 2e-2 of max|plain|), with both times, the bound and its
+   device kernel's device ms; two ``F.scaled_dot_product_attention`` calls
+   plus the add are timed beside it as information (no single PyTorch call
+   computes K10);
 15. K10 edit slice: the same weights as phase 6 under
    ``use_pallas_attention``, one request: exactly one K10 per adapter site
    and one K2 per T5 site per UNet forward (1600 each), K1/K3 as phase 6,
@@ -140,7 +141,7 @@ PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 KERNELS = {
     "fused_ln_self_attention": ("ap_adapter_torch/csrc/fused_hopper.cu",
                                 "ap_adapter_tpu/ops/pallas_fused_block.py:508"),
-    "fused_ln_cross_attention_kv": ("ap_adapter_torch/csrc/fused_blocks.cu",
+    "fused_ln_cross_attention_kv": ("ap_adapter_torch/csrc/fused_hopper.cu",
                                     "ap_adapter_tpu/ops/pallas_fused_cross.py:288"),
     "fused_ln_geglu_ff": ("ap_adapter_torch/csrc/fused_hopper.cu",
                           "ap_adapter_tpu/ops/pallas_fused_ff.py:70"),
@@ -163,10 +164,11 @@ KERNELS = {
                        "ap_adapter_tpu/ops/pallas_packed_attention.py:83"),
     "group_norm_silu": ("ap_adapter_torch/csrc/resnet.cu", "ap_adapter_tpu/ops/pallas_groupnorm.py:120"),
     "fused_resnet_block": ("ap_adapter_torch/csrc/resnet.cu", "ap_adapter_tpu/ops/pallas_resnet.py:196"),
-    "dual_kv_attention": ("ap_adapter_torch/csrc/fused_blocks.cu", "ap_adapter_tpu/ops/pallas_attention.py:57"),
+    "dual_kv_attention": ("ap_adapter_torch/csrc/fused_hopper.cu", "ap_adapter_tpu/ops/pallas_attention.py:57"),
 }
 EDIT_KERNELS = ("fused_ln_self_attention", "fused_ln_cross_attention_kv", "fused_ln_geglu_ff")
-REDESIGNED = ("fused_ln_self_attention", "fused_ln_geglu_ff")   # on csrc/hopper_gemm.cuh: cases list device kernels
+# on csrc/fused_hopper.cu's routines: their cases list device kernels
+REDESIGNED = ("fused_ln_self_attention", "fused_ln_cross_attention_kv", "fused_ln_geglu_ff", "dual_kv_attention")
 TRAIN_KERNELS = ("fused_ln_cross_attention", "fused_ln_self_attention_bwd_dx", "fused_ln_cross_attention_bwd",
                  "fused_ln_geglu_ff_bwd_dx")
 INT8_KERNELS = ("fused_ln_self_attention_int8", "fused_ln_cross_attention_int8", "fused_ln_geglu_ff_int8")
@@ -523,16 +525,16 @@ def dual_kv_kernel_phase(device) -> dict:
                 r(b, si, HEADS, d)
             c = HEADS * d
             bd = bound(4 * b * s * c * (st + si), 2 * (2 * b * s * c + 2 * b * (st + si) * c))
+            qt, ktt, vtt, kit, vit = (t.transpose(1, 2) for t in (q, kt, vt, ki, vi))
+            two_sdpa = lambda: (F.scaled_dot_product_attention(qt, ktt, vtt)
+                                + s2 * F.scaled_dot_product_attention(qt, kit, vit))
             run_case(results, "dual_kv_attention", "dual", (b, s, HEADS, d), {"St": st, "Si": si},
                      lambda: fused_dual_kv_attention(q, kt, vt, ki, vi, s2), lambda: _plain(q, kt, vt, ki, vi, s2),
-                     TOL, bd=bd)
-            qt, ktt, vtt, kit, vit = (t.transpose(1, 2) for t in (q, kt, vt, ki, vi))
-            two = time_ms(lambda: F.scaled_dot_product_attention(qt, ktt, vtt)
-                          + s2 * F.scaled_dot_product_attention(qt, kit, vit))
-            results["dual_kv_attention"]["cases"][-1]["two_sdpa_ms"] = two
-            results["dual_kv_attention"]["two_sdpa_ms"] += two
-            log(f"  (information, not a library call of K10: two F.scaled_dot_product_attention + add "
-                f"{two:.4f} ms)")
+                     TOL, bd=bd, split="dual_kv_attention" in REDESIGNED, info={"two_sdpa": two_sdpa})
+            two = results["dual_kv_attention"]["cases"][-1].get("info_ms", {}).get("two_sdpa")
+            if two is not None:     # profile_kernels.py's run_case records device times instead
+                results["dual_kv_attention"]["cases"][-1]["two_sdpa_ms"] = two
+                results["dual_kv_attention"]["two_sdpa_ms"] += two
     return results
 
 

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Host time a call of the K1 and K3 wrappers spends submitting its work,
-at the edit path's shapes, on one NVIDIA GPU.
+"""Host time a call of the K1, K2, K3 and K10 wrappers spends submitting its
+work, at the edit path's shapes, on one NVIDIA GPU.
 
     python3 scripts/host_path.py [--root DIR] [--calls 200]
 
 Imports ``ap_adapter_torch`` from ``--root`` (default: this checkout; an
 unpacked ``git archive`` of another commit measures that commit in the same
-call). For K1 (``fused_ln_self_attention``) and K3 (``fused_ln_geglu_ff``)
-at B=2 and each (S, C) of ``chip_smoke.SHAPES``, bf16 inputs, it times
+call). For K1 (``fused_ln_self_attention``), K2
+(``fused_ln_cross_attention_kv``, 8 text + 128 adapter keys, and 64 T5 keys
+with their bias), K3 (``fused_ln_geglu_ff``) and K10
+(``fused_dual_kv_attention``, 8 text + 128 audio keys) at B=2 and each
+(S, C) of ``chip_smoke.SHAPES`` (8 heads), bf16 inputs, it times
 ``--calls`` calls back to back on the host clock, with no synchronise inside
 the loop (the device runs each call in less time than the host takes to
 submit it, so the loop measures the host), five rounds, and prints the
@@ -68,7 +71,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.abspath(args.root))
     import chip_smoke
     from ap_adapter_torch.ops import cuda_kernels as ck
+    from ap_adapter_torch.ops.dual_kv_attention import fused_dual_kv_attention
     from ap_adapter_torch.ops.fused_block import fused_ln_self_attention
+    from ap_adapter_torch.ops.fused_cross import fused_ln_cross_attention_kv
     from ap_adapter_torch.ops.fused_ff import fused_ln_geglu_ff
 
     device = torch.device("cuda", 0)
@@ -81,17 +86,32 @@ def main(argv=None) -> int:
     print(f"card: {card}; tree: {os.path.abspath(args.root)}", flush=True)
     ck.library()
     launch = ck.launch
+    heads = chip_smoke.HEADS
     for s, c in chip_smoke.SHAPES:
         x, ln_w, ln_b = r(2, s, c), 1 + r(c, scale=0.1), r(c, scale=0.1)
-        sa = (ln_w, ln_b, *(r(c, c, scale=c ** -0.5) for _ in range(4)), r(c, scale=0.1), chip_smoke.HEADS)
+        wq, wk, wv, wo = (r(c, c, scale=c ** -0.5) for _ in range(4))
+        bo = r(c, scale=0.1)
         ff = (ln_w, ln_b, r(8 * c, c, scale=c ** -0.5), r(8 * c, scale=0.1), r(c, 4 * c, scale=(4 * c) ** -0.5),
               r(c, scale=0.1))
-        for fn, rest in ((fused_ln_self_attention, sa), (fused_ln_geglu_ff, ff)):
-            wrapper = host_us(lambda: fn(x, *rest), args.calls)
+        k, v, ki, vi, k5, v5 = r(2, 8, c), r(2, 8, c), r(2, 128, c), r(2, 128, c), r(2, 64, c), r(2, 64, c)
+        t5_bias = torch.zeros(2, 64, device=device)
+        t5_bias[:, 30:] = -10000.0
+        hd = lambda t: t.reshape(2, -1, heads, c // heads)
+        cases = [
+            ("K1", lambda: fused_ln_self_attention(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads)),
+            ("K2 adapter", lambda: fused_ln_cross_attention_kv(x, k, v, ln_w, ln_b, wq, wo, bo, heads, ki=ki, vi=vi,
+                                                               ip_scale=0.5)),
+            ("K2 t5+bias", lambda: fused_ln_cross_attention_kv(x, k5, v5, ln_w, ln_b, wq, wo, bo, heads,
+                                                               bias=t5_bias)),
+            ("K3", lambda: fused_ln_geglu_ff(x, *ff)),
+            ("K10", lambda: fused_dual_kv_attention(hd(x), hd(k), hd(v), hd(ki), hd(vi), 0.55)),
+        ]
+        for label, fn in cases:
+            wrapper = host_us(fn, args.calls)
             recorded = []
             ck.launch = lambda op, *a: recorded.append((op, a))
             try:
-                python = host_us(lambda: fn(x, *rest), args.calls)
+                python = host_us(fn, args.calls)
             finally:
                 ck.launch = launch
             op, a = recorded[-1]
@@ -100,7 +120,7 @@ def main(argv=None) -> int:
             if entry_fn(*a, stream) != 0:
                 raise RuntimeError(f"{op}: the entry point refused the recorded arguments")
             entry = host_us(lambda: entry_fn(*a, stream), args.calls)
-            print(f"host {op:26s} B=2 S={s} C={c}: wrapper {wrapper:.1f} us, python {python:.1f} us, "
+            print(f"host {label:10s} {op:30s} B=2 S={s} C={c}: wrapper {wrapper:.1f} us, python {python:.1f} us, "
                   f"entry {entry:.1f} us a call", flush=True)
     print(card, flush=True)
     return 0

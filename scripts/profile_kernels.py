@@ -14,13 +14,15 @@ activities) with a synchronise at the end. Per call: the device time, the
 sum of the CUDA events' durations (kernels, memsets, copies), and the
 number of device events, with their names and each name's device ms (the
 split of a call by device kernel); and the device ms of any call the smoke
-times beside a case as information (``sdpa`` beside K1). The plain
-versions are not run: ``chip_smoke.py`` holds the kernels against them.
+times beside a case as information (``sdpa`` beside K1, two ``sdpa`` plus
+the add beside K10), summed per kernel too. The plain versions are not run:
+``chip_smoke.py`` holds the kernels against them.
 
 Prints one line per case and one per kernel (device ms summed over its
-cases, device kernels per call, the library call's device ms summed over the
-cases that have one, beside the kernel's device ms on those cases), then the
-card's ``nvidia-smi`` line, and writes everything as JSON to
+cases, device kernels per call against ``EXPECTED_DEVICE_KERNELS``, the
+library call's device ms summed over the cases that have one, beside the
+kernel's device ms on those cases, and the information calls' device ms),
+then the card's ``nvidia-smi`` line, and writes everything as JSON to
 ``OUT_DIR/profile_kernels[_TAG].json`` (default ``build/`` of this
 checkout). Fails without a CUDA device and when the profiler records no
 device time.
@@ -37,6 +39,10 @@ import time
 
 PHASES = ("kernels", "training", "int8", "resnet", "dual_kv")
 ITERS = 10
+TRACE_TRIES = 4          # the tracer now and then hands back no device events: retry
+# device kernels a call of the kernels on fused_hopper.cu's routines, and K12
+EXPECTED_DEVICE_KERNELS = {"fused_ln_self_attention": 4, "fused_ln_cross_attention_kv": 4, "fused_ln_geglu_ff": 3,
+                           "dual_kv_attention": 1, "group_norm_silu": 1}
 
 
 def device_profile(fn, iters: int = ITERS) -> dict:
@@ -48,7 +54,7 @@ def device_profile(fn, iters: int = ITERS) -> dict:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for _ in range(2):       # the tracer now and then hands back no device events: one retry
+    for _ in range(TRACE_TRIES):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -105,8 +111,10 @@ def main(argv=None) -> int:
                 "library_device_ms": lib["device_ms"] if lib else None,
                 "info_device_ms": {k: device_profile(fn)["device_ms"] for k, fn in (info or {}).items()}}
         k = per_kernel.setdefault(name, {"device_ms": 0.0, "device_kernels": [], "library_device_ms": None,
-                                         "library_cases_device_ms": 0.0, "cases": []})
+                                         "library_cases_device_ms": 0.0, "info_device_ms": {}, "cases": []})
         k["device_ms"] += got["device_ms"]
+        for n, t in case["info_device_ms"].items():
+            k["info_device_ms"][n] = k["info_device_ms"].get(n, 0.0) + t
         k["device_kernels"].append(got["device_kernels"])
         if lib:
             k["library_device_ms"] = (k["library_device_ms"] or 0.0) + lib["device_ms"]
@@ -136,10 +144,15 @@ def main(argv=None) -> int:
         n = k["device_kernels"]
         k["device_kernels_per_call"] = sum(n) / len(n)
         k["device_kernels"] = sorted(set(n))
+        want = EXPECTED_DEVICE_KERNELS.get(name)
+        k["expected_device_kernels"] = want
         print(f"kernel {name:30s} device_ms={k['device_ms']:.4f} over {len(k['cases'])} cases, device kernels per "
               f"call {k['device_kernels']}"
+              + ("" if want is None else f" (expected {want}{'' if k['device_kernels'] == [want] else ': DIFFERS'})")
               + (f", library_device_ms={k['library_device_ms']:.4f} (kernel {k['library_cases_device_ms']:.4f} "
-                 f"on those cases)" if k["library_device_ms"] is not None else ""), flush=True)
+                 f"on those cases)" if k["library_device_ms"] is not None else "")
+              + "".join(f", {n}_device_ms={t:.4f} (information)" for n, t in k["info_device_ms"].items()),
+              flush=True)
     os.makedirs(args.out_dir, exist_ok=True)
     out = os.path.join(args.out_dir, f"profile_kernels{'_' + args.tag if args.tag else ''}.json")
     with open(out, "w") as f:

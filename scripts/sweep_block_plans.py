@@ -1,22 +1,28 @@
 #!/usr/bin/env python3
-"""Device time of K1's and K3's kernels under other launch plans than the
-wrappers' own, at the edit path's shapes, on one NVIDIA GPU.
+"""Device time of K1's, K2's, K3's and K10's kernels under other launch
+plans than the wrappers' own, at the edit path's shapes, on one NVIDIA GPU.
 
-    python3 scripts/sweep_block_plans.py
+    python3 scripts/sweep_block_plans.py [--kernels K1,K2,K3,K10]
 
-For K1 (``fused_ln_self_attention``) and K3 (``fused_ln_geglu_ff``) at B=2
-and each (S, C) of ``chip_smoke.SHAPES``, bf16 inputs: the C entry point is
-called with the plan of ``k1_plan`` / ``k3_plan``, then with one choice
+For K1 (``fused_ln_self_attention``), K2 (``fused_ln_cross_attention_kv``,
+8 text + 128 adapter keys and 64 T5 keys with their bias) and K3
+(``fused_ln_geglu_ff``) at B=2 and each (S, C) of ``chip_smoke.SHAPES``, and
+for K10 (``fused_dual_kv_attention``) at B=2 and each (S, d) of
+``chip_smoke.DUAL_KV_LEVELS`` with 8 text keys and each audio key count,
+bf16 inputs: the C entry point is called with the wrapper's plan
+(``k1_plan``, ``k2_plan``, ``k3_plan``, ``key_tile``), then with one choice
 changed at a time (each GEMM's tile width and split-K, then its ring's
-stage count), and ``chip_smoke.device_split`` gives each device kernel's
-device ms a call (torch.profiler, 10 calls after 3 warm-up). Every variant
-is checked against the plain version (``chip_smoke.TOL`` of max|plain|).
-Prints one line per variant, the wrapper's plan marked, then the card's
-``nvidia-smi`` line. Fails without a CUDA device.
+stage count; each key set's tile width), and ``chip_smoke.device_split``
+gives each device kernel's device ms a call (torch.profiler, 10 calls after
+3 warm-up). Every variant is checked against the plain version
+(``chip_smoke.TOL`` of max|plain|). Prints one line per variant, the
+wrapper's plan marked, then the card's ``nvidia-smi`` line. Fails without a
+CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import re
 import sys
@@ -24,7 +30,11 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernels", default="K1,K2,K3,K10")
+    which = set(parser.parse_args(argv).kernels.split(","))
+
     import torch
 
     if not torch.cuda.is_available():
@@ -33,7 +43,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import chip_smoke
     from ap_adapter_torch.ops import cuda_kernels as ck
+    from ap_adapter_torch.ops.dual_kv_attention import _plain as dual_kv_plain
     from ap_adapter_torch.ops.fused_block import fused_ln_self_attention_plain, k1_plan
+    from ap_adapter_torch.ops.fused_cross import KEY_TILES, fused_ln_cross_attention_kv_plain, k2_plan, key_tile
     from ap_adapter_torch.ops.fused_ff import fused_ln_geglu_ff_plain, k3_plan
 
     device = torch.device("cuda", 0)
@@ -68,21 +80,71 @@ def main() -> int:
                       4 * c, eps, *w1p[1:], *w2p)
             return out
 
-        p1, p3 = k1_plan(b, s, c, heads), k3_plan(b, s, c, 4 * c)
-        base1 = (p1.qkv.launch_args, p1.out.launch_args)
-        variants = [base1] + [(v, base1[1]) for v in gemm_variants(p1.qkv, c, False)]
-        variants += [(base1[0], v) for v in gemm_variants(p1.out, c, False)]
-        want = fused_ln_self_attention_plain(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads).float()
-        for v in dict.fromkeys(variants):
-            run(chip_smoke, "K1", (s, c), v, v == base1, lambda: k1(*v), want)
-        base3 = (p3.w1.launch_args, p3.w2.launch_args)
-        variants = [base3] + [(v, base3[1]) for v in gemm_variants(p3.w1, c, True)]
-        variants += [(base3[0], v) for v in gemm_variants(p3.w2, 4 * c, False)]
-        want = fused_ln_geglu_ff_plain(x, ln_w, ln_b, w1, b1, w2, b2).float()
-        for v in dict.fromkeys(variants):
-            run(chip_smoke, "K3", (s, c), v, v == base3, lambda: k3(*v), want)
+        def k2(keys, tiles, qp, op):
+            k, v, ki, vi, bias = keys
+            ck.launch("fused_ln_cross_attention_kv", x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wq.data_ptr(),
+                      wo.data_ptr(), bo.data_ptr(), k.data_ptr(), v.data_ptr(), k.shape[1], ck.ptr(bias),
+                      ck.ptr(ki), ck.ptr(vi), 0 if ki is None else ki.shape[1], 0.5, scratch.data_ptr(),
+                      out.data_ptr(), b, s, c, heads, eps, *tiles, *qp, *op)
+            return out
+
+        p1, p2, p3 = k1_plan(b, s, c, heads), k2_plan(b, s, c, heads), k3_plan(b, s, c, 4 * c)
+        if "K1" in which:
+            base1 = (p1.qkv.launch_args, p1.out.launch_args)
+            variants = [base1] + [(v, base1[1]) for v in gemm_variants(p1.qkv, c, False)]
+            variants += [(base1[0], v) for v in gemm_variants(p1.out, c, False)]
+            want = fused_ln_self_attention_plain(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads).float()
+            for v in dict.fromkeys(variants):
+                run(chip_smoke, "K1", (s, c), v, v == base1, lambda: k1(*v), want)
+        if "K2" in which:
+            t5_bias = torch.zeros(b, 64, device=device)
+            t5_bias[0, 12:] = -10000.0
+            t5_bias[1, 30:] = -10000.0
+            for label, keys in (("adapter", (r(b, 8, c), r(b, 8, c), r(b, 128, c), r(b, 128, c), None)),
+                                ("t5+bias", (r(b, 64, c), r(b, 64, c), None, None, t5_bias))):
+                k, v, ki, vi, bias = keys
+                counts = (k.shape[1], 0 if ki is None else ki.shape[1])
+                base2 = (tuple(key_tile(n) for n in counts), p2.q.launch_args, p2.out.launch_args)
+                variants = [base2] + [(t, *base2[1:]) for t in tile_variants(base2[0], counts, KEY_TILES)]
+                variants += [(base2[0], v, base2[2]) for v in gemm_variants(p2.q, c, False)]
+                variants += [(*base2[:2], v) for v in gemm_variants(p2.out, c, False)]
+                ad = {} if ki is None else dict(ki=ki, vi=vi, ip_scale=0.5)
+                want = fused_ln_cross_attention_kv_plain(x, k, v, ln_w, ln_b, wq, wo, bo, heads, bias=bias,
+                                                         **ad).float()
+                for var in dict.fromkeys(variants):
+                    run(chip_smoke, f"K2 {label}", (s, c), var, var == base2, lambda: k2(keys, *var), want)
+        if "K3" in which:
+            base3 = (p3.w1.launch_args, p3.w2.launch_args)
+            variants = [base3] + [(v, base3[1]) for v in gemm_variants(p3.w1, c, True)]
+            variants += [(base3[0], v) for v in gemm_variants(p3.w2, 4 * c, False)]
+            want = fused_ln_geglu_ff_plain(x, ln_w, ln_b, w1, b1, w2, b2).float()
+            for v in dict.fromkeys(variants):
+                run(chip_smoke, "K3", (s, c), v, v == base3, lambda: k3(*v), want)
+    if "K10" in which:
+        for s, d in chip_smoke.DUAL_KV_LEVELS:
+            for si in chip_smoke.DUAL_KV_AUDIO_KEYS:
+                q, kt, vt, ki, vi = (r(2, n, heads, d) for n in (s, 8, 8, si, si))
+                out = torch.empty_like(q)
+
+                def k10(tiles):
+                    ck.launch("dual_kv_attention", q.data_ptr(), kt.data_ptr(), vt.data_ptr(), 8, ki.data_ptr(),
+                              vi.data_ptr(), si, 0.55, out.data_ptr(), 2, s, heads, d, *tiles)
+                    return out
+
+                base = (key_tile(8), key_tile(si))
+                want = dual_kv_plain(q, kt, vt, ki, vi, 0.55).float()
+                for t in dict.fromkeys([base] + tile_variants(base, (8, si), KEY_TILES)):
+                    run(chip_smoke, f"K10 Si={si}", (s, heads * d), t, t == base, lambda: k10(t), want)
     print(card, flush=True)
     return 0
+
+
+def tile_variants(base, counts, widths) -> list:
+    """``base`` (a key tile width per set) with one set's width changed to
+    each of ``widths``; a set of no keys keeps its width."""
+
+    return [tuple(w if j == i else base[j] for j in range(len(base))) for i, n in enumerate(counts) if n
+            for w in widths]
 
 
 def gemm_variants(plan, k: int, geglu: bool) -> list:

@@ -512,3 +512,93 @@ def test_dual_kv_route_launches_on_a_full_width_unet(cuda_device):
     moved = {k: v for k, v in cuda_kernels.LAUNCHES.items() if v}
     assert moved == {"dual_kv_attention": 32, "fused_ln_cross_attention_kv": 32, "fused_ln_self_attention": 192,
                      "fused_ln_geglu_ff": 128}
+
+
+# key counts of the two-key-set attention (K2, K10): one key, GPT-2's 8, T5's
+# 64 and a 77-key set (a 64-key tile, then one that masks 51 of 64); the
+# adapter's pooled AudioMAE counts and 520 (eight 64-key tiles and a ninth
+# with 8)
+TEXT_KEYS = (1, 8, 64, 77)
+ADAPTER_KEYS = (32, 128, 512, 520)
+
+
+def _padding_bias(device, b, sk):
+    """A T5-style key bias [b, sk]: 0, or -10000 on the padded keys; batch
+    entries padded from different keys."""
+
+    bias = torch.zeros(b, sk, device=device)
+    for i in range(b):
+        bias[i, (sk + i) // (2 + i) + 1:] = -10000.0
+    return bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,c", [(1, 1000, 256), (2, 1000, 256), (1, 252, 384), (2, 252, 384), (1, 64, 640),
+                                   (2, 64, 640), (1, 63, 384), (2, 63, 640), (1, 17, 256), (2, 17, 384)])
+def test_k2_key_sets_match_plain(cuda_device, b, s, c):
+    """K2 on the Hopper routines (LN pass, Q GEMM, two-key-set attention, out
+    GEMM): ragged M, d = 32, 48 and 80 (8 heads); every text key count,
+    with the adapter set absent and at every adapter count, with and
+    without the padding bias; one launch a call."""
+
+    x, sa, _ = _block_operands(cuda_device, b, s, c, 5)
+    ln_w, ln_b, wq, _, _, wo, bo = sa
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device).to(torch.bfloat16)
+
+    before = dict(cuda_kernels.LAUNCHES)
+    calls = 0
+    for sk in TEXT_KEYS:
+        k, v = r(b, sk, c), r(b, sk, c)
+        for sk_ip in (0,) + ADAPTER_KEYS:
+            ad = {} if sk_ip == 0 else dict(ki=r(b, sk_ip, c), vi=r(b, sk_ip, c), ip_scale=0.55)
+            for bias in (None, _padding_bias(cuda_device, b, sk)):
+                _check(fused_ln_cross_attention_kv(x, k, v, ln_w, ln_b, wq, wo, bo, 8, bias=bias, **ad),
+                       fused_ln_cross_attention_kv_plain(x, k, v, ln_w, ln_b, wq, wo, bo, 8, bias=bias, **ad))
+                calls += 1
+    moved = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
+    assert moved == {**dict.fromkeys(before, 0), "fused_ln_cross_attention_kv": calls}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,d", [(2, 1000, 32), (2, 252, 48), (2, 64, 80), (1, 63, 32), (1, 17, 80)])
+def test_k10_key_sets_match_plain(cuda_device, b, s, d):
+    """K10 on the two-key-set attention at every text and adapter key count
+    of K2's test, ragged S: one launch a call."""
+
+    g = torch.Generator(device=cuda_device).manual_seed(s + d)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device).to(torch.bfloat16)
+
+    q = r(b, s, 8, d)
+    before = cuda_kernels.LAUNCHES["dual_kv_attention"]
+    for st in TEXT_KEYS:
+        kt, vt = r(b, st, 8, d), r(b, st, 8, d)
+        for si in ADAPTER_KEYS:
+            ki, vi = r(b, si, 8, d), r(b, si, 8, d)
+            _check(fused_dual_kv_attention(q, kt, vt, ki, vi, 0.55), dual_kv_attention_plain(q, kt, vt, ki, vi, 0.55))
+    assert cuda_kernels.LAUNCHES["dual_kv_attention"] == before + len(TEXT_KEYS) * len(ADAPTER_KEYS)
+
+
+@pytest.mark.gpu
+def test_k2_k10_are_deterministic(cuda_device):
+    """Two calls give the same bits: K2 at the 640 level (its Q and out GEMMs
+    split 8 ways over a cluster) with both key sets and the bias, and K10."""
+
+    x, sa, _ = _block_operands(cuda_device, 2, 64, 640, 7)
+    ln_w, ln_b, wq, _, _, wo, bo = sa
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    k, v, ki, vi = (torch.randn(2, n, 640, generator=g, device=cuda_device).to(torch.bfloat16)
+                    for n in (77, 77, 520, 520))
+    bias = _padding_bias(cuda_device, 2, 77)
+    k2 = lambda: fused_ln_cross_attention_kv(x, k, v, ln_w, ln_b, wq, wo, bo, 8, ki=ki, vi=vi, ip_scale=0.55,
+                                             bias=bias)
+    heads = lambda t: t.reshape(2, -1, 8, 80)
+    k10 = lambda: fused_dual_kv_attention(heads(x), heads(k), heads(v), heads(ki), heads(vi), 0.55)
+    for fn in (k2, k10):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
