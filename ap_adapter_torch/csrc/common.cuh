@@ -1,9 +1,9 @@
 // Device routines of the training kernels (train_blocks.cu: K4 and the
-// backwards K7-K9), the int8 kernels (int8_blocks.cu: K11a-c) and the
+// backwards K7-K9), the int8 kernels K11a and K11c (int8_blocks.cu) and the
 // streamed d <= 128 route of the self-attention (self_attention.cu), with
-// helpers that resnet.cu and hopper_gemm.cuh use too. K1, K2, K3 and K10
-// run on fused_hopper.cu's routines (hopper_gemm.cuh and a register-resident
-// attention), none of these.
+// helpers that resnet.cu and hopper_gemm.cuh use too. K1, K2, K3, K10 and
+// K11b run on the Hopper routines (hopper_gemm.cuh, reg_attention.cuh and
+// K11b's int8 wgmma GEMM), none of these.
 //
 //   * gemm_kernel: C = epilogue(prologue(A) @ W^T) for W in torch Linear
 //     layout [N, K], or C = epilogue(A @ W) for W given as [K, N]

@@ -269,31 +269,33 @@ int launch_hgemm_t(const HgArgs& g, int sets, cudaStream_t st) {
 }
 
 // make_map_2d, remembered: a tensor map is a pure function of (address,
-// rows, cols, box rows), and the weights' (and, through the caching
-// allocator, most activations') recur call after call. Saves the host an
-// encode per operand per call; bounded at 4096 entries.
-int cached_map_2d(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+// rows, cols, box rows, element size), and the weights' (and, through the
+// caching allocator, most activations') recur call after call. Saves the
+// host an encode per operand per call; bounded at 4096 entries.
+int cached_map_2d(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows, int esize = 2) {
   struct Key {
     const void* p;
-    int rows, cols, box;
-    bool operator==(const Key& o) const { return p == o.p && rows == o.rows && cols == o.cols && box == o.box; }
+    int rows, cols, box, esize;
+    bool operator==(const Key& o) const {
+      return p == o.p && rows == o.rows && cols == o.cols && box == o.box && esize == o.esize;
+    }
   };
   struct Hash {
     size_t operator()(const Key& k) const {
       return std::hash<const void*>()(k.p) ^ ((size_t)k.rows * 0x9E3779B97F4A7C15ull) ^ ((size_t)k.cols << 24) ^
-             (size_t)k.box;
+             (size_t)k.box ^ ((size_t)k.esize << 12);
     }
   };
   static std::mutex mu;
   static std::unordered_map<Key, CUtensorMap, Hash> cache;
-  const Key key{ptr, rows, cols, box_rows};
+  const Key key{ptr, rows, cols, box_rows, esize};
   std::lock_guard<std::mutex> lock(mu);
   const auto it = cache.find(key);
   if (it != cache.end()) {
     *map = it->second;
     return 0;
   }
-  const int e = make_map_2d(map, ptr, rows, cols, box_rows);
+  const int e = make_map_2d(map, ptr, rows, cols, box_rows, esize);
   if (e) return e;
   if (cache.size() >= 4096) cache.clear();
   cache.emplace(key, *map);

@@ -30,34 +30,54 @@
 //
 // K12 = gn_cluster_kernel with its apply pass: y = x * scale + shift, SiLU in
 // fp32, one rounding to bf16, as the TPU kernel does. Bound: bytes, one read
-// and one write of x. K13 runs the same kernel without the apply pass: rank 0
-// of each cluster writes the (scale, shift) table its convs read.
+// and one write of x.
 //
-// K13 = statistics of x, conv1, statistics of h, conv2. Each conv is an
-// implicit GEMM, C[n, co] = sum_k A[n, k] * W[k, co], over the B*H*W output
-// positions n and k = tap * C_x + ci: the HWIO weight [3, 3, C_x, C_out]
-// (the JAX layout; the UNet prepares it once from its torch weight) is the
-// [9 C_x, C_out] B operand as it lies. With C_x % 32 == 0 a K tile of 32 is
-// one tap and 32 contiguous channels, gathered from the shifted position with
-// 16-byte loads; GN+SiLU is applied in fp32 from the (scale, shift) table and
-// the value rounded to bf16, and a tap outside the image gives 0 (SAME
-// padding pads the activated value, not the raw input, as the TPU kernel
-// masks after GN+SiLU at pallas_resnet.py:131-137). conv1's epilogue adds its
-// bias and the time embedding (one row for the batch, or one per sample) and
-// stores h in bf16, as the TPU kernel stages it (:167-170); conv2's adds its
-// bias and the shortcut: the 1x1 shortcut is C_in more rows of K over the raw
-// x (weight [C_in, C_out]), the identity shortcut is x added in the epilogue.
-// Tiles: 64 positions x 64 output channels x 32 of K, 4 warps of 32x32 WMMA
-// bf16 16x16x16 fragments, fp32 accumulate.
+// K13 (redesigned for Hopper) = four launches: K12's launch on x with SiLU
+// (a1 = silu(gn1(x)) into scratch, once, where the first port's conv
+// recomputed GN+SiLU for each of the 9 taps of every value; the value is
+// bit for bit the one that conv gathered, bf16(silu(fmaf(x, scale,
+// shift)))), conv1 over a1, K12's launch on h, conv2 over a2 = silu(gn2(h)).
+// Each conv is an implicit GEMM, C[n, co] = sum_k A[n, k] * W[k, co], over
+// the output positions n and k = tap * C_x + ci, on conv_kernel<BN>:
+//   * A by TMA through a 4-D tensor map over the activated input
+//     [B, H, W, C_x] ({channel, w, h, b}), a box of 64 channels (128 bytes,
+//     128-byte swizzle) x the whole width W x R = 64 / W rows x 1 sample: a
+//     tile is R whole rows of one sample, R * W <= 64 positions, each one
+//     128-byte row of the box, which is wgmma's K-major A tile as it
+//     stands. For tap (dh, dw) the producer loads the box at
+//     (ci0, dw, h0 + dh, b): TMA zero-fills every element outside the
+//     tensor, negative coordinates included, and that zero is exactly the
+//     SAME padding of the activated value (pallas_resnet.py:135-137), with
+//     no masking code; the ragged H (125, 63) and a last tile's rows past H
+//     come free;
+//   * B, the HWIO weight [3, 3, C_x, C_out] as it lies ([9 C_x, C_out], the
+//     JAX layout; the UNet prepares it once from its torch weight), by TMA
+//     boxes of 64 k-rows x 64 output channels: wgmma reads it MN-major
+//     (a transposed B descriptor), so no copy of the weights, ever;
+//   * a producer warp keeps a ring of 2-4 stages full; one consumer
+//     warpgroup runs wgmma m64n64k16 (BN / 64 of them a k-step);
+//   * where the output tiles are fewer than the SMs (level 3: 2 position
+//     tiles x 10 channel tiles over up to 200 k-blocks) the k-blocks are
+//     split over a thread-block cluster and the fp32 partials combined in
+//     rank order through distributed shared memory, bit-equal from run to
+//     run (hopper_gemm.cuh's combine; the plan is ops/resnet.py::conv_plan);
+//   * the epilogue from the accumulator registers: conv1 adds its bias and
+//     the time embedding (one row for the batch, or one per sample) and
+//     stores h in bf16, as the TPU kernel stages it (:167-170); conv2 adds
+//     its bias and the shortcut: the 1x1 shortcut is C_in more k-blocks over
+//     the raw x, through a second pair of tensor maps, the identity shortcut
+//     is x added in the epilogue.
+// Widths: C_in and C_out multiples of 64 (every UNet width is: 128 to
+// 1280), W <= 64; the wrapper refuses the rest.
 //
 // What bounds K13 on an H100: operations, 2 * B*H*W * C_out * (9 C_in +
 // 9 C_out [+ C_in]): 4.7 GFLOP (4.8 us) for the level-0 128 -> 128 block at
-// B = 2 against 8.6 MB (2.6 us). At level 3 (32 x 2, B = 2) there are 128
-// positions: two position tiles by ten channel tiles over a K of up to
-// 11,520, the small-M tiling problem of K1-K3, accepted here. wgmma, a load
-// pipeline and split-K are later work.
+// B = 2 against 8.6 MB (2.6 us); at level 3 the weights' bytes (up to
+// 14.7 MB a conv, 4.4 us).
 
 #include "common.cuh"
+#include "hopper.cuh"
+#include "hopper_gemm.cuh"
 
 #include <cooperative_groups.h>
 
@@ -87,8 +107,7 @@ struct GnArgs {
   const bf16* x;        // [B, HW, C]
   const bf16* gamma;
   const bf16* beta;
-  bf16* y;              // [B, HW, C], or null: statistics only
-  float2* ss;           // [B, C] (scale, shift) written by rank 0 when y is null
+  bf16* y;              // [B, HW, C]
   int HW, C, G, pchunk, hold;
   float eps;
   int act;
@@ -249,11 +268,8 @@ __global__ void __launch_bounds__(GN_MAX_THREADS) gn_cluster_kernel(const GnArgs
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     const int g = c / cpg;
     const float sc = stat[2 * g + 1] * __bfloat162float(a.gamma[c]);
-    const float2 t = make_float2(sc, __bfloat162float(a.beta[c]) - stat[2 * g] * sc);
-    ss[c] = t;
-    if (a.y == nullptr && j == 0) a.ss[(size_t)b * C + c] = t;
+    ss[c] = make_float2(sc, __bfloat162float(a.beta[c]) - stat[2 * g] * sc);
   }
-  if (a.y == nullptr) return;
   __syncthreads();
 
   // y = x * scale + shift (+ SiLU), from the held chunk or again from L2
@@ -324,134 +340,231 @@ int launch_gn(const GnArgs& a, int B, int n, int threads, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+constexpr int CV_BK = 64;           // channels a k-block: one 128-byte swizzle row of bf16
+constexpr int CV_B_BYTES = CV_BK * 128;   // one 64 x 64 box of B
+
 struct ConvArgs {
-  const bf16* x;        // conv input [B, H*W, Cx]
-  const float2* ss;     // its GN (scale, shift) [B, Cx]
-  const bf16* w;        // [9 * Cx, Cout]: an HWIO weight [3, 3, Cx, Cout]
-  const bf16* bias;     // [Cout]
-  const bf16* temb;     // [Cout] (temb_bstride 0) or [B, Cout] (temb_bstride Cout), or null
+  CUtensorMap a;        // the activated conv input [B, H, W, C_x], box {64, W, R, 1}
+  CUtensorMap xs;       // the block's raw x [B, H, W, C_in] (1x1 shortcut), box {64, W, R, 1}
+  CUtensorMap w;        // [9 C_x, C_out] (HWIO [3, 3, C_x, C_out]), box {64 co, 64 k}
+  CUtensorMap wsc;      // [C_in, C_out] 1x1 shortcut weight, box {64 co, 64 k}
+  const bf16* bias;     // [C_out]
+  const bf16* temb;     // [C_out] (temb_bstride 0) or [B, C_out] (temb_bstride C_out), or null
   int temb_bstride;
-  const bf16* xs;       // the shortcut's source [B, H*W, Cin] (the block's x), or null
-  const bf16* wsc;      // [Cin, Cout] 1x1 shortcut, or null for the identity
-  const bf16* bsc;      // [Cout] or null
-  bf16* out;            // [B, H*W, Cout]
-  int B, Cx, Cin, Cout, H, W;
+  const bf16* resid;    // identity shortcut: x [B, H*W, C_out], or null
+  const bf16* bsc;      // 1x1 shortcut bias [C_out], or null
+  bf16* out;            // [B, H*W, C_out]
+  int H, W, R, tps;     // R rows of W positions a tile (R * W <= 64), tps = ceil(H / R) tiles a sample
+  int Cout;
+  int cxb, kb_sc;       // 64-channel blocks of C_x (a tap's k-blocks) and of the shortcut's C_in (or 0)
+  int ksplit, stages;
 };
 
-constexpr int CV_SMEM_TILES = BM * LDS * 2 + BK * LDB * 2;
-constexpr int CV_SMEM = CV_SMEM_TILES > BM * LDC * 4 ? CV_SMEM_TILES : BM * LDC * 4;
-
-// grid (ceil(B*H*W / 64), ceil(Cout / 64)); Cx % 32 == 0, Cin % 32 == 0,
-// Cout % 8 == 0 (checked by the wrapper)
-__global__ void __launch_bounds__(THREADS) conv3x3_gn_kernel(const ConvArgs a) {
-  __shared__ __align__(128) unsigned char smem[CV_SMEM];
-  bf16* As = reinterpret_cast<bf16*>(smem);             // [BM positions][BK k]
-  bf16* Bs = As + BM * LDS;                             // [BK k][BN co]
-  float* Cs = reinterpret_cast<float*>(smem);           // [BM][LDC], after the K loop
-
-  const int HW = a.H * a.W, M = a.B * HW;
-  const int K1 = 9 * a.Cx, K = K1 + (a.wsc != nullptr ? a.Cin : 0);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const bool sc = k0 >= K1;            // a K tile is all taps or all shortcut rows
-    const int tap = sc ? 4 : k0 / a.Cx;  // the shortcut reads the centre position
-    const int ci0 = sc ? k0 - K1 : k0 - tap * a.Cx;
-    const int dh = tap / 3 - 1, dw = tap % 3 - 1;
-    // activations: 8 channels per chunk, GN+SiLU on the way in, 0 off the image
-    for (int c = tid; c < BM * BK / 8; c += THREADS) {
-      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8, m = m0 + r;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (m < M) {
-        const int b = m / HW, p = m % HW;
-        const int hs = p / a.W + dh, ws = p % a.W + dw;
-        if (hs >= 0 && hs < a.H && ws >= 0 && ws < a.W) {
-          const int ci = ci0 + kc;
-          if (sc) {
-            val = *reinterpret_cast<const uint4*>(a.xs + ((size_t)b * HW + p) * a.Cin + ci);
-          } else {
-            const uint4 raw = *reinterpret_cast<const uint4*>(a.x + ((size_t)b * HW + hs * a.W + ws) * a.Cx + ci);
-            const bf16* v = reinterpret_cast<const bf16*>(&raw);
-            const float2* t = a.ss + (size_t)b * a.Cx + ci;
-            bf16* o = reinterpret_cast<bf16*>(&val);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) o[e] = __float2bfloat16(silu(fmaf(__bfloat162float(v[e]), t[e].x, t[e].y)));
-          }
-        }
-      }
-      *reinterpret_cast<uint4*>(As + r * LDS + kc) = val;
-    }
-    // weights: [BK, BN] rows of W (taps) or Wsc (the shortcut)
-    const bf16* wsrc = sc ? a.wsc + (size_t)(k0 - K1) * a.Cout : a.w + (size_t)k0 * a.Cout;
-    for (int c = tid; c < BK * BN / 8; c += THREADS) {
-      const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (n0 + nc < a.Cout) val = *reinterpret_cast<const uint4*>(wsrc + (size_t)r * a.Cout + n0 + nc);
-      *reinterpret_cast<uint4*>(Bs + r * LDB + nc) = val;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], As + (wm + i * 16) * LDS + kk, LDS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(fb[j], Bs + kk * LDB + wn + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
+// the epilogue of two neighbouring channels (col, col + 1) of tile row r
+// (position (h0 + r / W, r % W) of sample b): bias, then temb, then the
+// shortcut (its bias or x), in fp32; one rounding to bf16
+__device__ __forceinline__ void conv_store_pair(const ConvArgs& g, int b, int h0, int r, int col, float v0,
+                                                float v1) {
+  const int h = h0 + r / g.W;
+  if (r >= g.R * g.W || h >= g.H) return;
+  const size_t off = (((size_t)b * g.H + h) * g.W + r % g.W) * g.Cout + col;
+  const float2 bi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g.bias + col));
+  v0 += bi.x;
+  v1 += bi.y;
+  if (g.temb != nullptr) {
+    const float2 t = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(g.temb + (size_t)b * g.temb_bstride + col));
+    v0 += t.x;
+    v1 += t.y;
   }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + i * 16) * LDC + wn + j * 16, acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  // epilogue: bias, temb / shortcut, 8 output channels per chunk
-  for (int c = tid; c < BM * BN / 8; c += THREADS) {
-    const int r = c / (BN / 8), cc = (c % (BN / 8)) * 8;
-    const int m = m0 + r, co = n0 + cc;
-    if (m >= M || co >= a.Cout) continue;
-    const int b = m / HW;
-    float v[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = Cs[r * LDC + cc + e] + __bfloat162float(a.bias[co + e]);
-    if (a.temb != nullptr) {
-      const bf16* t = a.temb + (size_t)b * a.temb_bstride + co;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] += __bfloat162float(t[e]);
-    }
-    if (a.xs != nullptr) {
-      const bf16* s = a.wsc != nullptr ? a.bsc + co : a.xs + (size_t)m * a.Cout + co;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] += __bfloat162float(s[e]);
-    }
-    uint4 o;
-    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&o);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o2[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-    *reinterpret_cast<uint4*>(a.out + (size_t)m * a.Cout + co) = o;
+  if (g.resid != nullptr || g.bsc != nullptr) {
+    const bf16* sp = g.bsc != nullptr ? g.bsc + col : g.resid + off;
+    const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sp));
+    v0 += t.x;
+    v1 += t.y;
   }
+  *reinterpret_cast<uint32_t*>(g.out + off) = pack_bf16(v0, v1);
 }
 
-int launch_conv(const ConvArgs& a, cudaStream_t st) {
-  dim3 grid((a.B * a.H * a.W + BM - 1) / BM, (a.Cout + BN - 1) / BN);
-  conv3x3_gn_kernel<<<grid, THREADS, 0, st>>>(a);
+// grid ((C_out / BN) * ksplit, B * tps), HG_THREADS threads, clusters of
+// (ksplit, 1, 1). k-block kb < 9 * cxb is tap kb / cxb, channels
+// 64 * (kb % cxb); the kb_sc after them are the 1x1 shortcut's. The
+// accumulator layout is hgemm_kernel's: element e at tile row 16 * warp +
+// lane / 4 + 8 * ((e / 2) % 2), channel 8 * (e / 4) + 2 * (lane % 4) + e % 2.
+template <int BN>
+__global__ void __launch_bounds__(HG_THREADS, 1) conv_kernel(const __grid_constant__ ConvArgs g) {
+  constexpr int NSUB = BN / 64;
+  constexpr int NACC = BN / 2;
+  constexpr int STAGE = HG_A_BYTES + NSUB * CV_B_BYTES;
+  extern __shared__ unsigned char cv_smem_raw[];
+  const uint32_t raw = smem_u32(cv_smem_raw);
+  unsigned char* smem = cv_smem_raw + (((raw + 1023) & ~1023u) - raw);
+  const uint32_t base = smem_u32(smem);
+  const int ks = g.ksplit, stages = g.stages;
+  const uint32_t bars = base + hg_ring_bytes(BN, false, stages, ks);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rank = (int)(blockIdx.x % ks);        // == the cluster rank: clusters span ks consecutive x
+  const int n0 = (int)(blockIdx.x / ks) * BN;
+  const int b = blockIdx.y / g.tps, h0 = (int)(blockIdx.y % g.tps) * g.R;
+  const int kb_taps = 9 * g.cxb, nkb = kb_taps + g.kb_sc;
+  const int kb0 = rank * nkb / ks, nk = (rank + 1) * nkb / ks - kb0;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (HG_MAX_STAGES + s), 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  float acc[NACC];
+  if (warp == 4) {
+    if (lane == 0) {
+      const uint32_t bytes = g.R * g.W * 128 + NSUB * CV_B_BYTES;
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % stages, kb = kb0 + i;
+        if (i >= stages) mbar_wait(bars + 8 * (HG_MAX_STAGES + s), ((i / stages) - 1) & 1);
+        const uint32_t full = bars + 8 * s, sa = base + s * STAGE;
+        mbar_expect_tx(full, bytes);
+        if (kb < kb_taps) {
+          const int tap = kb / g.cxb;
+          tma_load_4d(sa, &g.a, (kb % g.cxb) * CV_BK, tap % 3 - 1, h0 + tap / 3 - 1, b, full);
+#pragma unroll
+          for (int j = 0; j < NSUB; ++j)
+            tma_load_2d(sa + HG_A_BYTES + j * CV_B_BYTES, &g.w, n0 + 64 * j, kb * CV_BK, full);
+        } else {
+          const int kc = (kb - kb_taps) * CV_BK;
+          tma_load_4d(sa, &g.xs, kc, 0, h0, b, full);
+#pragma unroll
+          for (int j = 0; j < NSUB; ++j)
+            tma_load_2d(sa + HG_A_BYTES + j * CV_B_BYTES, &g.wsc, n0 + 64 * j, kc, full);
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+#pragma unroll
+    for (int e = 0; e < NACC; ++e) acc[e] = 0.f;
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % stages;
+      mbar_wait(bars + 8 * s, (i / stages) & 1);
+      uint32_t sa = base + s * STAGE;
+      asm volatile("" : "+r"(sa));
+#pragma unroll
+      for (int e = 0; e < NACC; ++e) reg_fence(acc[e]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < CV_BK / 16; ++kk) {
+        const uint64_t da = sw128_desc(sa + kk * 32, 16, 1024);
+#pragma unroll
+        for (int j = 0; j < NSUB; ++j)
+          wgmma_ss_n64_tb(acc + 32 * j, da,
+                          sw128_desc(sa + HG_A_BYTES + j * CV_B_BYTES + kk * 16 * 128, CV_B_BYTES, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();                          // k-block i - 1's products are done: free its stage
+#pragma unroll
+      for (int e = 0; e < NACC; ++e) reg_fence(acc[e]);
+      if (i > 0) mbar_arrive(bars + 8 * (HG_MAX_STAGES + (i - 1) % stages));
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int e = 0; e < NACC; ++e) reg_fence(acc[e]);
+  }
+
+  const int quad = lane & 3;
+  const int r0 = 16 * (warp & 3) + (lane >> 2), r1 = r0 + 8;
+  if (ks == 1) {
+    if (warp < 4) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * quad;
+        conv_store_pair(g, b, h0, r0, col, acc[4 * j], acc[4 * j + 1]);
+        conv_store_pair(g, b, h0, r1, col, acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+    return;
+  }
+
+  // split-K: the partials through distributed shared memory, summed in rank order
+  cg::cluster_group cluster = cg::this_cluster();
+  float* part = reinterpret_cast<float*>(smem);         // [NACC][128 consumer threads]
+  if (warp < 4) {
+#pragma unroll
+    for (int e = 0; e < NACC; ++e) part[e * 128 + tid] = acc[e];
+  }
+  cluster.sync();
+  if (warp < 4) {
+    const int u0 = rank * (BN / 8) / ks, u1 = (rank + 1) * (BN / 8) / ks;
+    for (int j = u0; j < u1; ++j) {
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int rr = 0; rr < ks; ++rr) {
+        const float* rp = cluster.map_shared_rank(part, rr);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] += rp[(4 * j + e) * 128 + tid];
+      }
+      const int col = n0 + 8 * j + 2 * quad;
+      conv_store_pair(g, b, h0, r0, col, v[0], v[1]);
+      conv_store_pair(g, b, h0, r1, col, v[2], v[3]);
+    }
+  }
+  cluster.sync();                                       // no CTA leaves while another reads its partials
+}
+
+template <int BN>
+int launch_conv_t(const ConvArgs& g, int B, cudaStream_t st) {
+  const int smem = hg_smem_bytes(BN, false, g.stages, g.ksplit);
+  static int configured = 0;
+  if (smem > configured) {
+    cudaError_t e = cudaFuncSetAttribute(conv_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(g.Cout / BN * g.ksplit), (unsigned)(B * g.tps), 1);
+  cfg.blockDim = dim3(HG_THREADS);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)g.ksplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, conv_kernel<BN>, g);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// one 3x3 SAME conv over the activated a [B, H, W, Cx] into out [B, H, W,
+// Cout] (+ bias, + temb; + the 1x1 shortcut of xs [B, H, W, Cin] by wsc and
+// bsc, or + the identity shortcut resid), planned (bn, ksplit, stages) by
+// the wrapper (ops/resnet.py::conv_plan)
+int launch_conv(ConvArgs& g, const void* a, const void* w, const void* xs, const void* wsc, int B, int H, int W,
+                int Cx, int Cin, int Cout, int bn, int ksplit, int stages, cudaStream_t st) {
+  const int kb_sc = wsc != nullptr ? Cin / CV_BK : 0, nkb = 9 * (Cx / CV_BK) + kb_sc;
+  if (B < 1 || H < 1 || W < 1 || W > 64 || Cx % CV_BK || (wsc != nullptr && Cin % CV_BK) || !(bn == 64 || bn == 128) ||
+      Cout % bn || ksplit < 1 || ksplit > HG_MAX_SPLIT || ksplit > nkb || ksplit > bn / 8 ||
+      stages < HG_MIN_STAGES || stages > HG_MAX_STAGES)
+    return (int)cudaErrorInvalidValue;
+  g.H = H;
+  g.W = W;
+  g.R = 64 / W;
+  g.tps = (H + g.R - 1) / g.R;
+  g.Cout = Cout;
+  g.cxb = Cx / CV_BK;
+  g.kb_sc = kb_sc;
+  g.ksplit = ksplit;
+  g.stages = stages;
+  int e = make_map_act(&g.a, a, B, H, W, Cx, g.R);
+  if (!e) e = cached_map_2d(&g.w, w, 9 * Cx, Cout, CV_BK);
+  if (!e && kb_sc) e = make_map_act(&g.xs, xs, B, H, W, Cin, g.R);
+  if (!e && kb_sc) e = cached_map_2d(&g.wsc, wsc, Cin, Cout, CV_BK);
+  if (e) return e;
+  return bn == 128 ? launch_conv_t<128>(g, B, st) : launch_conv_t<64>(g, B, st);
 }
 
 }  // namespace
@@ -464,55 +577,46 @@ extern "C" {
 // when hold (the wrapper's plan, ops/groupnorm.py::gn_cluster_plan).
 int apk_group_norm_silu(const void* x, const void* gamma, const void* beta, void* y, int B, int C, int HW, int G,
                         int n, int pchunk, int threads, int hold, float eps, int act, void* stream) {
-  GnArgs a = {(const bf16*)x, (const bf16*)gamma, (const bf16*)beta, (bf16*)y, nullptr, HW, C, G, pchunk, hold,
-              eps, act};
+  GnArgs a = {(const bf16*)x, (const bf16*)gamma, (const bf16*)beta, (bf16*)y, HW, C, G, pchunk, hold, eps, act};
   return launch_gn(a, B, n, threads, static_cast<cudaStream_t>(stream));
 }
 
 // K13: out = shortcut(x) + conv2(silu(gn2(h))) with h = conv1(silu(gn1(x))) +
 // temb; x [B, H*W, Cin], out [B, H*W, Cout] (channels contiguous), conv
 // weights HWIO; temb null, [Cout] (temb_bstride 0) or [B, Cout]; wsc/bsc null
-// for the identity shortcut. The GroupNorm statistics of x and of h are
-// gn_cluster_kernel launches (plans n/pchunk/threads/hold over Cin and Cout)
-// writing ss1/ss2 [B, C] float2; h is scratch.
+// for the identity shortcut. The GroupNorms are gn_cluster_kernel launches
+// with SiLU (plans n/pchunk/threads/hold over Cin and Cout) writing a1
+// [B, H*W, Cin] and a2 [B, H*W, Cout]; h is scratch. (c1_bn, c1_split,
+// c1_stages) and (c2_bn, c2_split, c2_stages) plan the convs.
 int apk_fused_resnet_block(const void* x, const void* temb, int temb_bstride, const void* gn1_w, const void* gn1_b,
                            const void* w1, const void* b1, const void* gn2_w, const void* gn2_b, const void* w2,
                            const void* b2, const void* wsc, const void* bsc, int n1, int pchunk1, int threads1,
-                           int hold1, void* ss1, void* h, int n2, int pchunk2, int threads2, int hold2, void* ss2,
-                           void* out, int B, int Cin, int Cout, int H, int W, int G, float eps, void* stream) {
+                           int hold1, void* a1, void* h, int n2, int pchunk2, int threads2, int hold2, void* a2,
+                           void* out, int B, int Cin, int Cout, int H, int W, int G, float eps, int c1_bn,
+                           int c1_split, int c1_stages, int c2_bn, int c2_split, int c2_stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Cin % 32 || Cout % 32 || Cin > GN_MAX_C || Cout > GN_MAX_C) return (int)cudaErrorInvalidValue;
+  if (Cin % CV_BK || Cout % CV_BK || Cin > GN_MAX_C || Cout > GN_MAX_C) return (int)cudaErrorInvalidValue;
   const int HW = H * W;
-  GnArgs g1 = {(const bf16*)x, (const bf16*)gn1_w, (const bf16*)gn1_b, nullptr, (float2*)ss1, HW, Cin, G, pchunk1,
-               hold1, eps, 0};
+  GnArgs g1 = {(const bf16*)x, (const bf16*)gn1_w, (const bf16*)gn1_b, (bf16*)a1, HW, Cin, G, pchunk1, hold1, eps, 1};
   int e = launch_gn(g1, B, n1, threads1, st);
   if (e) return e;
   ConvArgs c1 = {};
-  c1.x = (const bf16*)x;
-  c1.ss = (const float2*)ss1;
-  c1.w = (const bf16*)w1;
   c1.bias = (const bf16*)b1;
   c1.temb = (const bf16*)temb;
   c1.temb_bstride = temb_bstride;
   c1.out = (bf16*)h;
-  c1.B = B; c1.Cx = Cin; c1.Cin = Cin; c1.Cout = Cout; c1.H = H; c1.W = W;
-  e = launch_conv(c1, st);
+  e = launch_conv(c1, a1, w1, nullptr, nullptr, B, H, W, Cin, Cin, Cout, c1_bn, c1_split, c1_stages, st);
   if (e) return e;
-  GnArgs g2 = {(const bf16*)h, (const bf16*)gn2_w, (const bf16*)gn2_b, nullptr, (float2*)ss2, HW, Cout, G, pchunk2,
-               hold2, eps, 0};
+  GnArgs g2 = {(const bf16*)h, (const bf16*)gn2_w, (const bf16*)gn2_b, (bf16*)a2, HW, Cout, G, pchunk2, hold2, eps,
+               1};
   e = launch_gn(g2, B, n2, threads2, st);
   if (e) return e;
   ConvArgs c2 = {};
-  c2.x = (const bf16*)h;
-  c2.ss = (const float2*)ss2;
-  c2.w = (const bf16*)w2;
   c2.bias = (const bf16*)b2;
-  c2.xs = (const bf16*)x;
-  c2.wsc = (const bf16*)wsc;
+  c2.resid = wsc == nullptr ? (const bf16*)x : nullptr;
   c2.bsc = (const bf16*)bsc;
   c2.out = (bf16*)out;
-  c2.B = B; c2.Cx = Cout; c2.Cin = Cin; c2.Cout = Cout; c2.H = H; c2.W = W;
-  return launch_conv(c2, st);
+  return launch_conv(c2, a2, w2, x, wsc, B, H, W, Cout, Cin, Cout, c2_bn, c2_split, c2_stages, st);
 }
 
 }  // extern "C"

@@ -42,13 +42,13 @@ _SIGNATURES = {
     + [_I] * 4 + [_F, _P],
     "apk_fused_ln_geglu_ff_bwd_dx": [_P] * 11 + [_I] * 4 + [_F, _P],
     "apk_fused_ln_geglu_ff_int8": [_P] * 15 + [_I] * 4 + [_F, _P],
-    "apk_fused_ln_self_attention_int8": [_P] * 17 + [_I] * 4 + [_F, _F, _P],
+    "apk_fused_ln_self_attention_int8": [_P] * 15 + [_I] * 4 + [_F, _F] + [_I] * 9 + [_P],
     "apk_fused_ln_cross_attention_int8": [_P, _P, _I, _I, _I] + [_P] * 11 + [_F] + [_P] * 10
     + [_I] * 4 + [_F, _F, _P],
     "apk_self_attention": [_P] * 4 + [_I] * 5 + [_P],
     "apk_group_norm_silu": [_P] * 4 + [_I] * 8 + [_F, _I, _P],
     "apk_fused_resnet_block": [_P] * 2 + [_I] + [_P] * 10 + [_I] * 4 + [_P] * 2 + [_I] * 4 + [_P] * 2
-    + [_I] * 6 + [_F, _P],
+    + [_I] * 6 + [_F] + [_I] * 6 + [_P],
     "apk_dual_kv_attention": [_P] * 3 + [_I] + [_P] * 2 + [_I, _F, _P] + [_I] * 6 + [_P],
 }
 

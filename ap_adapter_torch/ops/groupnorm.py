@@ -61,8 +61,8 @@ class GnPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def gn_cluster_plan(hw: int, c: int, groups: int) -> GnPlan:
-    """The launch of K12 (and of K13's statistics) on a [hw, c] sample: the
-    fewest CTAs, a power of two up to 16, that keep each near
+    """The launch of K12 (and of K13's two GroupNorms) on a [hw, c] sample:
+    the fewest CTAs, a power of two up to 16, that keep each near
     ``GN_CTA_BYTES`` of the sample, the chunk held when it fits."""
 
     vc = c // 8

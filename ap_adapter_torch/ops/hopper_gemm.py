@@ -1,16 +1,21 @@
-"""Launch plan of the Hopper GEMM that K1's and K3's projections run on
-(``csrc/hopper_gemm.cuh``), a pure function the CPU can check.
+"""Launch plans of the Hopper GEMMs (``csrc/hopper_gemm.cuh``, the int8 one
+of ``csrc/int8_blocks.cu`` and K13's implicit-GEMM convs in
+``csrc/resnet.cu``), pure functions the CPU can check.
 
-The kernel computes ``C = epilogue(A @ Wᵀ)`` for A [M, K] and W [N, K]
+The bf16 kernel computes ``C = epilogue(A @ Wᵀ)`` for A [M, K] and W [N, K]
 (torch Linear layout), one CTA a 64 x ``bn`` output tile: a producer warp
-keeps TMA loads of 64-deep k-blocks in flight through a ring of 2-4 stages
-and one consumer warpgroup runs ``wgmma``. Where the output tiles are fewer
-than the card's SMs, the k-blocks of a tile are split over a thread-block
-cluster of ``ksplit`` CTAs (at most 8, the portable size), whose partial sums
-are combined in rank order through distributed shared memory, the epilogue
-in the same launch. ``gemm_plan`` picks ``bn`` and ``ksplit``; ``gemm_blocks``
-lists the (row, column, set, k-blocks) of each CTA by the kernel's own
-formulas, so that the tests can check the coverage.
+keeps TMA loads of k-blocks in flight through a ring of 2-4 stages and one
+consumer warpgroup runs ``wgmma``. A k-block is one 128-byte swizzle row of
+each operand: 64 bf16 values, or 128 int8 values for the int8 GEMM (whose
+last block may be half zero-filled). Where the output tiles are fewer than
+the card's SMs, the k-blocks of a tile are split over a thread-block
+cluster of ``ksplit`` CTAs (at most 8, the portable size), whose partial
+sums are combined in rank order through distributed shared memory, the
+epilogue in the same launch. ``tile_plan`` picks ``bn``, ``ksplit`` and the
+stages from the counts of row tiles and k-blocks, which ``gemm_plan`` (a
+matrix product) and ``ops/resnet.py::conv_plan`` (a 3x3 conv) compute;
+``gemm_blocks`` lists the (row, column, set, k-blocks) of each CTA by the
+kernel's own formulas, so that the tests can check the coverage.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Iterator, NamedTuple, Tuple
 H100_SMS = 132
 BM = 64                 # output rows of a CTA: the consumer warpgroup's m64
 BK = 64                 # k per stage: one 128-byte swizzle row of bf16
+BK8 = 128               # k per stage of the int8 GEMM: one 128-byte swizzle row of int8
 MIN_STAGES = 2
 MAX_STAGES = 4
 MAX_SPLIT = 8           # the portable cluster size
@@ -40,7 +46,8 @@ class GemmPlan(NamedTuple):
     ksplit: int         # CTAs of a cluster, each an equal share of the k-blocks
     stages: int         # ring stages
     smem: int           # dynamic shared memory bytes a CTA (hg_smem_bytes)
-    grid: Tuple[int, int, int]   # ((N / bn) * ksplit, ceil(M / 64), sets)
+    grid: Tuple[int, int, int]   # ((N / bn) * ksplit, row tiles, sets)
+    nkb: int            # k-blocks of an output tile
 
     @property
     def ctas(self) -> int:
@@ -76,24 +83,31 @@ def hg_smem_bytes(bn: int, geglu: bool, stages: int, ksplit: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def gemm_plan(m: int, n: int, k: int, sets: int = 1, geglu: bool = False, sms: int = H100_SMS) -> GemmPlan:
+def gemm_plan(m: int, n: int, k: int, sets: int = 1, geglu: bool = False, sms: int = H100_SMS,
+              int8: bool = False) -> GemmPlan:
     """The launch of ``sets`` products [m, k] x [k, n] (GEGLU: n output
-    columns from 2n weight rows): the widest tile (128, else 64) whose grid
-    reaches ``sms`` CTAs. Where none does and the 64-wide tiles fill less
-    than half the SMs, or each tile has ``LONG_K_BLOCKS`` k-blocks or more,
-    their k-blocks are split over a cluster of the fewest CTAs, a power of
-    two, that reach ``sms`` (at most 8, at least one k-block each); a short
-    k-loop on more than half the SMs ran slower split than not. The
-    ring has a stage per k-block of a slice (2-4), fewer where that keeps
-    the grid in one wave of resident CTAs (more CTAs to hide the loads'
-    latency). The choices follow ``scripts/sweep_block_plans.py``. Raises
-    on a width the kernel does not take: n % 64, k % 64, m < 1, sets outside
-    1-3."""
+    columns from 2n weight rows; int8: the int8 GEMM, 128-deep k-blocks,
+    one set) by ``tile_plan``. Raises on a width the kernel does not take:
+    n % 64, k % 64, m < 1, sets outside 1-3."""
 
-    if m < 1 or n < 64 or n % 64 or k < BK or k % BK or not 1 <= sets <= 3:
+    if m < 1 or n < 64 or n % 64 or k < BK or k % BK or not 1 <= sets <= 3 or (int8 and (sets > 1 or geglu)):
         raise ValueError(f"hopper gemm: needs M >= 1, N % 64 == 0, K % 64 == 0 and 1-3 weight sets "
-                         f"(M={m}, N={n}, K={k}, sets={sets})")
-    mt, nkb = _cdiv(m, BM), k // BK
+                         f"(M={m}, N={n}, K={k}, sets={sets}, int8={int8})")
+    return tile_plan(_cdiv(m, BM), n, _cdiv(k, BK8 if int8 else BK), sets, geglu, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(mt: int, n: int, nkb: int, sets: int = 1, geglu: bool = False, sms: int = H100_SMS) -> GemmPlan:
+    """The launch of ``mt`` row tiles of 64 by n columns over ``nkb``
+    k-blocks: the widest tile (128, else 64) whose grid reaches ``sms``
+    CTAs. Where none does and the 64-wide tiles fill less than half the SMs,
+    or each tile has ``LONG_K_BLOCKS`` k-blocks or more, their k-blocks are
+    split over a cluster of the fewest CTAs, a power of two, that reach
+    ``sms`` (at most 8, at least one k-block each); a short k-loop on more
+    than half the SMs ran slower split than not. The ring has a stage per
+    k-block of a slice (2-4), fewer where that keeps the grid in one wave
+    of resident CTAs (more CTAs to hide the loads' latency). The choices
+    follow ``scripts/sweep_block_plans.py``."""
 
     def plan(bn: int, ks: int) -> GemmPlan:
         grid = ((n // bn) * ks, mt, sets)
@@ -103,7 +117,7 @@ def gemm_plan(m: int, n: int, k: int, sets: int = 1, geglu: bool = False, sms: i
             if ctas <= sms * resident_ctas(hg_smem_bytes(bn, geglu, st, ks)):
                 stages = st
                 break
-        return GemmPlan(bn, ks, stages, hg_smem_bytes(bn, geglu, stages, ks), grid)
+        return GemmPlan(bn, ks, stages, hg_smem_bytes(bn, geglu, stages, ks), grid, nkb)
 
     for bn in ((64,) if geglu else (128, 64)):
         if n % bn == 0 and mt * (n // bn) * sets >= sms:
@@ -123,14 +137,15 @@ def check_ln_width(op: str, c: int) -> None:
         raise ValueError(f"{op}: the LayerNorm row pass needs C % 64 == 0 and C <= {LN_MAX_C} (C={c})")
 
 
-def gemm_blocks(plan: GemmPlan, m: int, n: int, k: int) -> Iterator[Tuple[int, int, int, int, int, range]]:
+def gemm_blocks(plan: GemmPlan) -> Iterator[Tuple[int, int, int, int, int, range]]:
     """Each CTA of the launch as (m0, n0, set, kb0, kb1, groups) by the
     kernel's formulas: rank = x % ksplit, n0 = (x / ksplit) * bn, its
     k-blocks [kb0, kb1) = [rank * nkb / ks, (rank + 1) * nkb / ks), and the
     8-column groups of its tile that it stores: all U = bn / 8, or under
-    split-K the ones it combines, [rank * U / ks, (rank + 1) * U / ks)."""
+    split-K the ones it combines, [rank * U / ks, (rank + 1) * U / ks).
+    m0 is the row tile's first row (y * 64); for a conv, y is the tile."""
 
-    ks, nkb, units = plan.ksplit, k // BK, plan.bn // 8
+    ks, nkb, units = plan.ksplit, plan.nkb, plan.bn // 8
     gx, gy, gz = plan.grid
     for z in range(gz):
         for y in range(gy):

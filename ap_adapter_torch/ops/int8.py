@@ -33,18 +33,26 @@ quantizes the Linear weights as they are (head dims 48 and 80 included).
 The TPU's padded columns and rows are zeros, so they change no scale and no
 int8 value of a real channel.
 
-Kernels (``csrc/int8_blocks.cu``): a row-wise LayerNorm + quantize kernel,
-an int8 tensor-core GEMM (``mma.sync`` m16n8k32, exact int32 sums) whose
-epilogue dequantizes by row and column scale and adds the bias and residual
-or forms the GEGLU product, and the shared bf16 GEMM and attention routines
-of ``csrc/common.cuh`` (attention output in fp32). On an H100 they are bound
-by launches and activation round trips through device memory, not by the
-int8 tensor-core rate; times and bounds are in ``PERF.md``.
+Kernels (``csrc/int8_blocks.cu``). K11b, redesigned for Hopper, is six
+device kernels: one LayerNorm row pass that writes both the bf16 rows of
+the K/V GEMM and the int8 rows and scales of the q projection; the int8 q
+GEMM on an int8 ``wgmma``/TMA GEMM (exact int32 sums, split-K clusters
+where the output tiles are few, ``k11b_plan``) whose epilogue dequantizes
+by row and column scale and scales q by 1/sqrt(d); the K/V GEMM on K1's
+Hopper GEMM; K1's register-resident attention with an fp32 store; the
+quantization of the fp32 attention rows; and the int8 out GEMM with bias
+and residual. K11a and K11c keep the first port's routines: a row-wise
+LayerNorm + quantize kernel, an int8 ``mma.sync`` GEMM (m16n8k32) that
+also forms the GEGLU product, and ``csrc/common.cuh``'s bf16 GEMM and
+attention (output in fp32). On an H100 they are bound by launches and
+activation round trips through device memory, not by the int8
+tensor-core rate; times and bounds are in ``PERF.md``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -53,6 +61,7 @@ from ap_adapter_torch.ops import cuda_kernels as ck
 from ap_adapter_torch.ops.fused_block import _check_weights
 from ap_adapter_torch.ops.fused_cross import _check_cross, _check_cuda_cross, _split_context
 from ap_adapter_torch.ops.fused_ff import _check_widths
+from ap_adapter_torch.ops.hopper_gemm import H100_SMS, GemmPlan, check_ln_width, gemm_plan
 
 _INV127 = 1.0 / 127.0
 
@@ -229,6 +238,26 @@ def fused_ln_geglu_ff_int8(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, eps: float =
     return out
 
 
+class K11bPlan(NamedTuple):
+    q: GemmPlan         # int8 LN(x) rows [M, C] x Wq8, bf16 store scaled by 1/sqrt(d)
+    kv: GemmPlan        # bf16 LN(x) rows [M, C] x Wk, Wv, bf16 store
+    out: GemmPlan       # int8 attention rows [M, C] x Wo8, bias + residual
+
+
+@functools.lru_cache(maxsize=None)
+def k11b_plan(b: int, s: int, c: int, heads: int, sms: int = H100_SMS) -> K11bPlan:
+    """The launches of K11b's GEMMs on x [b, s, c]: the int8 q and out GEMMs
+    and the bf16 K/V GEMM, by ``gemm_plan`` (the attention's grid is fixed:
+    64 query rows a CTA). Raises on a width the kernels do not take."""
+
+    op = "fused_ln_self_attention_int8"
+    ck.check_heads(op, c, heads)
+    check_ln_width(op, c)
+    m = b * s
+    i8 = gemm_plan(m, c, c, sms=sms, int8=True)
+    return K11bPlan(i8, gemm_plan(m, c, c, sets=2, sms=sms), i8)
+
+
 def fused_ln_self_attention_int8(x, ln_w, ln_b, wq8, sq, wk, wv, wo8, so, bo, heads: int,
                                  eps: float = 1e-5) -> torch.Tensor:
     """K11b on a CUDA tensor (bf16 activations, LN, wk/wv and bo; int8
@@ -243,16 +272,17 @@ def fused_ln_self_attention_int8(x, ln_w, ln_b, wq8, sq, wk, wv, wo8, so, bo, he
     ck.check_no_grad(op, **operands)
     if x.device.type == "cpu":
         return fused_ln_self_attention_int8_plain(x, ln_w, ln_b, wq8, sq, wk, wv, wo8, so, bo, heads, eps)
-    d = ck.check_heads(op, c, heads)
+    plan = k11b_plan(b, s, c, heads, ck.sm_count(x.device))
     ck.check_operands(op, x, _quant_dtypes("wq8", "sq", "wo8", "so"), **operands)
     x8 = x.new_empty(b * s, c, dtype=torch.int8)
     sx = x.new_empty(b * s, dtype=torch.float32)
-    q, k, v, out = (torch.empty_like(x) for _ in range(4))
+    scratch = x.new_empty(4, b * s, c)       # LN(x), q, k, v
     attn = x.new_empty(b, s, c, dtype=torch.float32)
+    out = torch.empty_like(x)
     ck.launch(op, x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wq8.data_ptr(), sq.data_ptr(), wk.data_ptr(),
               wv.data_ptr(), wo8.data_ptr(), so.data_ptr(), bo.data_ptr(), x8.data_ptr(), sx.data_ptr(),
-              q.data_ptr(), k.data_ptr(), v.data_ptr(), attn.data_ptr(), out.data_ptr(), b, s, c, heads, eps,
-              float(d) ** -0.5)
+              scratch.data_ptr(), attn.data_ptr(), out.data_ptr(), b, s, c, heads, eps, float(c // heads) ** -0.5,
+              *plan.q.launch_args, *plan.kv.launch_args, *plan.out.launch_args)
     return out
 
 

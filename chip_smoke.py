@@ -45,7 +45,7 @@ prints its seconds:
 9. int8 kernels: K11a, K11b and K11c (adapter on; T5 with its bias) at each
    edit-path shape, B=2, int8 weights from ``quantize_weight``, against the
    plain versions (exact integer products in float64; limit 2e-2 of
-   max|plain|), with both times;
+   max|plain|), with both times; K11b's cases list their device kernels;
 10. int8 edit slice: the same weights as phase 6 under ``use_int8``
    (quantized once by the pipeline) serve the same 2 requests; the same
    waveform checks, launch counts of exactly one K11b/K11c/K11a per routed
@@ -63,7 +63,9 @@ prints its seconds:
    shape of the edit, with a per-sample temb and without; each against its
    plain version (limit 2e-2 of max|plain|), with both times, the bound and
    ``library_ms`` (``F.scaled_dot_product_attention`` for the attention,
-   ``F.group_norm`` for K12 without SiLU, none for K13);
+   ``F.group_norm`` for K12 without SiLU, none for K13); K13's cases list
+   their device kernels, and time its two convs as channels-last bf16
+   ``F.conv2d`` calls (cuDNN) beside it as information;
 12. resnet-kernel edit slices: the same weights as phase 6 under
    ``use_pallas_groupnorm``, then under ``use_pallas_resnet`` (HWIO weights
    prepared once by the pipeline), one request each: the same waveform
@@ -167,8 +169,10 @@ KERNELS = {
     "dual_kv_attention": ("ap_adapter_torch/csrc/fused_hopper.cu", "ap_adapter_tpu/ops/pallas_attention.py:57"),
 }
 EDIT_KERNELS = ("fused_ln_self_attention", "fused_ln_cross_attention_kv", "fused_ln_geglu_ff")
-# on csrc/fused_hopper.cu's routines: their cases list device kernels
-REDESIGNED = ("fused_ln_self_attention", "fused_ln_cross_attention_kv", "fused_ln_geglu_ff", "dual_kv_attention")
+# redesigned for Hopper (hopper_gemm.cuh, reg_attention.cuh, the int8 wgmma GEMM, the TMA convs): their
+# cases list device kernels
+REDESIGNED = ("fused_ln_self_attention", "fused_ln_cross_attention_kv", "fused_ln_geglu_ff", "dual_kv_attention",
+              "fused_ln_self_attention_int8", "fused_resnet_block")
 TRAIN_KERNELS = ("fused_ln_cross_attention", "fused_ln_self_attention_bwd_dx", "fused_ln_cross_attention_bwd",
                  "fused_ln_geglu_ff_bwd_dx")
 INT8_KERNELS = ("fused_ln_self_attention_int8", "fused_ln_cross_attention_int8", "fused_ln_geglu_ff_int8")
@@ -402,7 +406,7 @@ def int8_kernel_phase(device) -> dict:
              lambda: fused_ln_geglu_ff_int8(*ff), lambda: fused_ln_geglu_ff_int8_plain(*ff)),
         ]
         for name, variant, keys, kernel, plain in cases:
-            run_case(results, name, variant, (2, s, c), keys, kernel, plain, TOL)
+            run_case(results, name, variant, (2, s, c), keys, kernel, plain, TOL, split=name in REDESIGNED)
     return results
 
 
@@ -492,12 +496,42 @@ def resnet_kernel_phase(device, unet_config) -> dict:
         m = b * hh * ww
         flops = 2 * m * cout * (9 * cin + 9 * cout + (cin if sc else 0))
         wbytes = 2 * (9 * cin * cout + 9 * cout * cout + (cin * cout if sc else 0) + 2 * cin + 4 * cout)
+        convs = cudnn_convs(x, wts, groups, eps)
         for temb in (r(b, cout), None):
             bd = bound(flops, 2 * m * (cin + cout) + wbytes + (2 * b * cout if temb is not None else 0))
             run_case(results, "fused_resnet_block", "temb" if temb is not None else "no temb", (b, hh, ww, cin),
                      {"C_out": cout}, lambda: fused_resnet_block(x, temb, *wts, groups, eps),
-                     lambda: fused_resnet_block_plain(x, temb, *wts, groups, eps), TOL, bd=bd)
+                     lambda: fused_resnet_block_plain(x, temb, *wts, groups, eps), TOL, bd=bd,
+                     split="fused_resnet_block" in REDESIGNED, info={"conv2d": convs})
     return results
+
+
+def cudnn_convs(x, wts, groups: int, eps: float):
+    """K13's two convs (with the 1x1 shortcut, where there is one) as
+    ``F.conv2d`` calls on channels-last bf16 inputs and weights (cuDNN), on
+    the activated inputs of the plain version: a call timed beside K13 as
+    information, never used by the port."""
+
+    import torch
+    import torch.nn.functional as F
+
+    from ap_adapter_torch.ops.groupnorm import group_norm_silu_plain
+
+    cl = torch.channels_last
+    gn1_w, gn1_b, w1, b1, gn2_w, gn2_b, w2, b2, wsc, bsc = wts
+    xc = x.permute(0, 3, 1, 2)
+    a1 = group_norm_silu_plain(xc, gn1_w, gn1_b, groups, eps, act=True).contiguous(memory_format=cl)
+    k1, k2 = (w.permute(3, 2, 0, 1).contiguous(memory_format=cl) for w in (w1, w2))
+    a2 = group_norm_silu_plain(F.conv2d(a1, k1, b1, padding=1), gn2_w, gn2_b, groups, eps,
+                               act=True).contiguous(memory_format=cl)
+    ksc = wsc.permute(3, 2, 0, 1).contiguous(memory_format=cl) if wsc is not None else None
+
+    def run():
+        h = F.conv2d(a1, k1, b1, padding=1)
+        out = F.conv2d(a2, k2, b2, padding=1)
+        return (h, out, F.conv2d(xc, ksc, bsc)) if ksc is not None else (h, out)
+
+    return run
 
 
 def dual_kv_kernel_phase(device) -> dict:

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of one edit request goes on one NVIDIA GPU, bf16 against
-the int8 W8A8 serving configuration (``UNetConfig.use_int8``).
+the int8 W8A8 serving configuration (``UNetConfig.use_int8``) and the
+fused-resnet one (``UNetConfig.use_pallas_resnet``, K13 at every resnet).
 
-    python3 scripts/profile_edit_request.py [--batches 1,4] [--pairs 3] [--configs bf16,int8] [--root DIR]
+    python3 scripts/profile_edit_request.py [--batches 1,4] [--pairs 3] [--configs bf16,int8,resnet] [--root DIR]
 
 Full-width ``PipelineConfig()`` in bf16 with random weights (seed 0); the
-int8 pipeline serves the same weights (shared tensors), quantized once.
-``--configs bf16`` serves bf16 alone; ``--root`` imports ``ap_adapter_torch``
+int8 and resnet pipelines serve the same weights (shared tensors), the
+int8 one quantized once, the resnet one with its HWIO conv weights
+prepared once. ``--configs bf16`` serves bf16 alone; ``--root`` imports ``ap_adapter_torch``
 from another tree (an unpacked ``git archive`` of another commit), so that
 runs of two commits can alternate within one call.
 Requests are ``AudioLDM2Pipeline.generate`` with the ``timbre_transfer``
@@ -58,12 +60,13 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batches", default="1,4", help="comma-separated clips per request")
     ap.add_argument("--pairs", type=int, default=3)
-    ap.add_argument("--configs", default="bf16,int8", help="comma-separated: bf16, int8")
+    ap.add_argument("--configs", default="bf16,int8", help="comma-separated: bf16, int8, resnet")
     ap.add_argument("--root", default=ROOT, help="the tree whose ap_adapter_torch serves the requests")
     args = ap.parse_args()
     configs = args.configs.split(",")
-    if not configs or set(configs) - {"bf16", "int8"}:
-        ap.error("--configs takes bf16 and int8")
+    switches = {"int8": "use_int8", "resnet": "use_pallas_resnet"}
+    if not configs or set(configs) - {"bf16", *switches}:
+        ap.error("--configs takes bf16, int8 and resnet")
     import numpy as np
     import torch
 
@@ -82,11 +85,12 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     config = PipelineConfig()
     pipes = {"bf16": AudioLDM2Pipeline.from_random(config, seed=0, device=dev, dtype=torch.bfloat16)}
-    if "int8" in configs:
-        int8_config = config.replace(unet=dataclasses.replace(config.unet, use_int8=True))
-        mods = PipelineModules(int8_config)
-        mods.load_state_dict(pipes["bf16"].modules.state_dict(), strict=True, assign=True)
-        pipes["int8"] = AudioLDM2Pipeline(int8_config, mods)
+    for name, switch in switches.items():
+        if name in configs:
+            cfg = config.replace(unet=dataclasses.replace(config.unet, **{switch: True}))
+            mods = PipelineModules(cfg)
+            mods.load_state_dict(pipes["bf16"].modules.state_dict(), strict=True, assign=True)
+            pipes[name] = AudioLDM2Pipeline(cfg, mods)        # quantizes / prepares its weights once
     if "bf16" not in configs:
         del pipes["bf16"]
     task = get_task_config("timbre_transfer")

@@ -15,7 +15,8 @@ sum of the CUDA events' durations (kernels, memsets, copies), and the
 number of device events, with their names and each name's device ms (the
 split of a call by device kernel); and the device ms of any call the smoke
 times beside a case as information (``sdpa`` beside K1, two ``sdpa`` plus
-the add beside K10), summed per kernel too. The plain versions are not run:
+the add beside K10, K13's two convs as channels-last ``F.conv2d`` calls),
+summed per kernel too. The plain versions are not run:
 ``chip_smoke.py`` holds the kernels against them.
 
 Prints one line per case and one per kernel (device ms summed over its
@@ -40,9 +41,11 @@ import time
 PHASES = ("kernels", "training", "int8", "resnet", "dual_kv")
 ITERS = 10
 TRACE_TRIES = 4          # the tracer now and then hands back no device events: retry
-# device kernels a call of the kernels on fused_hopper.cu's routines, and K12
+# device kernels a call of the redesigned kernels and K12 (K11b: LN+quantize rows, int8 q GEMM, K/V GEMM,
+# attention, quantize rows, int8 out GEMM; K13: GN1+SiLU, conv1, GN2+SiLU, conv2)
 EXPECTED_DEVICE_KERNELS = {"fused_ln_self_attention": 4, "fused_ln_cross_attention_kv": 4, "fused_ln_geglu_ff": 3,
-                           "dual_kv_attention": 1, "group_norm_silu": 1}
+                           "dual_kv_attention": 1, "group_norm_silu": 1, "fused_ln_self_attention_int8": 6,
+                           "fused_resnet_block": 4}
 
 
 def device_profile(fn, iters: int = ITERS) -> dict:

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Device time of K1's, K2's, K3's and K10's kernels under other launch
-plans than the wrappers' own, at the edit path's shapes, on one NVIDIA GPU.
+"""Device time of K1's, K2's, K3's, K10's, K11b's and K13's kernels under
+other launch plans than the wrappers' own, at the edit path's shapes, on
+one NVIDIA GPU.
 
-    python3 scripts/sweep_block_plans.py [--kernels K1,K2,K3,K10]
+    python3 scripts/sweep_block_plans.py [--kernels K1,K2,K3,K10,K11b,K13]
 
 For K1 (``fused_ln_self_attention``), K2 (``fused_ln_cross_attention_kv``,
 8 text + 128 adapter keys and 64 T5 keys with their bias) and K3
 (``fused_ln_geglu_ff``) at B=2 and each (S, C) of ``chip_smoke.SHAPES``, and
 for K10 (``fused_dual_kv_attention``) at B=2 and each (S, d) of
 ``chip_smoke.DUAL_KV_LEVELS`` with 8 text keys and each audio key count,
-bf16 inputs: the C entry point is called with the wrapper's plan
-(``k1_plan``, ``k2_plan``, ``k3_plan``, ``key_tile``), then with one choice
+for K11b (``fused_ln_self_attention_int8``, int8 weights from
+``quantize_weight``) at each (S, C), and for K13 (``fused_resnet_block``,
+with a per-sample temb) at every distinct resnet shape of the edit, bf16
+inputs: the C entry point is called with the wrapper's plan (``k1_plan``,
+``k2_plan``, ``k3_plan``, ``key_tile``, ``k11b_plan``, ``conv_plan``),
+then with one choice
 changed at a time (each GEMM's tile width and split-K, then its ring's
 stage count; each key set's tile width), and ``chip_smoke.device_split``
 gives each device kernel's device ms a call (torch.profiler, 10 calls after
@@ -32,7 +37,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernels", default="K1,K2,K3,K10")
+    parser.add_argument("--kernels", default="K1,K2,K3,K10,K11b,K13")
     which = set(parser.parse_args(argv).kernels.split(","))
 
     import torch
@@ -47,6 +52,7 @@ def main(argv=None) -> int:
     from ap_adapter_torch.ops.fused_block import fused_ln_self_attention_plain, k1_plan
     from ap_adapter_torch.ops.fused_cross import KEY_TILES, fused_ln_cross_attention_kv_plain, k2_plan, key_tile
     from ap_adapter_torch.ops.fused_ff import fused_ln_geglu_ff_plain, k3_plan
+    from ap_adapter_torch.ops.int8 import fused_ln_self_attention_int8_plain, k11b_plan, quantize_weight
 
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -91,8 +97,8 @@ def main(argv=None) -> int:
         p1, p2, p3 = k1_plan(b, s, c, heads), k2_plan(b, s, c, heads), k3_plan(b, s, c, 4 * c)
         if "K1" in which:
             base1 = (p1.qkv.launch_args, p1.out.launch_args)
-            variants = [base1] + [(v, base1[1]) for v in gemm_variants(p1.qkv, c, False)]
-            variants += [(base1[0], v) for v in gemm_variants(p1.out, c, False)]
+            variants = [base1] + [(v, base1[1]) for v in gemm_variants(p1.qkv, False)]
+            variants += [(base1[0], v) for v in gemm_variants(p1.out, False)]
             want = fused_ln_self_attention_plain(x, ln_w, ln_b, wq, wk, wv, wo, bo, heads).float()
             for v in dict.fromkeys(variants):
                 run(chip_smoke, "K1", (s, c), v, v == base1, lambda: k1(*v), want)
@@ -106,8 +112,8 @@ def main(argv=None) -> int:
                 counts = (k.shape[1], 0 if ki is None else ki.shape[1])
                 base2 = (tuple(key_tile(n) for n in counts), p2.q.launch_args, p2.out.launch_args)
                 variants = [base2] + [(t, *base2[1:]) for t in tile_variants(base2[0], counts, KEY_TILES)]
-                variants += [(base2[0], v, base2[2]) for v in gemm_variants(p2.q, c, False)]
-                variants += [(*base2[:2], v) for v in gemm_variants(p2.out, c, False)]
+                variants += [(base2[0], v, base2[2]) for v in gemm_variants(p2.q, False)]
+                variants += [(*base2[:2], v) for v in gemm_variants(p2.out, False)]
                 ad = {} if ki is None else dict(ki=ki, vi=vi, ip_scale=0.5)
                 want = fused_ln_cross_attention_kv_plain(x, k, v, ln_w, ln_b, wq, wo, bo, heads, bias=bias,
                                                          **ad).float()
@@ -115,11 +121,35 @@ def main(argv=None) -> int:
                     run(chip_smoke, f"K2 {label}", (s, c), var, var == base2, lambda: k2(keys, *var), want)
         if "K3" in which:
             base3 = (p3.w1.launch_args, p3.w2.launch_args)
-            variants = [base3] + [(v, base3[1]) for v in gemm_variants(p3.w1, c, True)]
-            variants += [(base3[0], v) for v in gemm_variants(p3.w2, 4 * c, False)]
+            variants = [base3] + [(v, base3[1]) for v in gemm_variants(p3.w1, True)]
+            variants += [(base3[0], v) for v in gemm_variants(p3.w2, False)]
             want = fused_ln_geglu_ff_plain(x, ln_w, ln_b, w1, b1, w2, b2).float()
             for v in dict.fromkeys(variants):
                 run(chip_smoke, "K3", (s, c), v, v == base3, lambda: k3(*v), want)
+        if "K11b" in which:
+            wq8, sq = quantize_weight(wq)
+            wo8, so = quantize_weight(wo)
+            x8, sx = x.new_empty(m, c, dtype=torch.int8), x.new_empty(m, dtype=torch.float32)
+            attn = x.new_empty(m, c, dtype=torch.float32)
+
+            def k11b(qp, kvp, op):
+                ck.launch("fused_ln_self_attention_int8", x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
+                          wq8.data_ptr(), sq.data_ptr(), wk.data_ptr(), wv.data_ptr(), wo8.data_ptr(),
+                          so.data_ptr(), bo.data_ptr(), x8.data_ptr(), sx.data_ptr(), scratch.data_ptr(),
+                          attn.data_ptr(), out.data_ptr(), b, s, c, heads, eps, float(c // heads) ** -0.5, *qp,
+                          *kvp, *op)
+                return out
+
+            p11 = k11b_plan(b, s, c, heads)
+            base = (p11.q.launch_args, p11.kv.launch_args, p11.out.launch_args)
+            variants = [base] + [(v, *base[1:]) for v in gemm_variants(p11.q, False)]
+            variants += [(base[0], v, base[2]) for v in gemm_variants(p11.kv, False)]
+            variants += [(*base[:2], v) for v in gemm_variants(p11.out, False)]
+            want = fused_ln_self_attention_int8_plain(x, ln_w, ln_b, wq8, sq, wk, wv, wo8, so, bo, heads).float()
+            for v in dict.fromkeys(variants):
+                run(chip_smoke, "K11b", (s, c), v, v == base, lambda: k11b(*v), want)
+    if "K13" in which:
+        sweep_resnet(chip_smoke, ck, r, device)
     if "K10" in which:
         for s, d in chip_smoke.DUAL_KV_LEVELS:
             for si in chip_smoke.DUAL_KV_AUDIO_KEYS:
@@ -147,14 +177,55 @@ def tile_variants(base, counts, widths) -> list:
             for w in widths]
 
 
-def gemm_variants(plan, k: int, geglu: bool) -> list:
-    """(bn, ksplit, stages) around ``plan`` for a GEMM of depth k: each
-    width and split the kernel takes (with the plan's stage rule), then the
-    plan's width and split with each stage count."""
+def sweep_resnet(chip_smoke, ck, r, device) -> None:
+    """K13 at every distinct resnet shape of the edit (B = 2, a per-sample
+    temb): each conv's plan, then one choice changed at a time."""
+
+    import torch
+
+    from ap_adapter_torch.configs import PipelineConfig
+    from ap_adapter_torch.ops.groupnorm import gn_cluster_plan
+    from ap_adapter_torch.ops.resnet import conv_plan, fused_resnet_block_plain
+
+    unet = PipelineConfig().unet
+    groups, eps, b = unet.norm_num_groups, unet.norm_eps, 2
+    for hh, ww, cin, cout in sorted(set(chip_smoke.resnet_shapes(unet, *chip_smoke.EDIT_LATENT))):
+        sc = cin != cout
+        x, temb = r(b, hh, ww, cin), r(b, cout)
+        wts = (1 + r(cin, scale=0.1), r(cin, scale=0.1), r(3, 3, cin, cout, scale=(9 * cin) ** -0.5),
+               r(cout, scale=0.1), 1 + r(cout, scale=0.1), r(cout, scale=0.1),
+               r(3, 3, cout, cout, scale=(9 * cout) ** -0.5), r(cout, scale=0.1),
+               r(1, 1, cin, cout, scale=cin ** -0.5) if sc else None, r(cout, scale=0.1) if sc else None)
+        g1, g2 = gn_cluster_plan(hh * ww, cin, groups), gn_cluster_plan(hh * ww, cout, groups)
+        a1 = x.new_empty(b, hh, ww, cin)
+        h, a2, out = (x.new_empty(b, hh, ww, cout) for _ in range(3))
+
+        def k13(p1, p2):
+            ck.launch("fused_resnet_block", x.data_ptr(), temb.data_ptr(), cout, *(ck.ptr(t) for t in wts),
+                      g1.n, g1.pchunk, g1.threads, int(g1.hold), a1.data_ptr(), h.data_ptr(), g2.n, g2.pchunk,
+                      g2.threads, int(g2.hold), a2.data_ptr(), out.data_ptr(), b, cin, cout, hh, ww, groups, eps,
+                      *p1, *p2)
+            return out
+
+        c1, c2 = conv_plan(b, hh, ww, cin, cout), conv_plan(b, hh, ww, cout, cout, cin if sc else 0)
+        base = (c1.launch_args, c2.launch_args)
+        variants = [base] + [(v, base[1]) for v in gemm_variants(c1, False)]
+        variants += [(base[0], v) for v in gemm_variants(c2, False)]
+        want = fused_resnet_block_plain(x, temb, *wts, groups, eps).float()
+        for v in dict.fromkeys(variants):
+            run(chip_smoke, f"K13 {cin}->{cout}", (hh * ww, cin), v, v == base, lambda: k13(*v), want)
+        torch.cuda.synchronize()
+
+
+def gemm_variants(plan, geglu: bool) -> list:
+    """(bn, ksplit, stages) around ``plan`` (its k-blocks ``plan.nkb``): each
+    width and split the kernel takes (with the plan's stage rule; the int8
+    GEMM and the conv take 64 and 128), then the plan's width and split
+    with each stage count."""
 
     from ap_adapter_torch.ops.hopper_gemm import MAX_STAGES, MIN_STAGES, hg_stages
 
-    nkb = k // 64
+    nkb = plan.nkb
     out = [(bn, ks, hg_stages(nkb, ks)) for bn in ((64,) if geglu else (64, 128))
            for ks in (1, 2, 3, 4, 6, 8) if ks <= min(nkb, bn // 8)]
     return out + [(plan.bn, plan.ksplit, st) for st in range(MIN_STAGES, MAX_STAGES + 1)]

@@ -440,7 +440,7 @@ def test_new_kernels_refuse_what_they_cannot_take(cuda_device):
     x48 = torch.zeros(1, 4, 4, 48, device=cuda_device, dtype=torch.bfloat16)
     w48 = torch.zeros(3, 3, 48, 48, device=cuda_device, dtype=torch.bfloat16)
     b48 = torch.zeros(48, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):           # C % 32 != 0
+    with pytest.raises(ValueError):           # C % 64 != 0
         fused_resnet_block(x48, None, b48, b48, w48, b48, b48, b48, w48, b48, groups=16)
 
 
@@ -602,3 +602,98 @@ def test_k2_k10_are_deterministic(cuda_device):
         first, second = fn(), fn()
         torch.cuda.synchronize()
         assert torch.equal(first, second)
+
+
+def _k11b_operands(device, b, s, c, seed):
+    """x [b, s, c] and K11b's other operands (int8 wq8/wo8 from quantize_weight)."""
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *shape, scale=1.0: _r(g, device, *shape, scale=scale)
+    wq8, sq = quantize_weight(r(c, c, scale=c ** -0.5))
+    wo8, so = quantize_weight(r(c, c, scale=c ** -0.5))
+    return r(b, s, c), (1 + r(c, scale=0.1), r(c, scale=0.1), wq8, sq, r(c, c, scale=c ** -0.5),
+                        r(c, c, scale=c ** -0.5), wo8, so, r(c, scale=0.1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,c,heads", [(2, 1000, 256, 8), (2, 252, 384, 8), (2, 64, 640, 8), (1, 37, 128, 4),
+                                         (3, 17, 384, 8), (1, 63, 640, 8)])
+def test_k11b_matches_plain(cuda_device, b, s, c, heads):
+    """K11b on the int8 wgmma GEMM, K1's K/V GEMM and attention (fp32 store)
+    at head dims 32, 48 and 80: the three UNet levels and ragged M (the last
+    row tile and query tile part-filled); one launch a call."""
+
+    x, ops = _k11b_operands(cuda_device, b, s, c, 11)
+    before = dict(cuda_kernels.LAUNCHES)
+    _check(fused_ln_self_attention_int8(x, *ops, heads), fused_ln_self_attention_int8_plain(x, *ops, heads))
+    moved = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
+    assert moved == {**dict.fromkeys(before, 0), "fused_ln_self_attention_int8": 1}
+
+
+def _resnet_operands(device, b, h, w, c_in, c_out, temb, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *shape, scale=1.0: _r(g, device, *shape, scale=scale)
+    sc = c_in != c_out
+    t = {"batch": r(b, c_out), "row": r(c_out), None: None}[temb]
+    return (r(b, h, w, c_in), t, 1 + r(c_in, scale=0.1), r(c_in, scale=0.1),
+            r(3, 3, c_in, c_out, scale=(9 * c_in) ** -0.5), r(c_out, scale=0.1), 1 + r(c_out, scale=0.1),
+            r(c_out, scale=0.1), r(3, 3, c_out, c_out, scale=(9 * c_out) ** -0.5), r(c_out, scale=0.1),
+            r(1, 1, c_in, c_out, scale=c_in ** -0.5) if sc else None, r(c_out, scale=0.1) if sc else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w,c_in,c_out,temb", [
+    (250, 16, 128, 128, "batch"), (250, 16, 384, 128, None), (125, 8, 256, 256, "row"), (125, 8, 640, 256, None),
+    (63, 4, 384, 384, None), (63, 4, 1024, 384, "batch"), (32, 2, 640, 640, "row"), (32, 2, 1280, 640, "batch"),
+    (5, 2, 64, 128, None)])
+def test_k13_matches_plain_at_every_level(cuda_device, h, w, c_in, c_out, temb):
+    """K13's TMA implicit-GEMM convs at the four UNet levels (W = 16, 8, 4,
+    2; ragged H 125 and 63, whose last position tile is part-filled), with
+    the identity and the 1x1 shortcut, a temb per sample, one row for the
+    batch, or none; and a tile past H at W = 2 (5 rows of a 32-row tile)."""
+
+    args = _resnet_operands(cuda_device, 2, h, w, c_in, c_out, temb, 13)
+    before = dict(cuda_kernels.LAUNCHES)
+    _check(fused_resnet_block(*args, 32, 1e-5), fused_resnet_block_plain(*args, 32, 1e-5))
+    moved = {n: cuda_kernels.LAUNCHES[n] - before[n] for n in before}
+    assert moved == {**dict.fromkeys(before, 0), "fused_resnet_block": 1}
+
+
+@pytest.mark.gpu
+def test_k11b_k13_are_deterministic(cuda_device):
+    """Two calls give the same bits: K11b at the 640 level (its int8 GEMMs
+    split over a cluster, int32 partials) and K13 at level 3 (both convs
+    split 8 ways, fp32 partials combined in rank order)."""
+
+    x, ops = _k11b_operands(cuda_device, 2, 64, 640, 12)
+    args = _resnet_operands(cuda_device, 2, 32, 2, 1280, 640, "batch", 14)
+    for fn in (lambda: fused_ln_self_attention_int8(x, *ops, 8), lambda: fused_resnet_block(*args, 32, 1e-5)):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_k13_activation_is_k12_bit_for_bit(cuda_device):
+    """K13's convs read a1 = silu(gn1(x)) and a2 = silu(gn2(h)) from K12's
+    launch with SiLU, the value the first port's conv recomputed inline at
+    every tap, bf16(silu(fmaf(x, scale, shift))): the scratch the raw entry
+    point fills equals K12's output on x and on h, bit for bit."""
+
+    from ap_adapter_torch.ops.groupnorm import gn_cluster_plan
+    from ap_adapter_torch.ops.resnet import conv_plan
+
+    b, h, w, c_in, c_out = 2, 125, 8, 256, 384
+    x, temb, *wts = _resnet_operands(cuda_device, b, h, w, c_in, c_out, "batch", 15)
+    g1, g2 = gn_cluster_plan(h * w, c_in, 32), gn_cluster_plan(h * w, c_out, 32)
+    a1 = x.new_empty(b, h, w, c_in)
+    hb, a2, out = (x.new_empty(b, h, w, c_out) for _ in range(3))
+    cuda_kernels.launch("fused_resnet_block", x.data_ptr(), temb.data_ptr(), c_out, *(t.data_ptr() for t in wts),
+                        g1.n, g1.pchunk, g1.threads, int(g1.hold), a1.data_ptr(), hb.data_ptr(), g2.n, g2.pchunk,
+                        g2.threads, int(g2.hold), a2.data_ptr(), out.data_ptr(), b, c_in, c_out, h, w, 32, 1e-5,
+                        *conv_plan(b, h, w, c_in, c_out).launch_args,
+                        *conv_plan(b, h, w, c_out, c_out, c_in).launch_args)
+    k12 = lambda t, gamma, beta: group_norm_silu(t.permute(0, 3, 1, 2), gamma, beta, 32, 1e-5, True)
+    torch.cuda.synchronize()
+    assert torch.equal(a1.permute(0, 3, 1, 2), k12(x, wts[0], wts[1]))
+    assert torch.equal(a2.permute(0, 3, 1, 2), k12(hb, wts[4], wts[5]))

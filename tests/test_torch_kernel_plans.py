@@ -115,15 +115,17 @@ def test_k2_gemm_plans_cover_fit_and_fill(b, s, c):
         _assert_gemm_covers_fits_and_fills(*gemm)
 
 
-def _assert_gemm_covers_fits_and_fills(name, plan, m, n, k, sets, geglu):
+def _assert_gemm_covers_fits_and_fills(name, plan, m, n, k, sets, geglu, int8=False):
     """One GEMM's plan: each k-block of each output tile run by exactly one CTA
     and each 8-column group of each tile stored by exactly one, within the
-    cluster, shared memory and fill limits of the kernel."""
+    cluster, shared memory and fill limits of the kernel (int8: the int8
+    GEMM's 128-deep k-blocks)."""
 
-    assert plan == gemm_plan(m, n, k, sets, geglu), name
-    nkb = k // hopper_gemm.BK
+    assert plan == gemm_plan(m, n, k, sets, geglu, int8=int8), name
+    nkb = -(-k // (hopper_gemm.BK8 if int8 else hopper_gemm.BK))
+    assert plan.nkb == nkb, (name, plan)
     kblocks, stored = Counter(), Counter()
-    for m0, n0, z, kb0, kb1, groups in gemm_blocks(plan, m, n, k):
+    for m0, n0, z, kb0, kb1, groups in gemm_blocks(plan):
         assert kb1 > kb0, (name, m0, n0, z)
         kblocks.update((m0, n0, z, kb) for kb in range(kb0, kb1))
         stored.update((m0, n0 + 8 * g, z) for g in groups)
