@@ -1,9 +1,9 @@
 // Device routines of the training kernels (train_blocks.cu: K4 and the
-// backwards K7-K9), the int8 kernels K11a and K11c (int8_blocks.cu) and the
-// streamed d <= 128 route of the self-attention (self_attention.cu), with
-// helpers that resnet.cu and hopper_gemm.cuh use too. K1, K2, K3, K10 and
-// K11b run on the Hopper routines (hopper_gemm.cuh, reg_attention.cuh and
-// K11b's int8 wgmma GEMM), none of these.
+// backwards K7-K9) and the streamed d <= 128 route of the self-attention
+// (self_attention.cu), with helpers that resnet.cu, int8_blocks.cu and
+// hopper_gemm.cuh use too. K1, K2, K3, K10 and K11a-c run on the Hopper
+// routines (hopper_gemm.cuh, reg_attention.cuh and int8_blocks.cu's int8
+// wgmma GEMM), none of these.
 //
 //   * gemm_kernel: C = epilogue(prologue(A) @ W^T) for W in torch Linear
 //     layout [N, K], or C = epilogue(A @ W) for W given as [K, N]
@@ -20,7 +20,7 @@
 //     streamed through shared memory in tiles of 64 keys with an online
 //     max-subtracted fp32 softmax; optional fp32 additive key bias [B, Sk];
 //     optional second K/V set combined as out + s * out_2 (the adapter);
-//     output in bf16, or in fp32 for the int8 kernels, which quantize it.
+//     output in bf16 or fp32 (OutT; its callers store bf16).
 //   * launch_ctx_proj: the K/V projections of a cross-attention site from
 //     the raw context rows (text or adapter), gathered in place.
 // Each TU that includes this header gets its own copy (anonymous namespace).

@@ -37,32 +37,18 @@
 // the output tiles are fewer than the SMs, and a register-resident attention.
 //
 // The attention is reg_attention_kernel (reg_attention.cuh), which K11b
-// (int8_blocks.cu) runs too, with an fp32 store.
+// and K11c (int8_blocks.cu) run too, with an fp32 store.
 
 #include "hopper_gemm.cuh"
 #include "reg_attention.cuh"
 
 namespace {
 
-bool fa_tile_ok(int tk) { return tk == 16 || tk == 32 || tk == 64; }
-
 // softmax(q k1^T d^-1/2 + bias) v1 (+ ip_scale * softmax(q k2^T d^-1/2) v2)
-// into out; q/out [B, S, H * d]; set 1 needs a key, set 2 may have none
+// into bf16 out (reg_attention.cuh)
 int launch_reg_attention(const bf16* q, const FaKeys& s1, const FaKeys& s2, float ip_scale, bf16* out, int B, int S,
                          int H, int d, cudaStream_t st) {
-  if (S < 1 || s1.n < 1 || s2.n < 0 || !fa_tile_ok(s1.tk) || !fa_tile_ok(s2.tk) || (s2.n > 0 && !(s2.k && s2.v)))
-    return (int)cudaErrorInvalidValue;
-  switch (d) {
-    case 16: return launch_reg_attention_d<16>(q, s1, s2, ip_scale, out, B, S, H, st);
-    case 32: return launch_reg_attention_d<32>(q, s1, s2, ip_scale, out, B, S, H, st);
-    case 48: return launch_reg_attention_d<48>(q, s1, s2, ip_scale, out, B, S, H, st);
-    case 64: return launch_reg_attention_d<64>(q, s1, s2, ip_scale, out, B, S, H, st);
-    case 80: return launch_reg_attention_d<80>(q, s1, s2, ip_scale, out, B, S, H, st);
-    case 96: return launch_reg_attention_d<96>(q, s1, s2, ip_scale, out, B, S, H, st);
-    case 112: return launch_reg_attention_d<112>(q, s1, s2, ip_scale, out, B, S, H, st);
-    case 128: return launch_reg_attention_d<128>(q, s1, s2, ip_scale, out, B, S, H, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_reg_attention<bf16>(q, s1, s2, ip_scale, out, B, S, H, d, FA_LOG2E / sqrtf((float)d), st);
 }
 
 }  // namespace

@@ -202,6 +202,25 @@ int make_map_2d(CUtensorMap* map, const void* ptr, int rows, int cols, int box_r
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// rows of a batched bf16 matrix as {column, row, batch}: `rows` rows of
+// `cols` columns a batch entry, row-contiguous, batch entries
+// `batch_stride` elements apart (a slice of rows out of [B, Sk, cols]);
+// boxes of 64 columns (128 bytes, 128-byte swizzle) x box_rows x 1 entry.
+// Rows past `rows` are zero-filled, so a box never reads another slice's rows.
+int make_map_3d(CUtensorMap* map, const void* ptr, int rows, int cols, int batch, long long batch_stride,
+                int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)batch_stride * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, estr,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // a channels-last bf16 activation [B, H, W, C] as {channel, w, h, b}; boxes
 // of 64 channels (128 bytes, 128-byte swizzle) x the whole width W x R rows
 // x 1 sample: R * W positions, each one 128-byte row of the box in shared

@@ -18,10 +18,17 @@
 //     both shared tiles, one k-block's group kept in flight while the next
 //     one's loads land.
 //     Epilogues from the accumulator registers, no fp32 tile in shared
-//     memory: bf16 store (HG_STORE, up to three weight sets by grid z, the
+//     memory: bf16 store (HG_STORE, up to four weight sets by grid z, the
 //     QKV projections in one launch), bias + residual (HG_BIAS_RESID), and
 //     GEGLU (HG_GEGLU: value rows [n0, n0 + 64) and gate rows [N + n0, ...)
-//     of W into two accumulators; out = (a + b1) * gelu_erf(g + b1'), erff).
+//     of W into two accumulators; out = (a + b1) * gelu_erf(g + b1')).
+//   * HG_CTX: the bf16 store over rows gathered from a batched context
+//     (K11c's K/V projections): sets 2p and 2p + 1 (K and V of one key
+//     set) read A through the 3-D tensor map of pair p, {K, n_p, B} at the
+//     set's first context row with the context's batch stride; grid y is
+//     B x 64-row tiles, and TMA zero-fills a box past n_p, so no row of the
+//     other key set is read and nothing is copied. Output [B, n_p, N]
+//     contiguous, rows past n_p not stored.
 //   * Split-K where the output tiles are few or the k-loop long (the
 //     wrapper's plan, ops/hopper_gemm.py::gemm_plan):
 //     the ksplit CTAs of one output tile form a thread-block cluster along
@@ -56,17 +63,20 @@ constexpr int HG_MAX_STAGES = 4;
 constexpr int HG_MAX_SPLIT = 8;     // portable cluster size
 constexpr int HG_A_BYTES = HG_BM * 128;
 
-enum HgEpilogue { HG_STORE = 0, HG_BIAS_RESID = 1, HG_GEGLU = 2 };
+enum HgEpilogue { HG_STORE = 0, HG_BIAS_RESID = 1, HG_GEGLU = 2, HG_CTX = 3 };
 
 struct HgArgs {
-  CUtensorMap a;          // A [M, K]
-  CUtensorMap w[3];       // per grid-z set: W [N, K] (GEGLU: [2N, K])
-  bf16* c[3];             // per set: C [M, N]
+  CUtensorMap a;          // A [M, K]; HG_CTX: pair 0's context rows {K, n_0, B}
+  CUtensorMap a_ip;       // HG_CTX: pair 1's context rows {K, n_1, B}
+  CUtensorMap w[4];       // per grid-z set: W [N, K] (GEGLU: [2N, K])
+  bf16* c[4];             // per set: C [M, N] (HG_CTX: [B, n_p, N])
   const bf16* bias;       // BIAS_RESID: [N]; GEGLU: [2N]
   const bf16* resid;      // BIAS_RESID: [M, N]
-  int M, N, K;
+  int M, N, K;            // HG_CTX: M = B x ctx_tiles x 64
   int ksplit;             // CTAs of a cluster, splitting the k-blocks
   int stages;
+  int ctx_n[2];           // HG_CTX: rows a batch entry of each pair
+  int ctx_tiles;          // HG_CTX: 64-row tiles a batch entry (of the longer pair)
 };
 
 __host__ __device__ inline int hg_stage_bytes(int bn, bool dual) { return HG_A_BYTES + bn * 128 * (dual ? 2 : 1); }
@@ -85,11 +95,12 @@ __host__ __device__ inline int hg_smem_bytes(int bn, bool dual, int stages, int 
 
 __device__ __forceinline__ float gelu_erf(float g) { return 0.5f * g * (1.f + erff(g * 0.70710678118654752f)); }
 
-// the epilogue of two neighbouring columns (col, col + 1) of one row
+// the epilogue of two neighbouring columns (col, col + 1) of one output
+// row; rows at or past `lim` are not stored
 template <int EPI>
-__device__ __forceinline__ void hg_store_pair(const HgArgs& g, int set, int row, int col, float v0, float v1,
-                                              float g0, float g1) {
-  if (row >= g.M) return;
+__device__ __forceinline__ void hg_store_pair(const HgArgs& g, int set, int row, int lim, int col, float v0,
+                                              float v1, float g0, float g1) {
+  if (row >= lim) return;
   const size_t off = (size_t)row * g.N + col;
   if (EPI == HG_BIAS_RESID) {
     const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g.resid + off));
@@ -123,9 +134,20 @@ __global__ void __launch_bounds__(HG_THREADS, 1) hgemm_kernel(const __grid_const
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rank = (int)(blockIdx.x % ks);        // == the cluster rank: clusters span ks consecutive x
-  const int n0 = (int)(blockIdx.x / ks) * BN, m0 = blockIdx.y * HG_BM, set = blockIdx.z;
+  const int n0 = (int)(blockIdx.x / ks) * BN, set = blockIdx.z;
   const int nkb = g.K / HG_BK;
   const int kb0 = rank * nkb / ks, nk = (rank + 1) * nkb / ks - kb0;
+  int m0 = blockIdx.y * HG_BM;        // A's first row (HG_CTX: within batch entry cb)
+  int row0 = m0, lim = g.M;           // the output row of tile row 0; one past the tile's last output row
+  int cb = 0;
+  if constexpr (EPI == HG_CTX) {
+    const int n = g.ctx_n[set >> 1];
+    cb = blockIdx.y / g.ctx_tiles;
+    m0 = (blockIdx.y % g.ctx_tiles) * HG_BM;
+    if (m0 >= n) return;              // past the shorter pair's rows: the whole cluster (same y, z) leaves
+    row0 = cb * n + m0;
+    lim = cb * n + n;
+  }
 
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -147,7 +169,8 @@ __global__ void __launch_bounds__(HG_THREADS, 1) hgemm_kernel(const __grid_const
         const uint32_t full = bars + 8 * s, sa = base + s * STAGE;
         mbar_expect_tx(full, STAGE);
         const int kc = (kb0 + i) * HG_BK;
-        tma_load_2d(sa, &g.a, kc, m0, full);
+        if constexpr (EPI == HG_CTX) tma_load_3d(sa, (set >> 1) ? &g.a_ip : &g.a, kc, m0, cb, full);
+        else tma_load_2d(sa, &g.a, kc, m0, full);
         tma_load_2d(sa + HG_A_BYTES, wmap, kc, n0, full);
         if (DUAL) tma_load_2d(sa + HG_A_BYTES + BN * 128, wmap, kc, g.N + n0, full);
       }
@@ -196,15 +219,15 @@ __global__ void __launch_bounds__(HG_THREADS, 1) hgemm_kernel(const __grid_const
   }
 
   const int quad = lane & 3;
-  const int r0 = m0 + 16 * (warp & 3) + (lane >> 2), r1 = r0 + 8;
+  const int r0 = row0 + 16 * (warp & 3) + (lane >> 2), r1 = r0 + 8;
   if (ks == 1) {
     if (warp < 4) {
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         const int col = n0 + 8 * j + 2 * quad;
-        hg_store_pair<EPI>(g, set, r0, col, acc[4 * j], acc[4 * j + 1], DUAL ? acc2[4 * j] : 0.f,
+        hg_store_pair<EPI>(g, set, r0, lim, col, acc[4 * j], acc[4 * j + 1], DUAL ? acc2[4 * j] : 0.f,
                            DUAL ? acc2[4 * j + 1] : 0.f);
-        hg_store_pair<EPI>(g, set, r1, col, acc[4 * j + 2], acc[4 * j + 3], DUAL ? acc2[4 * j + 2] : 0.f,
+        hg_store_pair<EPI>(g, set, r1, lim, col, acc[4 * j + 2], acc[4 * j + 3], DUAL ? acc2[4 * j + 2] : 0.f,
                            DUAL ? acc2[4 * j + 3] : 0.f);
       }
     }
@@ -235,8 +258,8 @@ __global__ void __launch_bounds__(HG_THREADS, 1) hgemm_kernel(const __grid_const
         }
       }
       const int col = n0 + 8 * j + 2 * quad;
-      hg_store_pair<EPI>(g, set, r0, col, v[0], v[1], gt[0], gt[1]);
-      hg_store_pair<EPI>(g, set, r1, col, v[2], v[3], gt[2], gt[3]);
+      hg_store_pair<EPI>(g, set, r0, lim, col, v[0], v[1], gt[0], gt[1]);
+      hg_store_pair<EPI>(g, set, r1, lim, col, v[2], v[3], gt[2], gt[3]);
     }
   }
   cluster.sync();                                       // no CTA leaves while another reads its partials
@@ -268,38 +291,58 @@ int launch_hgemm_t(const HgArgs& g, int sets, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// make_map_2d, remembered: a tensor map is a pure function of (address,
-// rows, cols, box rows, element size), and the weights' (and, through the
-// caching allocator, most activations') recur call after call. Saves the
-// host an encode per operand per call; bounded at 4096 entries.
-int cached_map_2d(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows, int esize = 2) {
+// make_map_2d (batch == 0) or make_map_3d (bf16 rows of `batch` entries
+// `bstride` elements apart), remembered: a tensor map is a pure function of
+// (address, rows, cols, box rows, element size, batch, batch stride), and
+// the weights' (and, through the caching allocator, most activations')
+// recur call after call. Saves the host an encode per operand per call;
+// bounded at 4096 entries.
+int cached_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows, int esize, int batch,
+               long long bstride) {
   struct Key {
     const void* p;
-    int rows, cols, box, esize;
+    int rows, cols, box, esize, batch;
+    long long bstride;
     bool operator==(const Key& o) const {
-      return p == o.p && rows == o.rows && cols == o.cols && box == o.box && esize == o.esize;
+      return p == o.p && rows == o.rows && cols == o.cols && box == o.box && esize == o.esize &&
+             batch == o.batch && bstride == o.bstride;
     }
   };
   struct Hash {
     size_t operator()(const Key& k) const {
       return std::hash<const void*>()(k.p) ^ ((size_t)k.rows * 0x9E3779B97F4A7C15ull) ^ ((size_t)k.cols << 24) ^
-             (size_t)k.box ^ ((size_t)k.esize << 12);
+             (size_t)k.box ^ ((size_t)k.esize << 12) ^ ((size_t)k.batch << 40) ^
+             ((size_t)k.bstride * 0xC2B2AE3D27D4EB4Full);
     }
   };
   static std::mutex mu;
   static std::unordered_map<Key, CUtensorMap, Hash> cache;
-  const Key key{ptr, rows, cols, box_rows, esize};
+  const Key key{ptr, rows, cols, box_rows, esize, batch, bstride};
   std::lock_guard<std::mutex> lock(mu);
   const auto it = cache.find(key);
   if (it != cache.end()) {
     *map = it->second;
     return 0;
   }
-  const int e = make_map_2d(map, ptr, rows, cols, box_rows, esize);
+  const int e = batch ? make_map_3d(map, ptr, rows, cols, batch, bstride, box_rows)
+                      : make_map_2d(map, ptr, rows, cols, box_rows, esize);
   if (e) return e;
   if (cache.size() >= 4096) cache.clear();
   cache.emplace(key, *map);
   return 0;
+}
+
+int cached_map_2d(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows, int esize = 2) {
+  return cached_map(map, ptr, rows, cols, box_rows, esize, 0, 0);
+}
+
+// a plan the kernel runs: 64- or 128-wide tiles dividing N, K % 64, a
+// split of 1-8 CTAs with at least one k-block and one 8-column group each,
+// 2-4 stages
+bool hg_plan_ok(int N, int K, int bn, int ksplit, int stages) {
+  return K > 0 && K % HG_BK == 0 && (bn == 64 || bn == 128) && N > 0 && N % bn == 0 && ksplit >= 1 &&
+         ksplit <= HG_MAX_SPLIT && ksplit <= K / HG_BK && ksplit <= bn / 8 && stages >= HG_MIN_STAGES &&
+         stages <= HG_MAX_STAGES;
 }
 
 // fills g's maps and sizes, checks the plan (bn, ksplit, stages; the
@@ -307,10 +350,7 @@ int cached_map_2d(CUtensorMap* map, const void* ptr, int rows, int cols, int box
 // C[set] = epi(A @ W[set]^T) for set < sets.
 int launch_hgemm(HgArgs& g, const void* a, const void* const* w, int sets, int M, int N, int K, int bn, int ksplit,
                  int stages, int epi, cudaStream_t st) {
-  const int nkb = K / HG_BK;
-  if (M <= 0 || K % HG_BK || bn <= 0 || N % bn || sets < 1 || sets > 3 || ksplit < 1 || ksplit > HG_MAX_SPLIT ||
-      ksplit > nkb || ksplit > bn / 8 || !(bn == 64 || bn == 128) || (epi == HG_GEGLU && bn != 64) ||
-      stages < HG_MIN_STAGES || stages > HG_MAX_STAGES)
+  if (M <= 0 || sets < 1 || sets > 4 || !hg_plan_ok(N, K, bn, ksplit, stages) || (epi == HG_GEGLU && bn != 64))
     return (int)cudaErrorInvalidValue;
   g.M = M;
   g.N = N;

@@ -1,4 +1,4 @@
-// The register-resident attention of K1, K2, K10 and K11b
+// The register-resident attention of K1, K2, K10, K11b and K11c
 // (reg_attention_kernel<D, BIAS, ONE_SET, OutT>): one CTA a tile of 64
 // query rows of one (batch, head), one warp 16 rows; Q's fragments are loaded
 // once into registers; K/V tiles arrive by cp.async into a double buffer,
@@ -35,10 +35,10 @@
 // exactly d columns in 16-byte chunks into rows padded by 16 bytes
 // (ldmatrix without bank conflicts). Keys past a set are zero-filled and
 // masked to -inf; query rows past S are not stored.
-// The store is bf16 (K1, K2, K10) or fp32 (OutT = float: K11b, whose int8
-// out projection quantizes the attention output from fp32, as the TPU
-// kernel does, pallas_int8.py:239-244); the softmax scale is 1/sqrt(d), or
-// the caller's (K11b's q arrives pre-scaled: 1).
+// The store is bf16 (K1, K2, K10) or fp32 (OutT = float: K11b and K11c,
+// whose int8 out projections quantize the attention output from fp32, as
+// the TPU kernels do, pallas_int8.py:239-244); the softmax scale is
+// 1/sqrt(d), or the caller's (K11b's and K11c's q arrive pre-scaled: 1).
 
 #pragma once
 
@@ -79,6 +79,9 @@ __device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+// a key tile width the kernel takes (the wrapper's key_tile)
+inline bool fa_tile_ok(int tk) { return tk == 16 || tk == 32 || tk == 64; }
 
 // shared memory of reg_attention_kernel<d>: Q, then 2 stages of K and V
 __host__ __device__ inline int fa_smem_bytes(int d) { return (FA_TQ + 4 * FA_TK) * (d + 8) * 2; }
@@ -356,16 +359,36 @@ int launch_reg_attention_t(const bf16* q, const FaKeys& s1, const FaKeys& s2, fl
   return (int)cudaGetLastError();
 }
 
-// K1's, K2's and K10's launch (fused_hopper.cu::launch_reg_attention): the
-// bf16 store, softmax scale 1/sqrt(D)
-template <int D>
-int launch_reg_attention_d(const bf16* q, const FaKeys& s1, const FaKeys& s2, float ip_scale, bf16* out, int B, int S,
-                           int H, cudaStream_t st) {
-  const float sl = FA_LOG2E / sqrtf((float)D);
-  if (s1.bias) return launch_reg_attention_t<D, true, false>(q, s1, s2, ip_scale, out, B, S, H, sl, st);
+template <int D, typename OutT>
+int launch_reg_attention_d(const bf16* q, const FaKeys& s1, const FaKeys& s2, float ip_scale, OutT* out, int B, int S,
+                           int H, float scale_log2, cudaStream_t st) {
+  if (s1.bias) return launch_reg_attention_t<D, true, false>(q, s1, s2, ip_scale, out, B, S, H, scale_log2, st);
   if (s2.n == 0 && s1.tk == FA_TK)
-    return launch_reg_attention_t<D, false, true>(q, s1, s2, ip_scale, out, B, S, H, sl, st);
-  return launch_reg_attention_t<D, false, false>(q, s1, s2, ip_scale, out, B, S, H, sl, st);
+    return launch_reg_attention_t<D, false, true>(q, s1, s2, ip_scale, out, B, S, H, scale_log2, st);
+  return launch_reg_attention_t<D, false, false>(q, s1, s2, ip_scale, out, B, S, H, scale_log2, st);
+}
+
+// softmax(q k1^T * scale + bias) v1 (+ ip_scale * softmax(q k2^T * scale) v2)
+// into out; q/out [B, S, H * d]; scale_log2 = scale * log2(e); set 1 needs a
+// key, set 2 may have none. The variant follows the key sets: set 1's bias,
+// set 1 alone in 64-key tiles (the compile-time path), or two sets. Each TU
+// instantiates only the store type it launches.
+template <typename OutT>
+int launch_reg_attention(const bf16* q, const FaKeys& s1, const FaKeys& s2, float ip_scale, OutT* out, int B, int S,
+                         int H, int d, float scale_log2, cudaStream_t st) {
+  if (S < 1 || s1.n < 1 || s2.n < 0 || !fa_tile_ok(s1.tk) || !fa_tile_ok(s2.tk) || (s2.n > 0 && !(s2.k && s2.v)))
+    return (int)cudaErrorInvalidValue;
+  switch (d) {
+    case 16: return launch_reg_attention_d<16>(q, s1, s2, ip_scale, out, B, S, H, scale_log2, st);
+    case 32: return launch_reg_attention_d<32>(q, s1, s2, ip_scale, out, B, S, H, scale_log2, st);
+    case 48: return launch_reg_attention_d<48>(q, s1, s2, ip_scale, out, B, S, H, scale_log2, st);
+    case 64: return launch_reg_attention_d<64>(q, s1, s2, ip_scale, out, B, S, H, scale_log2, st);
+    case 80: return launch_reg_attention_d<80>(q, s1, s2, ip_scale, out, B, S, H, scale_log2, st);
+    case 96: return launch_reg_attention_d<96>(q, s1, s2, ip_scale, out, B, S, H, scale_log2, st);
+    case 112: return launch_reg_attention_d<112>(q, s1, s2, ip_scale, out, B, S, H, scale_log2, st);
+    case 128: return launch_reg_attention_d<128>(q, s1, s2, ip_scale, out, B, S, H, scale_log2, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

@@ -73,8 +73,9 @@ def resident_ctas(smem: int) -> int:
 
 
 def hg_smem_bytes(bn: int, geglu: bool, stages: int, ksplit: int) -> int:
-    """The ring (or the split-K partials, [bn/2 (x2)] x 128 fp32, where
-    larger), 2 x MAX_STAGES mbarriers and 1024 bytes of alignment slack."""
+    """The ring (or the split-K partials, [bn/2 (x2)] x 128 fp32 or int32,
+    where larger), 2 x MAX_STAGES mbarriers and 1024 bytes of alignment
+    slack; the same for the int8 GEMM, whose k-block is 128 bytes too."""
 
     dual = 2 if geglu else 1
     ring = stages * (BM * 128 + bn * 128 * dual)
@@ -88,9 +89,9 @@ def gemm_plan(m: int, n: int, k: int, sets: int = 1, geglu: bool = False, sms: i
     """The launch of ``sets`` products [m, k] x [k, n] (GEGLU: n output
     columns from 2n weight rows; int8: the int8 GEMM, 128-deep k-blocks,
     one set) by ``tile_plan``. Raises on a width the kernel does not take:
-    n % 64, k % 64, m < 1, sets outside 1-3."""
+    n % 64, k % 64, m < 1, sets outside 1-4."""
 
-    if m < 1 or n < 64 or n % 64 or k < BK or k % BK or not 1 <= sets <= 3 or (int8 and (sets > 1 or geglu)):
+    if m < 1 or n < 64 or n % 64 or k < BK or k % BK or not 1 <= sets <= 4 or (int8 and sets > 1):
         raise ValueError(f"hopper gemm: needs M >= 1, N % 64 == 0, K % 64 == 0 and 1-3 weight sets "
                          f"(M={m}, N={n}, K={k}, sets={sets}, int8={int8})")
     return tile_plan(_cdiv(m, BM), n, _cdiv(k, BK8 if int8 else BK), sets, geglu, sms)

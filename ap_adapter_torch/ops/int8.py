@@ -33,35 +33,47 @@ quantizes the Linear weights as they are (head dims 48 and 80 included).
 The TPU's padded columns and rows are zeros, so they change no scale and no
 int8 value of a real channel.
 
-Kernels (``csrc/int8_blocks.cu``). K11b, redesigned for Hopper, is six
-device kernels: one LayerNorm row pass that writes both the bf16 rows of
-the K/V GEMM and the int8 rows and scales of the q projection; the int8 q
-GEMM on an int8 ``wgmma``/TMA GEMM (exact int32 sums, split-K clusters
-where the output tiles are few, ``k11b_plan``) whose epilogue dequantizes
-by row and column scale and scales q by 1/sqrt(d); the K/V GEMM on K1's
-Hopper GEMM; K1's register-resident attention with an fp32 store; the
-quantization of the fp32 attention rows; and the int8 out GEMM with bias
-and residual. K11a and K11c keep the first port's routines: a row-wise
-LayerNorm + quantize kernel, an int8 ``mma.sync`` GEMM (m16n8k32) that
-also forms the GEGLU product, and ``csrc/common.cuh``'s bf16 GEMM and
-attention (output in fp32). On an H100 they are bound by launches and
-activation round trips through device memory, not by the int8
-tensor-core rate; times and bounds are in ``PERF.md``.
+Kernels (``csrc/int8_blocks.cu``), all three on the Hopper routines: a
+LayerNorm + quantize row pass (one warp a row, fp32 two-pass statistics),
+an int8 ``wgmma``/TMA GEMM (exact int32 sums, split-K clusters where the
+output tiles are few; its epilogue dequantizes by row and column scale),
+the quantization of fp32 rows, K1's bf16 Hopper GEMM and the
+register-resident attention with an fp32 store.
+
+* K11a, four device kernels (``k11a_plan``): the row pass (int8 rows
+  only); the W1 product on the int8 GEMM with a GEGLU epilogue (value and
+  gate columns side by side in two int32 accumulators, the fp32 GEGLU
+  product stored in fp32); the quantization of those rows; the W2 product
+  with bias and residual.
+* K11b, six (``k11b_plan``): the row pass, which also writes the bf16 rows
+  of the K/V GEMM; the int8 q GEMM (q scaled by 1/sqrt(d)); the K/V GEMM;
+  the attention over one key set; the quantization of its rows; the int8
+  out GEMM with bias and residual.
+* K11c, six (``k11c_plan``): the text and adapter K/V projected from the
+  context on the bf16 GEMM in one launch (each key set's rows read through
+  a 3-D tensor map over the strided context, no copy); then K11b's chain
+  with the row pass's int8 rows only and K2's two-key-set attention (the
+  fp32 T5 bias on the text set). It projects the context on every call, as
+  the TPU kernel does: under ``use_int8`` the UNet hoists no K/V.
+
+Each wrapper takes one scratch allocation a call. On an H100 the kernels
+are bound by launches and activation round trips through device memory,
+not by the int8 tensor-core rate; times and bounds are in ``PERF.md``.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ap_adapter_torch.ops import cuda_kernels as ck
 from ap_adapter_torch.ops.fused_block import _check_weights
-from ap_adapter_torch.ops.fused_cross import _check_cross, _check_cuda_cross, _split_context
+from ap_adapter_torch.ops.fused_cross import _check_cross, _check_cuda_cross, _split_context, key_tile
 from ap_adapter_torch.ops.fused_ff import _check_widths
-from ap_adapter_torch.ops.hopper_gemm import H100_SMS, GemmPlan, check_ln_width, gemm_plan
+from ap_adapter_torch.ops.hopper_gemm import BM, H100_SMS, GemmPlan, check_ln_width, gemm_plan
 
 _INV127 = 1.0 / 127.0
 
@@ -212,6 +224,40 @@ def _quant_dtypes(w8: str, scale: str, w8b: str, scale_b: str) -> dict:
     return {w8: torch.int8, w8b: torch.int8, scale: torch.float32, scale_b: torch.float32}
 
 
+def scratch_layout(*sizes: int) -> Tuple[Tuple[int, ...], int]:
+    """Byte offsets of buffers of ``sizes`` bytes in one scratch allocation,
+    each 256-byte aligned (the TMA maps and 16-byte loads need 16), and the
+    allocation's size."""
+
+    offsets, at = [], 0
+    for n in sizes:
+        offsets.append(at)
+        at += -(-n // 256) * 256
+    return tuple(offsets), at
+
+
+class K11aPlan(NamedTuple):
+    w1: GemmPlan        # int8 LN(x) rows [M, C] x W1q [2·inner, C], GEGLU epilogue, fp32 store
+    w2: GemmPlan        # int8 GEGLU rows [M, inner] x W2q [C, inner], bias + residual
+    offsets: Tuple[int, ...]   # x8, sx, y, y8, sy in the scratch
+    nbytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def k11a_plan(b: int, s: int, c: int, inner: int, sms: int = H100_SMS) -> K11aPlan:
+    """The launches of K11a on x [b, s, c]: both int8 GEMMs by ``gemm_plan``
+    (the W1 GEMM's 64-wide tiles carry the value and the gate columns), and
+    its scratch. Raises on a width the kernels do not take."""
+
+    op = "fused_ln_geglu_ff_int8"
+    _check_widths(op, c, inner)
+    check_ln_width(op, c)
+    m = b * s
+    offsets, nbytes = scratch_layout(m * c, 4 * m, 4 * m * inner, m * inner, 4 * m)
+    return K11aPlan(gemm_plan(m, inner, c, geglu=True, sms=sms, int8=True), gemm_plan(m, c, inner, sms=sms, int8=True),
+                    offsets, nbytes)
+
+
 def fused_ln_geglu_ff_int8(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, eps: float = 1e-5) -> torch.Tensor:
     """K11a on a CUDA tensor (bf16 activations, LN and biases; int8 weights,
     fp32 scales), the plain version on a CPU tensor."""
@@ -225,16 +271,14 @@ def fused_ln_geglu_ff_int8(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, eps: float =
     ck.check_no_grad(op, **operands)
     if x.device.type == "cpu":
         return fused_ln_geglu_ff_int8_plain(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, eps)
-    _check_widths(op, c, inner)
+    plan = k11a_plan(b, s, c, inner, ck.sm_count(x.device))
     ck.check_operands(op, x, _quant_dtypes("w1q", "s1", "w2q", "s2"), **operands)
-    m = b * s
-    x8, y8 = x.new_empty(m, c, dtype=torch.int8), x.new_empty(m, inner, dtype=torch.int8)
-    sx, sy = (x.new_empty(m, dtype=torch.float32) for _ in range(2))
-    y = x.new_empty(m, inner, dtype=torch.float32)
+    scratch = x.new_empty(plan.nbytes, dtype=torch.uint8)
     out = torch.empty_like(x)
+    x8, sx, y, y8, sy = (scratch.data_ptr() + o for o in plan.offsets)
     ck.launch(op, x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1q.data_ptr(), s1.data_ptr(), b1.data_ptr(),
-              w2q.data_ptr(), s2.data_ptr(), b2.data_ptr(), x8.data_ptr(), sx.data_ptr(), y.data_ptr(),
-              y8.data_ptr(), sy.data_ptr(), out.data_ptr(), b, s, c, inner, eps)
+              w2q.data_ptr(), s2.data_ptr(), b2.data_ptr(), x8, sx, y, y8, sy, out.data_ptr(), b, s, c, inner, eps,
+              *plan.w1.launch_args[1:], *plan.w2.launch_args)
     return out
 
 
@@ -286,6 +330,63 @@ def fused_ln_self_attention_int8(x, ln_w, ln_b, wq8, sq, wk, wv, wo8, so, bo, he
     return out
 
 
+class K11cPlan(NamedTuple):
+    kv: GemmPlan        # context rows x Wk, Wv (, Wk_ip, Wv_ip), bf16 store: B x ctx_tiles row tiles, 2 or 4 sets
+    q: GemmPlan         # int8 LN(x) rows [M, C] x Wq8, bf16 store scaled by 1/sqrt(d)
+    out: GemmPlan       # int8 attention rows [M, C] x Wo8, bias + residual
+    tk: int             # keys a tile of the text set
+    tk_ip: int          # keys a tile of the adapter set
+    offsets: Tuple[int, ...]   # x8, sx, q, kv (k, v, ki, vi), attn in the scratch
+    nbytes: int
+
+
+def ctx_tiles(sk_text: int, sk_ip: int) -> int:
+    """64-row tiles a batch entry of the context K/V GEMM: those of the
+    longer key set (the shorter set's surplus CTAs leave at once)."""
+
+    return -(-max(sk_text, sk_ip) // BM)
+
+
+def ctx_boxes(b: int, sk_text: int, sk_ip: int) -> Iterator[Tuple[int, int, int, int, int]]:
+    """The row tiles of the context K/V GEMM that do work, by the kernel's
+    formulas (``hgemm_kernel``, HG_CTX), as (pair, batch entry, first row
+    within the pair's key set, rows stored, first output row): grid y runs
+    over ``b * ctx_tiles`` tiles, entry = y / tiles, m0 = (y % tiles) * 64;
+    a tile at or past the pair's n rows leaves; the box's rows past n are
+    zero-filled by TMA, and output row entry * n + m0 + i is stored for
+    i < n - m0. Pair 0 is the text set, pair 1 the adapter set."""
+
+    tiles = ctx_tiles(sk_text, sk_ip)
+    for pair, n in enumerate((sk_text, sk_ip)):
+        for y in range(b * tiles):
+            entry, m0 = y // tiles, (y % tiles) * BM
+            if m0 < n:
+                yield pair, entry, m0, min(BM, n - m0), entry * n + m0
+
+
+@functools.lru_cache(maxsize=None)
+def k11c_plan(b: int, s: int, c: int, heads: int, sk_text: int, sk_ip: int, dc: int,
+              sms: int = H100_SMS) -> K11cPlan:
+    """The launches of K11c on x [b, s, c] against a context of ``sk_text``
+    text and ``sk_ip`` adapter rows (0: no adapter set) of width ``dc``: the
+    context K/V GEMM (2 or 4 weight sets over ``b * ctx_tiles`` row tiles),
+    the int8 q and out GEMMs by ``gemm_plan``, each key set's tile
+    (``key_tile``) and the scratch. Raises on a width the kernels do not
+    take."""
+
+    op = "fused_ln_cross_attention_int8"
+    ck.check_heads(op, c, heads)
+    check_ln_width(op, c)
+    if dc % 64 or sk_text < 1 or sk_ip < 0:
+        raise ValueError(f"{op}: the context K/V GEMM needs a context width % 64 == 0 (its rows' TMA boxes "
+                         f"start 16-byte aligned then) and text keys (Dc={dc}, keys {sk_text} + {sk_ip})")
+    m = b * s
+    i8 = gemm_plan(m, c, c, sms=sms, int8=True)
+    kv = gemm_plan(b * ctx_tiles(sk_text, sk_ip) * BM, c, dc, sets=4 if sk_ip else 2, sms=sms)
+    offsets, nbytes = scratch_layout(m * c, 4 * m, 2 * m * c, 2 * 2 * b * (sk_text + sk_ip) * c, 4 * m * c)
+    return K11cPlan(kv, i8, i8, key_tile(sk_text), key_tile(sk_ip), offsets, nbytes)
+
+
 def fused_ln_cross_attention_int8(
     x, context, ln_w, ln_b, wq8, sq, wk, wv, wo8, so, bo, heads: int, *,
     wk_ip=None, wv_ip=None, ip_scale: float = 0.0, num_ip_tokens: int = 8,
@@ -308,17 +409,13 @@ def fused_ln_cross_attention_int8(
             x, context, ln_w, ln_b, wq8, sq, wk, wv, wo8, so, bo, heads, wk_ip=wk_ip, wv_ip=wv_ip,
             ip_scale=ip_scale, num_ip_tokens=num_ip_tokens, bias=bias, eps=eps)
     _check_cuda_cross(op, x, context, heads, operands, _quant_dtypes("wq8", "sq", "wo8", "so"))
-    x8 = x.new_empty(b * s, c, dtype=torch.int8)
-    sx = x.new_empty(b * s, dtype=torch.float32)
-    q, out = torch.empty_like(x), torch.empty_like(x)
-    attn = x.new_empty(b, s, c, dtype=torch.float32)
-    k, v = (x.new_empty(b, sk_text, c) for _ in range(2))
-    ki = vi = None
-    if sk_ip:
-        ki, vi = (x.new_empty(b, sk_ip, c) for _ in range(2))
+    plan = k11c_plan(b, s, c, heads, sk_text, sk_ip, context.shape[2], ck.sm_count(x.device))
+    scratch = x.new_empty(plan.nbytes, dtype=torch.uint8)
+    out = torch.empty_like(x)
+    x8, sx, q, kv, attn = (scratch.data_ptr() + o for o in plan.offsets)
     ck.launch(op, x.data_ptr(), context.data_ptr(), context.shape[1], context.shape[2], sk_text, ln_w.data_ptr(),
               ln_b.data_ptr(), wq8.data_ptr(), sq.data_ptr(), wk.data_ptr(), wv.data_ptr(), ck.ptr(wk_ip), ck.ptr(wv_ip),
-              wo8.data_ptr(), so.data_ptr(), bo.data_ptr(), float(ip_scale), ck.ptr(bias), x8.data_ptr(),
-              sx.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), ck.ptr(ki), ck.ptr(vi), attn.data_ptr(),
-              out.data_ptr(), b, s, c, heads, eps, float(c // heads) ** -0.5)
+              wo8.data_ptr(), so.data_ptr(), bo.data_ptr(), float(ip_scale), ck.ptr(bias), x8, sx, q, kv, attn,
+              out.data_ptr(), b, s, c, heads, eps, float(c // heads) ** -0.5, plan.tk, plan.tk_ip,
+              *plan.kv.launch_args, *plan.q.launch_args, *plan.out.launch_args)
     return out

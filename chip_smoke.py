@@ -45,7 +45,9 @@ prints its seconds:
 9. int8 kernels: K11a, K11b and K11c (adapter on; T5 with its bias) at each
    edit-path shape, B=2, int8 weights from ``quantize_weight``, against the
    plain versions (exact integer products in float64; limit 2e-2 of
-   max|plain|), with both times; K11b's cases list their device kernels;
+   max|plain|), with both times; their cases list their device kernels,
+   and K11a's and K11c's time their int8 products as ``torch._int_mm``
+   calls (cuBLASLt) beside them as information;
 10. int8 edit slice: the same weights as phase 6 under ``use_int8``
    (quantized once by the pipeline) serve the same 2 requests; the same
    waveform checks, launch counts of exactly one K11b/K11c/K11a per routed
@@ -172,7 +174,8 @@ EDIT_KERNELS = ("fused_ln_self_attention", "fused_ln_cross_attention_kv", "fused
 # redesigned for Hopper (hopper_gemm.cuh, reg_attention.cuh, the int8 wgmma GEMM, the TMA convs): their
 # cases list device kernels
 REDESIGNED = ("fused_ln_self_attention", "fused_ln_cross_attention_kv", "fused_ln_geglu_ff", "dual_kv_attention",
-              "fused_ln_self_attention_int8", "fused_resnet_block")
+              "fused_ln_self_attention_int8", "fused_ln_geglu_ff_int8", "fused_ln_cross_attention_int8",
+              "fused_resnet_block")
 TRAIN_KERNELS = ("fused_ln_cross_attention", "fused_ln_self_attention_bwd_dx", "fused_ln_cross_attention_bwd",
                  "fused_ln_geglu_ff_bwd_dx")
 INT8_KERNELS = ("fused_ln_self_attention_int8", "fused_ln_cross_attention_int8", "fused_ln_geglu_ff_int8")
@@ -371,6 +374,7 @@ def int8_kernel_phase(device) -> dict:
     def r(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=device) * scale).to(torch.bfloat16)
 
+    info_gen = torch.Generator(device=device).manual_seed(9)      # apart, so the cases' inputs stay as they were
     results = new_results(INT8_KERNELS)
     for s, c in SHAPES:
         x = r(2, s, c)
@@ -389,6 +393,9 @@ def int8_kernel_phase(device) -> dict:
         t5_bias[0, 12:] = -10000.0
         t5_bias[1, 30:] = -10000.0
         ff = (x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2)
+        m = 2 * s
+        ff_mm = int_mm_products(info_gen, [(m, c, w1q), (m, 4 * c, w2q)])   # [M, C] x W1q^T, [M, 4C] x W2q^T
+        ca_mm = int_mm_products(info_gen, [(m, c, wq8), (m, c, wo8)])       # the q and out products
         sa = (x, ln_w, ln_b, wq8, sq, wk, wv, wo8, so, bo, HEADS)
         ca = (x, ctx, ln_w, ln_b, wq8, sq, wkc, wvc, wo8, so, bo, HEADS)
         ad = dict(wk_ip=wki, wv_ip=wvi, ip_scale=0.5)
@@ -405,9 +412,23 @@ def int8_kernel_phase(device) -> dict:
             ("fused_ln_geglu_ff_int8", "geglu", {},
              lambda: fused_ln_geglu_ff_int8(*ff), lambda: fused_ln_geglu_ff_int8_plain(*ff)),
         ]
+        info = {"fused_ln_geglu_ff_int8": {"int_mm": ff_mm}, "fused_ln_cross_attention_int8": {"int_mm": ca_mm}}
         for name, variant, keys, kernel, plain in cases:
-            run_case(results, name, variant, (2, s, c), keys, kernel, plain, TOL, split=name in REDESIGNED)
+            run_case(results, name, variant, (2, s, c), keys, kernel, plain, TOL, split=name in REDESIGNED,
+                     info=info.get(name))
     return results
+
+
+def int_mm_products(gen, shapes):
+    """A K11 case's int8 products as ``torch._int_mm`` calls (cuBLASLt, int32
+    sums) on random int8 rows [m, k] against its int8 weights [n, k]: timed
+    beside the kernel as information, never called by the port."""
+
+    import torch
+
+    pairs = [(torch.randint(-127, 128, (m, k), generator=gen, device=w8.device, dtype=torch.int8), w8.t())
+             for m, k, w8 in shapes]
+    return lambda: tuple(torch._int_mm(a, wt) for a, wt in pairs)
 
 
 def resnet_shapes(unet_config, h: int, w: int) -> list:

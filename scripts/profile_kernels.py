@@ -16,8 +16,10 @@ number of device events, with their names and each name's device ms (the
 split of a call by device kernel); and the device ms of any call the smoke
 times beside a case as information (``sdpa`` beside K1, two ``sdpa`` plus
 the add beside K10, K13's two convs as channels-last ``F.conv2d`` calls),
-summed per kernel too. The plain versions are not run:
-``chip_smoke.py`` holds the kernels against them.
+summed per kernel too; and the first 16 hex digits of a sha256 of the
+output's bytes (``output_sha256``), so that two trees' outputs on the
+smoke's seeded inputs can be compared bit for bit. The plain versions are
+not run: ``chip_smoke.py`` holds the kernels against them.
 
 Prints one line per case and one per kernel (device ms summed over its
 cases, device kernels per call against ``EXPECTED_DEVICE_KERNELS``, the
@@ -33,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import hashlib
 import json
 import os
 import sys
@@ -41,10 +44,13 @@ import time
 PHASES = ("kernels", "training", "int8", "resnet", "dual_kv")
 ITERS = 10
 TRACE_TRIES = 4          # the tracer now and then hands back no device events: retry
-# device kernels a call of the redesigned kernels and K12 (K11b: LN+quantize rows, int8 q GEMM, K/V GEMM,
-# attention, quantize rows, int8 out GEMM; K13: GN1+SiLU, conv1, GN2+SiLU, conv2)
+# device kernels a call of the redesigned kernels and K12 (K11a: LN+quantize rows, int8 GEGLU GEMM, quantize
+# rows, int8 W2 GEMM; K11b: LN+quantize rows, int8 q GEMM, K/V GEMM, attention, quantize rows, int8 out GEMM;
+# K11c: context K/V GEMM, LN+quantize rows, int8 q GEMM, attention, quantize rows, int8 out GEMM; K13: GN1+SiLU,
+# conv1, GN2+SiLU, conv2)
 EXPECTED_DEVICE_KERNELS = {"fused_ln_self_attention": 4, "fused_ln_cross_attention_kv": 4, "fused_ln_geglu_ff": 3,
-                           "dual_kv_attention": 1, "group_norm_silu": 1, "fused_ln_self_attention_int8": 6,
+                           "dual_kv_attention": 1, "group_norm_silu": 1, "fused_ln_geglu_ff_int8": 4,
+                           "fused_ln_self_attention_int8": 6, "fused_ln_cross_attention_int8": 6,
                            "fused_resnet_block": 4}
 
 
@@ -110,7 +116,13 @@ def main(argv=None) -> int:
                      info=None) -> None:
         got = device_profile(kernel)
         lib = device_profile(library) if library is not None else None
+        out = kernel()
+        torch.cuda.synchronize()
+        digest = hashlib.sha256(b"".join(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()
+                                         for t in (out if isinstance(out, tuple) else (out,))
+                                         if torch.is_tensor(t))).hexdigest()[:16]
         case = {"variant": variant, "shape": list(shape), **{k: v for k, v in keys.items()}, **got,
+                "output_sha256": digest,
                 "library_device_ms": lib["device_ms"] if lib else None,
                 "info_device_ms": {k: device_profile(fn)["device_ms"] for k, fn in (info or {}).items()}}
         k = per_kernel.setdefault(name, {"device_ms": 0.0, "device_kernels": [], "library_device_ms": None,
@@ -125,7 +137,7 @@ def main(argv=None) -> int:
         k["cases"].append(case)
         results[name]["cases"].append(case)      # the phase reads its last case
         names = ", ".join(f"{n[:60]} x{c:g} {got['names_ms'][n]:.4f} ms" for n, c in got["names"].items())
-        print(f"case {name:30s} {variant:8s} {tuple(shape)} {keys}: device_ms={got['device_ms']:.4f} "
+        print(f"case {name:30s} {variant:8s} {tuple(shape)} {keys}: sha256={digest} device_ms={got['device_ms']:.4f} "
               f"kernels/call={got['device_kernels']:g} [{names}]"
               + (f" library_device_ms={lib['device_ms']:.4f}" if lib else "")
               + "".join(f" {k}_device_ms={t:.4f} (information)" for k, t in case["info_device_ms"].items()),

@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
-"""Device time of K1's, K2's, K3's, K10's, K11b's and K13's kernels under
-other launch plans than the wrappers' own, at the edit path's shapes, on
-one NVIDIA GPU.
+"""Device time of K1's, K2's, K3's, K10's, K11a's, K11b's, K11c's and K13's
+kernels under other launch plans than the wrappers' own, at the edit path's
+shapes, on one NVIDIA GPU.
 
-    python3 scripts/sweep_block_plans.py [--kernels K1,K2,K3,K10,K11b,K13]
+    python3 scripts/sweep_block_plans.py [--kernels K1,K2,K3,K10,K11a,K11b,K11c,K13]
 
 For K1 (``fused_ln_self_attention``), K2 (``fused_ln_cross_attention_kv``,
 8 text + 128 adapter keys and 64 T5 keys with their bias) and K3
 (``fused_ln_geglu_ff``) at B=2 and each (S, C) of ``chip_smoke.SHAPES``, and
 for K10 (``fused_dual_kv_attention``) at B=2 and each (S, d) of
 ``chip_smoke.DUAL_KV_LEVELS`` with 8 text keys and each audio key count,
-for K11b (``fused_ln_self_attention_int8``, int8 weights from
-``quantize_weight``) at each (S, C), and for K13 (``fused_resnet_block``,
-with a per-sample temb) at every distinct resnet shape of the edit, bf16
-inputs: the C entry point is called with the wrapper's plan (``k1_plan``,
-``k2_plan``, ``k3_plan``, ``key_tile``, ``k11b_plan``, ``conv_plan``),
+for K11a, K11b and K11c (``fused_ln_geglu_ff_int8``,
+``fused_ln_self_attention_int8``, ``fused_ln_cross_attention_int8`` with
+K2's two context cases, int8 weights from ``quantize_weight``) at each
+(S, C), and for K13 (``fused_resnet_block``, with a per-sample temb) at
+every distinct resnet shape of the edit, bf16 inputs: the C entry point is
+called with the wrapper's plan (``k1_plan``, ``k2_plan``, ``k3_plan``,
+``key_tile``, ``k11a_plan``, ``k11b_plan``, ``k11c_plan``, ``conv_plan``),
 then with one choice
 changed at a time (each GEMM's tile width and split-K, then its ring's
 stage count; each key set's tile width), and ``chip_smoke.device_split``
@@ -37,7 +39,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernels", default="K1,K2,K3,K10,K11b,K13")
+    parser.add_argument("--kernels", default="K1,K2,K3,K10,K11a,K11b,K11c,K13")
     which = set(parser.parse_args(argv).kernels.split(","))
 
     import torch
@@ -52,7 +54,9 @@ def main(argv=None) -> int:
     from ap_adapter_torch.ops.fused_block import fused_ln_self_attention_plain, k1_plan
     from ap_adapter_torch.ops.fused_cross import KEY_TILES, fused_ln_cross_attention_kv_plain, k2_plan, key_tile
     from ap_adapter_torch.ops.fused_ff import fused_ln_geglu_ff_plain, k3_plan
-    from ap_adapter_torch.ops.int8 import fused_ln_self_attention_int8_plain, k11b_plan, quantize_weight
+    from ap_adapter_torch.ops.int8 import (
+        fused_ln_cross_attention_int8_plain, fused_ln_geglu_ff_int8_plain, fused_ln_self_attention_int8_plain,
+        k11a_plan, k11b_plan, k11c_plan, quantize_weight)
 
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -148,6 +152,28 @@ def main(argv=None) -> int:
             want = fused_ln_self_attention_int8_plain(x, ln_w, ln_b, wq8, sq, wk, wv, wo8, so, bo, heads).float()
             for v in dict.fromkeys(variants):
                 run(chip_smoke, "K11b", (s, c), v, v == base, lambda: k11b(*v), want)
+        if "K11a" in which:
+            w1q, s1 = quantize_weight(w1)
+            w2q, s2 = quantize_weight(w2)
+            pa = k11a_plan(b, s, c, 4 * c)
+            scr = torch.empty(pa.nbytes, dtype=torch.uint8, device=device)
+
+            def k11a(w1p, w2p):
+                ck.launch("fused_ln_geglu_ff_int8", x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1q.data_ptr(),
+                          s1.data_ptr(), b1.data_ptr(), w2q.data_ptr(), s2.data_ptr(), b2.data_ptr(),
+                          *(scr.data_ptr() + o for o in pa.offsets), out.data_ptr(), b, s, c, 4 * c, eps, *w1p[1:],
+                          *w2p)
+                return out
+
+            base = (pa.w1.launch_args, pa.w2.launch_args)
+            variants = [base] + [(v, base[1]) for v in gemm_variants(pa.w1, True)]
+            variants += [(base[0], v) for v in gemm_variants(pa.w2, False)]
+            want = fused_ln_geglu_ff_int8_plain(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2).float()
+            for v in dict.fromkeys(variants):
+                run(chip_smoke, "K11a", (s, c), v, v == base, lambda: k11a(*v), want)
+        if "K11c" in which:
+            sweep_k11c(chip_smoke, ck, r, device, x, ln_w, ln_b, wq, wo, bo, s, c, heads, eps, k11c_plan,
+                       quantize_weight, fused_ln_cross_attention_int8_plain, KEY_TILES)
     if "K13" in which:
         sweep_resnet(chip_smoke, ck, r, device)
     if "K10" in which:
@@ -167,6 +193,47 @@ def main(argv=None) -> int:
                     run(chip_smoke, f"K10 Si={si}", (s, heads * d), t, t == base, lambda: k10(t), want)
     print(card, flush=True)
     return 0
+
+
+def sweep_k11c(chip_smoke, ck, r, device, x, ln_w, ln_b, wq, wo, bo, s, c, heads, eps, k11c_plan, quantize_weight,
+               plain, key_tiles) -> None:
+    """K11c at one (S, C) with K2's two context cases (8 text + 128 adapter
+    rows of 768; 64 T5 rows of 1024 with their bias): the plan, then each
+    key set's tile width, the context K/V GEMM's, the q GEMM's and the out
+    GEMM's plan changed one at a time."""
+
+    import torch
+
+    b = x.shape[0]
+    wq8, sq = quantize_weight(wq)
+    wo8, so = quantize_weight(wo)
+    t5_bias = torch.zeros(b, 64, device=device)
+    t5_bias[0, 12:] = -10000.0
+    t5_bias[1, 30:] = -10000.0
+    out = torch.empty_like(x)
+    for label, sk, sk_ip, dc, bias in (("adapter", 8, 128, 768, None), ("t5+bias", 64, 0, 1024, t5_bias)):
+        ctx = r(b, sk + sk_ip, dc)
+        wk, wv, wki, wvi = (r(c, dc, scale=dc ** -0.5) if i < 2 or sk_ip else None for i in range(4))
+        p = k11c_plan(b, s, c, heads, sk, sk_ip, dc)
+        scr = torch.empty(p.nbytes, dtype=torch.uint8, device=device)
+
+        def k11c(tiles, kvp, qp, op):
+            ck.launch("fused_ln_cross_attention_int8", x.data_ptr(), ctx.data_ptr(), sk + sk_ip, dc, sk,
+                      ln_w.data_ptr(), ln_b.data_ptr(), wq8.data_ptr(), sq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
+                      ck.ptr(wki), ck.ptr(wvi), wo8.data_ptr(), so.data_ptr(), bo.data_ptr(), 0.5, ck.ptr(bias),
+                      *(scr.data_ptr() + o for o in p.offsets), out.data_ptr(), b, s, c, heads, eps,
+                      float(c // heads) ** -0.5, *tiles, *kvp, *qp, *op)
+            return out
+
+        base = ((p.tk, p.tk_ip), p.kv.launch_args, p.q.launch_args, p.out.launch_args)
+        variants = [base] + [(t, *base[1:]) for t in tile_variants(base[0], (sk, sk_ip), key_tiles)]
+        variants += [(base[0], v, *base[2:]) for v in gemm_variants(p.kv, False)]
+        variants += [(*base[:2], v, base[3]) for v in gemm_variants(p.q, False)]
+        variants += [(*base[:3], v) for v in gemm_variants(p.out, False)]
+        kw = dict(wk_ip=wki, wv_ip=wvi, ip_scale=0.5, num_ip_tokens=sk) if sk_ip else {}
+        want = plain(x, ctx, ln_w, ln_b, wq8, sq, wk, wv, wo8, so, bo, heads, bias=bias, **kw).float()
+        for v in dict.fromkeys(variants):
+            run(chip_smoke, f"K11c {label}", (s, c), v, v == base, lambda: k11c(*v), want)
 
 
 def tile_variants(base, counts, widths) -> list:

@@ -8,6 +8,8 @@ neither jax nor the JAX package, so it also runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_cuda.py
 """
 
+import re
+
 import pytest
 import torch
 
@@ -697,3 +699,118 @@ def test_k13_activation_is_k12_bit_for_bit(cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(a1.permute(0, 3, 1, 2), k12(x, wts[0], wts[1]))
     assert torch.equal(a2.permute(0, 3, 1, 2), k12(hb, wts[4], wts[5]))
+
+
+def _k11a_operands(device, b, s, c, seed):
+    """x [b, s, c] and K11a's other operands (int8 w1q/w2q from quantize_weight, inner = 4C)."""
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *shape, scale=1.0: _r(g, device, *shape, scale=scale)
+    w1q, s1 = quantize_weight(r(8 * c, c, scale=c ** -0.5))
+    w2q, s2 = quantize_weight(r(c, 4 * c, scale=(4 * c) ** -0.5))
+    return r(b, s, c), (1 + r(c, scale=0.1), r(c, scale=0.1), w1q, s1, r(8 * c, scale=0.1), w2q, s2,
+                        r(c, scale=0.1))
+
+
+def _k11c_operands(device, b, s, c, heads, sk, sk_ip, dc, biased, seed):
+    """K11c's positional operands for x [b, s, c] against a context of sk text
+    and sk_ip adapter rows of width dc, and its keyword arguments: the
+    adapter's weights (sk_ip > 0, ip_scale 0.55) and a T5 padding bias."""
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *shape, scale=1.0: _r(g, device, *shape, scale=scale)
+    wq8, sq = quantize_weight(r(c, c, scale=c ** -0.5))
+    wo8, so = quantize_weight(r(c, c, scale=c ** -0.5))
+    args = (r(b, s, c), r(b, sk + sk_ip, dc), 1 + r(c, scale=0.1), r(c, scale=0.1), wq8, sq,
+            r(c, dc, scale=dc ** -0.5), r(c, dc, scale=dc ** -0.5), wo8, so, r(c, scale=0.1), heads)
+    kw = dict(num_ip_tokens=sk)
+    if sk_ip:
+        kw.update(wk_ip=r(c, dc, scale=dc ** -0.5), wv_ip=r(c, dc, scale=dc ** -0.5), ip_scale=0.55)
+    if biased:
+        bias = torch.zeros(b, sk, device=device)
+        bias[0, sk // 3:] = -10000.0          # padded T5 positions
+        kw["bias"] = bias
+    return args, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,c,heads", [(2, 1000, 256, 8), (2, 252, 384, 8), (2, 64, 640, 8), (1, 37, 128, 4),
+                                         (3, 17, 384, 8), (1, 63, 640, 8)])
+def test_k11a_k11c_match_plain(cuda_device, b, s, c, heads):
+    """K11a (the int8 GEGLU GEMM with an fp32 store, quantize, the W2 GEMM)
+    and K11c (the context K/V GEMM through 3-D tensor maps, the int8 q GEMM,
+    the two-key-set attention with an fp32 store, the int8 out GEMM) at head
+    dims 32, 48 and 80: the three UNet levels and ragged M; K11c at an
+    adapter site (8 + 128 rows of 768) and a T5 site (64 rows of 1024 with
+    its bias). One launch a call."""
+
+    x, ops = _k11a_operands(cuda_device, b, s, c, 21)
+    before = dict(cuda_kernels.LAUNCHES)
+    _check(fused_ln_geglu_ff_int8(x, *ops), fused_ln_geglu_ff_int8_plain(x, *ops))
+    for seed, keys in ((22, (8, 128, 768, False)), (23, (64, 0, 1024, True))):
+        args, kw = _k11c_operands(cuda_device, b, s, c, heads, *keys, seed)
+        _check(fused_ln_cross_attention_int8(*args, **kw), fused_ln_cross_attention_int8_plain(*args, **kw))
+    moved = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
+    assert moved == {**dict.fromkeys(before, 0), "fused_ln_geglu_ff_int8": 1, "fused_ln_cross_attention_int8": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,c", [(1000, 256), (64, 640)])
+@pytest.mark.parametrize("sk,sk_ip,dc,biased", [(8, 32, 768, False), (8, 128, 768, False), (8, 512, 768, False),
+                                                (8, 128, 768, True), (64, 0, 1024, True), (77, 0, 1024, False),
+                                                (8, 0, 768, False)])
+def test_k11c_key_sets_match_plain(cuda_device, s, c, sk, sk_ip, dc, biased):
+    """K11c with 32, 128 and 512 adapter keys (pool 4, 2 and 1), with and
+    without an adapter, with and without the T5 bias: the context GEMM's
+    pairs of 2 or 4 weight sets over row tiles of the longer set, and the
+    attention's key tiles (16 for 8 text keys, 64 for the rest; 77 keys on
+    the one-set 64-key path)."""
+
+    args, kw = _k11c_operands(cuda_device, 2, s, c, 8, sk, sk_ip, dc, biased, 24)
+    _check(fused_ln_cross_attention_int8(*args, **kw), fused_ln_cross_attention_int8_plain(*args, **kw))
+
+
+@pytest.mark.gpu
+def test_k11a_k11c_are_deterministic(cuda_device):
+    """Two calls give the same bits: K11a at the 640 level (its W2 GEMM split
+    8 ways, int32 partials) and K11c at the 1000 level (its context GEMM's
+    12 k-blocks split 4 ways, fp32 partials in rank order)."""
+
+    x, ops = _k11a_operands(cuda_device, 2, 64, 640, 25)
+    args, kw = _k11c_operands(cuda_device, 2, 1000, 256, 8, 8, 128, 768, False, 26)
+    for fn in (lambda: fused_ln_geglu_ff_int8(x, *ops), lambda: fused_ln_cross_attention_int8(*args, **kw)):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_k11a_k11c_device_kernels_as_planned(cuda_device):
+    """A K11a call runs four device kernels (the LN + quantize row pass, the
+    int8 GEGLU GEMM, the quantization of its rows, the int8 W2 GEMM) and a
+    K11c call six (the context K/V GEMM, the row pass, the int8 q GEMM, the
+    two-key-set attention, the quantization, the int8 out GEMM), none of the
+    first port's mma.sync GEMM, WMMA GEMM or streamed attention."""
+
+    from torch.profiler import ProfilerActivity, profile
+
+    x, ops = _k11a_operands(cuda_device, 2, 252, 384, 27)
+    args, kw = _k11c_operands(cuda_device, 2, 252, 384, 8, 8, 128, 768, False, 28)
+    cases = [(lambda: fused_ln_geglu_ff_int8(x, *ops),
+              ["ln_quant_rows_kernel<false>", "i8gemm_kernel<64, 2>", "quant_rows_kernel", "i8gemm_kernel<64, 1>"]),
+             (lambda: fused_ln_cross_attention_int8(*args, **kw),
+              ["hgemm_kernel<64, 3>", "ln_quant_rows_kernel<false>", "i8gemm_kernel<64, 0>",
+               "reg_attention_kernel<48, false, false, float>", "quant_rows_kernel", "i8gemm_kernel<64, 1>"])]
+    for fn, want in cases:
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(4):                    # the tracer now and then hands back no device events
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            if names:
+                break
+        short = [m.group(1) if (m := re.search(r"::(\w+(?:<[^>]*>)?)\(", n)) else n for n in names]
+        assert sorted(short) == sorted(want * 3), short

@@ -291,7 +291,7 @@ def test_tile_order_emulation_matches_the_plain_versions(d, n1, n2, biased):
     assert err <= 1e-2 * np.abs(want).max(), (err, np.abs(want).max())
 
 
-@pytest.mark.parametrize("m,n,k,sets", [(128, 96, 256, 1), (128, 256, 96, 1), (0, 256, 256, 1), (128, 256, 256, 4),
+@pytest.mark.parametrize("m,n,k,sets", [(128, 96, 256, 1), (128, 256, 96, 1), (0, 256, 256, 1), (128, 256, 256, 5),
                                         (128, 32, 256, 1)])
 def test_gemm_plan_refuses_what_the_kernel_cannot_take(m, n, k, sets):
     with pytest.raises(ValueError):
