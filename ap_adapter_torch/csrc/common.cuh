@@ -1,9 +1,9 @@
-// Device routines of the training kernels (train_blocks.cu: K4 and the
-// backwards K7-K9) and the streamed d <= 128 route of the self-attention
-// (self_attention.cu), with helpers that resnet.cu, int8_blocks.cu and
-// hopper_gemm.cuh use too. K1, K2, K3, K10 and K11a-c run on the Hopper
-// routines (hopper_gemm.cuh, reg_attention.cuh and int8_blocks.cu's int8
-// wgmma GEMM), none of these.
+// Device routines of K4 and K8 (train_blocks.cu) and the streamed d <= 128
+// route of the self-attention (self_attention.cu), with helpers that
+// resnet.cu, int8_blocks.cu and hopper_gemm.cuh use too. K1-K3, K7, K9,
+// K10 and K11a-c run on the Hopper routines (hopper_gemm.cuh,
+// reg_attention.cuh, attn_bwd.cuh and int8_blocks.cu's int8 wgmma GEMM),
+// none of these.
 //
 //   * gemm_kernel: C = epilogue(prologue(A) @ W^T) for W in torch Linear
 //     layout [N, K], or C = epilogue(A @ W) for W given as [K, N]
@@ -13,9 +13,7 @@
 //     strided batch (a context slice [B, rows, K] out of [B, Sk, K]).
 //     Optional LayerNorm prologue (fp32 row statistics computed by the block
 //     itself, normalised rows rounded to bf16 on their way into shared
-//     memory). Epilogues: bf16 store, fp32 store, fp32 accumulate, bias +
-//     residual, and the GEGLU backward (from two accumulators: value rows
-//     [0, N) and gate rows [N, 2N) of W).
+//     memory). Epilogues: bf16 store, fp32 store, bias + residual.
 //   * attention_kernel: one block per (query tile of 64, head, batch); K/V
 //     streamed through shared memory in tiles of 64 keys with an online
 //     max-subtracted fp32 softmax; optional fp32 additive key bias [B, Sk];
@@ -53,8 +51,6 @@ enum Epilogue {
   EPI_STORE = 0,        // bf16 C
   EPI_BIAS_RESID = 1,   // bf16 C = acc + bias + resid
   EPI_STORE_F32 = 3,    // fp32 C
-  EPI_ADD_F32 = 4,      // fp32 C += acc
-  EPI_GEGLU_BWD = 5,    // bf16 C[M, 2N] = [gh * gelu(g) | gh * a * gelu'(g)], gh = aux [M, N] fp32
 };
 
 struct GemmArgs {
@@ -65,12 +61,11 @@ struct GemmArgs {
   const bf16* ln_w;
   const bf16* ln_b;
   float eps;
-  const bf16* w[3];     // per grid-z slice: [N (x2 for GEGLU), K], or [K, N] with WT
-  void* c[3];           // per grid-z slice: [M, N] (GEGLU_BWD: [M, 2N])
+  const bf16* w[3];     // per grid-z slice: [N, K], or [K, N] with WT
+  void* c[3];           // per grid-z slice: [M, N]
   int N;
   const bf16* bias;
   const bf16* resid;
-  const float* aux;
 };
 
 inline GemmArgs gemm_args(const void* A, int M, int K, int N) {
@@ -100,25 +95,24 @@ __device__ __forceinline__ const bf16* a_row(const GemmArgs& g, int m) {
   return g.A + (size_t)(m / g.a_rpb) * g.a_bstride + (size_t)(m % g.a_rpb) * g.K;
 }
 
-constexpr int GEMM_TILE_BYTES = 3 * BM * LDS * 2;    // A, B and the GEGLU gate B
-constexpr int GEMM_OUT_BYTES = 2 * BM * LDC * 4;     // value and gate accumulators
+constexpr int GEMM_TILE_BYTES = 2 * BM * LDS * 2;    // A and B
+constexpr int GEMM_OUT_BYTES = BM * LDC * 4;         // the accumulators
 constexpr int GEMM_SMEM = GEMM_TILE_BYTES > GEMM_OUT_BYTES ? GEMM_TILE_BYTES : GEMM_OUT_BYTES;
 static_assert(BK * LDB <= BM * LDS, "a [BK, BN] B tile must fit the [BN, BK] slot");
 
 // One 64x64 output tile. Requires K % 32 == 0 and N % 64 == 0 (checked by
-// the caller); rows are masked against M.
+// the caller); rows are masked against M. The arguments are read in place
+// (__grid_constant__): the weight and output pointers are indexed by grid z,
+// and a copy of the struct to the stack (128 bytes a thread) made this GEMM
+// 16-20% slower at K4's and K8's training shapes on an H100.
 template <bool LN, bool WT, int EPI>
-__global__ void __launch_bounds__(THREADS) gemm_kernel(const GemmArgs g) {
-  constexpr bool DUAL = EPI == EPI_GEGLU_BWD;
-  static_assert(!(DUAL && WT), "the GEGLU backward epilogue takes W in Linear layout");
+__global__ void __launch_bounds__(THREADS) gemm_kernel(const __grid_constant__ GemmArgs g) {
   __shared__ __align__(128) unsigned char smem[GEMM_SMEM];
   __shared__ float s_mean[BM];
   __shared__ float s_rstd[BM];
   bf16* As = reinterpret_cast<bf16*>(smem);
   bf16* Bs = As + BM * LDS;
-  bf16* Bs2 = Bs + BN * LDS;
   float* Cs = reinterpret_cast<float*>(smem);
-  float* Cs2 = Cs + BM * LDC;
 
   const int M = g.M, K = g.K, N = g.N;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -151,14 +145,11 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(const GemmArgs g) {
   }
 
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2], acc2[2][2];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::fill_fragment(acc[i][j], 0.f);
-      if (DUAL) wmma::fill_fragment(acc2[i][j], 0.f);
-    }
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
   for (int k0 = 0; k0 < K; k0 += BK) {
     for (int c = tid; c < BM * BK / 8; c += THREADS) {
@@ -197,9 +188,6 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(const GemmArgs g) {
         const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
         *reinterpret_cast<uint4*>(Bs + r * LDS + kc) =
             *reinterpret_cast<const uint4*>(W + (size_t)(n0 + r) * K + k0 + kc);
-        if (DUAL)
-          *reinterpret_cast<uint4*>(Bs2 + r * LDS + kc) =
-              *reinterpret_cast<const uint4*>(W + (size_t)(N + n0 + r) * K + k0 + kc);
       }
     }
     __syncthreads();
@@ -224,14 +212,6 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(const GemmArgs g) {
         for (int i = 0; i < 2; ++i)
 #pragma unroll
           for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-        if (DUAL) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], Bs2 + (wn + j * 16) * LDS + kk, LDS);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) wmma::mma_sync(acc2[i][j], a[i], b[j], acc2[i][j]);
-        }
       }
     }
     __syncthreads();
@@ -240,11 +220,8 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(const GemmArgs g) {
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < 2; ++j)
       wmma::store_matrix_sync(Cs + (wm + i * 16) * LDC + wn + j * 16, acc[i][j], LDC, wmma::mem_row_major);
-      if (DUAL)
-        wmma::store_matrix_sync(Cs2 + (wm + i * 16) * LDC + wn + j * 16, acc2[i][j], LDC, wmma::mem_row_major);
-    }
   __syncthreads();
 
   for (int c = tid; c < BM * BN / 8; c += THREADS) {
@@ -255,46 +232,10 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(const GemmArgs g) {
     float v[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) v[e] = Cs[r * LDC + cc + e];
-    if (EPI == EPI_STORE_F32 || EPI == EPI_ADD_F32) {
-      float* out = static_cast<float*>(g.c[blockIdx.z]) + (size_t)row * N + col;
-      float4* o4 = reinterpret_cast<float4*>(out);
-      if (EPI == EPI_ADD_F32) {
-        const float4 p0 = o4[0], p1 = o4[1];
-        v[0] += p0.x; v[1] += p0.y; v[2] += p0.z; v[3] += p0.w;
-        v[4] += p1.x; v[5] += p1.y; v[6] += p1.z; v[7] += p1.w;
-      }
+    if (EPI == EPI_STORE_F32) {
+      float4* o4 = reinterpret_cast<float4*>(static_cast<float*>(g.c[blockIdx.z]) + (size_t)row * N + col);
       o4[0] = make_float4(v[0], v[1], v[2], v[3]);
       o4[1] = make_float4(v[4], v[5], v[6], v[7]);
-      continue;
-    }
-    if (EPI == EPI_GEGLU_BWD) {
-      // gy1 = [gh * gelu(g) | gh * a * gelu'(g)], gelu'(g) = Phi(g) + g * phi(g)
-      const uint4 av = *reinterpret_cast<const uint4*>(g.bias + col);
-      const uint4 gv = *reinterpret_cast<const uint4*>(g.bias + N + col);
-      const bf16* a8 = reinterpret_cast<const bf16*>(&av);
-      const bf16* g8 = reinterpret_cast<const bf16*>(&gv);
-      const float* gh = g.aux + (size_t)row * N + col;
-      float da[8], dg[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float a = v[e] + __bfloat162float(a8[e]);
-        const float gate = Cs2[r * LDC + cc + e] + __bfloat162float(g8[e]);
-        const float cdf = 0.5f * (1.f + erff(gate * 0.70710678118654752f));
-        const float pdf = expf(-0.5f * gate * gate) * 0.3989422804014327f;
-        da[e] = gh[e] * gate * cdf;
-        dg[e] = gh[e] * a * (cdf + gate * pdf);
-      }
-      bf16* out = static_cast<bf16*>(g.c[blockIdx.z]) + (size_t)row * 2 * N;
-      uint4 oa, og;
-      __nv_bfloat162* oa2 = reinterpret_cast<__nv_bfloat162*>(&oa);
-      __nv_bfloat162* og2 = reinterpret_cast<__nv_bfloat162*>(&og);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        oa2[e] = __floats2bfloat162_rn(da[2 * e], da[2 * e + 1]);
-        og2[e] = __floats2bfloat162_rn(dg[2 * e], dg[2 * e + 1]);
-      }
-      *reinterpret_cast<uint4*>(out + col) = oa;
-      *reinterpret_cast<uint4*>(out + N + col) = og;
       continue;
     }
     if (EPI == EPI_BIAS_RESID) {

@@ -284,7 +284,7 @@ __global__ void __launch_bounds__(HG_THREADS, 1) i8gemm_kernel(const __grid_cons
   unsigned char* smem = i8_smem_raw + (((raw + 1023) & ~1023u) - raw);
   const uint32_t base = smem_u32(smem);
   const int ks = g.ksplit, stages = g.stages;
-  const uint32_t bars = base + hg_ring_bytes(BN, DUAL, stages, ks);
+  const uint32_t bars = base + hg_ring_bytes(BN, DUAL ? 2 : 1, stages, ks);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rank = (int)(blockIdx.x % ks);        // == the cluster rank: clusters span ks consecutive x
@@ -408,7 +408,7 @@ __global__ void __launch_bounds__(HG_THREADS, 1) i8gemm_kernel(const __grid_cons
 
 template <int BN, int EPI>
 int launch_i8gemm_t(const I8Args& g, cudaStream_t st) {
-  const int smem = hg_smem_bytes(BN, EPI == I8_GEGLU, g.stages, g.ksplit);
+  const int smem = hg_smem_bytes(BN, EPI == I8_GEGLU ? 2 : 1, g.stages, g.ksplit);
   static int configured = 0;
   if (smem > configured) {
     cudaError_t e = cudaFuncSetAttribute(i8gemm_kernel<BN, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

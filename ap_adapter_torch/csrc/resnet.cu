@@ -401,7 +401,7 @@ __global__ void __launch_bounds__(HG_THREADS, 1) conv_kernel(const __grid_consta
   unsigned char* smem = cv_smem_raw + (((raw + 1023) & ~1023u) - raw);
   const uint32_t base = smem_u32(smem);
   const int ks = g.ksplit, stages = g.stages;
-  const uint32_t bars = base + hg_ring_bytes(BN, false, stages, ks);
+  const uint32_t bars = base + hg_ring_bytes(BN, 1, stages, ks);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rank = (int)(blockIdx.x % ks);        // == the cluster rank: clusters span ks consecutive x
@@ -515,7 +515,7 @@ __global__ void __launch_bounds__(HG_THREADS, 1) conv_kernel(const __grid_consta
 
 template <int BN>
 int launch_conv_t(const ConvArgs& g, int B, cudaStream_t st) {
-  const int smem = hg_smem_bytes(BN, false, g.stages, g.ksplit);
+  const int smem = hg_smem_bytes(BN, 1, g.stages, g.ksplit);
   static int configured = 0;
   if (smem > configured) {
     cudaError_t e = cudaFuncSetAttribute(conv_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

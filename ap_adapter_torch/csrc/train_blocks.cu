@@ -10,32 +10,44 @@
 // The TPU kernels run their grid in order and carry dk/dv (and the adapter's
 // dk_ip/dv_ip) across query tiles in VMEM scratch, finishing with the
 // LayerNorm backward over the whole sequence at the last tile. Blocks on a
-// GPU run in no fixed order, so the backward is cut into passes, each a
-// launch on the same stream, with no atomics (the results are deterministic):
-//   1. recompute the projections (LN+QKV or LN+Q GEMM, the context K/V GEMMs)
-//      and gattn = g . Wo (the GEMM with W given as [K, N]);
-//   2. attn_bwd_dq_kernel, one block per (query tile, head, batch): per key
-//      set, the row log-sum-exp (pass 1), D = rowsum(P * dP) (pass 2), and
-//      dq += dS . K (pass 3), the FlashAttention-2 split; it writes dq and
-//      the per-row statistics;
-//   3. attn_bwd_dkv_kernel, one block per (key tile, head, batch): loops over
-//      the query tiles with the statistics of pass 2 and keeps dK/dV in fp32
-//      shared memory (the adapter's dk_ip/dv_ip at Sk_ip up to 512 are sums
-//      over every query row);
-//   4. gxn = dq . Wq (+ dk . Wk + dv . Wv) in fp32, one accumulating GEMM
-//      each;
-//   5. ln_bwd_kernel: the LayerNorm backward and the residual, one warp per
-//      row.
-// The softmax is the forward kernel's: online max-subtracted, fp32, so the
-// recomputed probabilities are exp(s - lse) of the same logits.
+// GPU run in no fixed order, so each backward is a chain of launches on one
+// stream, with no atomics (the results are deterministic).
 //
-// What bounds them on an H100: the dS/dP products are 64x64 WMMA tiles with
-// shared-memory accumulators and every pass reloads K/V from device memory,
-// so the backward is bound by shared-memory traffic and launch count, far
-// from the tensor-core peak; the bounds and the measured times are in
-// PERF.md. Keeping dq/dk/dv on chip across the passes is later work.
+// K7 and K9 run on the Hopper routines (hopper_gemm.cuh: TMA rings, wgmma,
+// epilogues from the registers, split-K clusters; attn_bwd.cuh: the
+// register-resident attention backward), seven and four launches:
+//   K7 = LN rows (ln_rows_kernel) -> QKV GEMM (three weight sets, one
+//        launch, as K1's) -> gattn = g . Wo (the GEMM reading Wo [K, N]
+//        MN-major, bf16 store) -> the dq kernel (two sweeps over the keys:
+//        the forward's statistics and D = rowsum(dO * O), then dq) -> the
+//        dkv kernel (K/V in registers, a loop over the query tiles) ->
+//        gxn = [dq | dk | dv] . [Wq; Wk; Wv] (one MN-major GEMM, K = 3C,
+//        fp32 store: dq, dk and dv are the column blocks of one [M, 3C]
+//        bf16 buffer) -> ln_bwd_kernel;
+//   K9 = LN rows -> one GEMM for the three products of a 64 x 64 tile of
+//        gy1 (a and gate from W1, gh = g . W2) with the GEGLU backward in
+//        its epilogue (gh stays fp32 in registers, never in device memory)
+//        -> gxn = gy1 . W1 (MN-major, K = 8C, fp32 store, split-K clusters
+//        where the plan says) -> ln_bwd_kernel.
+// Every GEMM's tile width, split-K and stages come from the wrapper's plan
+// (ops/fused_block.py::k7_plan, ops/fused_ff.py::k9_plan).
+//
+// K4 and K8 keep the first port's routines (common.cuh's WMMA GEMM and
+// streamed attention; the backward passes below): recompute the projections
+// (LN + Q GEMM, the context K/V GEMMs) and gattn = g . Wo; attn_bwd_dq_kernel,
+// one block per (query tile, head, batch): per key set, the row
+// log-sum-exp (pass 1), D = rowsum(P * dP) (pass 2), and dq += dS . K
+// (pass 3); attn_bwd_dkv_kernel, one block per (key tile, head, batch),
+// looping over the query tiles for the adapter's dk_ip/dv_ip in fp32 shared
+// memory; gxn = dq . Wq in fp32; ln_bwd_kernel. The softmax is the forward
+// kernel's: online max-subtracted, fp32, so the recomputed probabilities are
+// exp(s - lse) of the same logits. What bounds them on an H100: 64x64 WMMA
+// tiles with shared-memory accumulators, every pass reloading K/V from
+// device memory; the bounds and the measured times are in PERF.md. K8 can
+// take attn_bwd.cuh's sweeps next, with a second key set and the T5 bias.
 
-#include "common.cuh"
+#include "attn_bwd.cuh"
+#include "hopper_gemm.cuh"
 
 namespace {
 
@@ -234,11 +246,10 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dq_kernel(
 }
 
 // dk = sm_scale * dS^T . Q, dv = gscale * P^T . dO for one key set, over
-// every query tile. Outputs fp32 (dk32/dv32) or bf16 (dk16/dv16) [B, Sk, C].
+// every query tile, fp32 [B, Sk, C].
 __global__ void __launch_bounds__(THREADS) attn_bwd_dkv_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ dout, int Sq, const BwdSet set,
-    float* __restrict__ dk32, float* __restrict__ dv32, bf16* __restrict__ dk16, bf16* __restrict__ dv16,
-    int C, int d, float sm_scale) {
+    float* __restrict__ dk32, float* __restrict__ dv32, int C, int d, float sm_scale) {
   extern __shared__ __align__(128) unsigned char dyn_smem[];
   const BwdLayout L = bwd_layout(d, true);
   bf16* Qs = reinterpret_cast<bf16*>(dyn_smem + L.q);
@@ -307,14 +318,8 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_dkv_kernel(
     const int r = e / d, c = e % d, key = k0 + r;
     if (key >= Sk) continue;
     const size_t off = ((size_t)b * Sk + key) * C + h * d + c;
-    const float gk = dK[r * L.ldo + c] * sm_scale, gv = dV[r * L.ldo + c] * set.gscale;
-    if (dk32 != nullptr) {
-      dk32[off] = gk;
-      dv32[off] = gv;
-    } else {
-      dk16[off] = __float2bfloat16(gk);
-      dv16[off] = __float2bfloat16(gv);
-    }
+    dk32[off] = dK[r * L.ldo + c] * sm_scale;
+    dv32[off] = dV[r * L.ldo + c] * set.gscale;
   }
 }
 
@@ -362,8 +367,7 @@ int set_smem(const void* fn, size_t bytes, size_t* configured) {
 }
 
 int launch_attn_bwd(const bf16* q, const bf16* dout, int Sq, const BwdSets& sets, bf16* dq, int dkv_set,
-                    float* dk32, float* dv32, bf16* dk16, bf16* dv16, int B, int C, int heads,
-                    cudaStream_t st) {
+                    float* dk32, float* dv32, int B, int C, int heads, cudaStream_t st) {
   static size_t dq_configured = 0, dkv_configured = 0;
   const int d = C / heads;
   const float scale = 1.f / sqrtf((float)d);
@@ -378,7 +382,7 @@ int launch_attn_bwd(const bf16* q, const bf16* dout, int Sq, const BwdSets& sets
   if (e) return e;
   const BwdSet& s = sets.s[dkv_set];
   attn_bwd_dkv_kernel<<<dim3((s.Sk + TK - 1) / TK, heads, B), THREADS, Lk.bytes, st>>>(
-      q, dout, Sq, s, dk32, dv32, dk16, dv16, C, d, scale);
+      q, dout, Sq, s, dk32, dv32, C, d, scale);
   return (int)cudaGetLastError();
 }
 
@@ -447,36 +451,42 @@ int apk_fused_ln_cross_attention(const void* x, const void* ctx, int Sk_total, i
   return launch_gemm<false, false, EPI_BIAS_RESID>(o, 1, st);
 }
 
-// K7: dx of K1 for the output gradient g [B, S, C]. Scratch: q/k/v/gattn/dq/dk/dv
-// [B, S, C] bf16, lse/dsum [B, heads, S] fp32, gxn [B, S, C] fp32.
+// K7: dx of K1 for the output gradient g [B, S, C]. scratch holds 8 x [B, S,
+// C] bf16 (LN(x), q, k, v, gattn, then [dq | dk | dv] as [B, S, 3C]); stats
+// 2 x [B, heads, S] fp32 (the rows' lse2 and D) then gxn [B, S, C] fp32.
+// (qkv_*), (go_*) and (gx_*) plan the QKV, g . Wo and gxn GEMMs: tile width,
+// split-K and ring stages.
 int apk_fused_ln_self_attention_bwd_dx(const void* x, const void* g, const void* ln_w, const void* ln_b,
-                                       const void* wq, const void* wk, const void* wv, const void* wo, void* q,
-                                       void* k, void* v, void* gattn, void* dq, void* dk, void* dv, void* lse,
-                                       void* dsum, void* gxn, void* dx, int B, int S, int C, int heads, float eps,
-                                       void* stream) {
+                                       const void* wq, const void* wk, const void* wv, const void* wo, void* scratch,
+                                       void* stats, void* dx, int B, int S, int C, int heads, float eps, int qkv_bn,
+                                       int qkv_split, int qkv_stages, int go_bn, int go_split, int go_stages,
+                                       int gx_bn, int gx_split, int gx_stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * S;
-  GemmArgs qkv = gemm_args(x, M, C, C);
-  qkv.ln_w = (const bf16*)ln_w;
-  qkv.ln_b = (const bf16*)ln_b;
-  qkv.eps = eps;
-  qkv.w[0] = (const bf16*)wq; qkv.w[1] = (const bf16*)wk; qkv.w[2] = (const bf16*)wv;
+  const size_t mc = (size_t)M * C;
+  bf16* xn = static_cast<bf16*>(scratch);
+  bf16 *q = xn + mc, *k = q + mc, *v = k + mc, *gattn = v + mc, *dqkv = gattn + mc;
+  float* lse2 = static_cast<float*>(stats);
+  float* dsum = lse2 + (size_t)B * heads * S;
+  float* gxn = dsum + (size_t)B * heads * S;
+  int e = launch_ln_rows(x, ln_w, ln_b, xn, M, C, eps, st);
+  if (e) return e;
+  HgArgs qkv = {};
+  const void* wqkv[3] = {wq, wk, wv};
   qkv.c[0] = q; qkv.c[1] = k; qkv.c[2] = v;
-  int e = launch_gemm<true, false, EPI_STORE>(qkv, 3, st);
+  e = launch_hgemm(qkv, xn, wqkv, 3, M, C, C, qkv_bn, qkv_split, qkv_stages, HG_STORE, st);
   if (e) return e;
-  e = launch_gemm_wt<EPI_STORE>(g, M, C, wo, C, gattn, st);
+  HgArgs go = {};
+  go.c[0] = gattn;
+  e = launch_hgemm_kn(go, g, &wo, 1, M, C, C, go_bn, go_split, go_stages, HG_STORE, st);
   if (e) return e;
-  BwdSets sets = {};
-  sets.n = 1;
-  sets.s[0] = {(const bf16*)k, (const bf16*)v, S, nullptr, 1.f, (float*)lse, (float*)dsum};
-  e = launch_attn_bwd((const bf16*)q, (const bf16*)gattn, S, sets, (bf16*)dq, 0, nullptr, nullptr, (bf16*)dk,
-                      (bf16*)dv, B, C, heads, st);
+  const FaKeys keys = {k, v, nullptr, S, AB_T};
+  e = launch_reg_attn_bwd(q, gattn, keys, B, S, heads, C / heads, dqkv, 3 * C, dqkv + C, dqkv + 2 * C, 3 * C, lse2,
+                          dsum, st);
   if (e) return e;
-  e = launch_gemm_wt<EPI_STORE_F32>(dq, M, C, wq, C, gxn, st);
-  if (e) return e;
-  e = launch_gemm_wt<EPI_ADD_F32>(dk, M, C, wk, C, gxn, st);
-  if (e) return e;
-  e = launch_gemm_wt<EPI_ADD_F32>(dv, M, C, wv, C, gxn, st);
+  HgArgs gx = {};
+  gx.cf = gxn;
+  e = launch_hgemm_kn(gx, dqkv, wqkv, 3, M, C, 3 * C, gx_bn, gx_split, gx_stages, HG_STORE_F32, st);
   if (e) return e;
   return launch_ln_bwd(x, gxn, ln_w, g, dx, M, C, eps, st);
 }
@@ -511,34 +521,34 @@ int apk_fused_ln_cross_attention_bwd(const void* x, const void* g, const void* c
   sets.s[1] = {(const bf16*)ki, (const bf16*)vi, sk_ip, nullptr, ip_scale, (float*)lse + stat,
                (float*)dsum + stat};
   e = launch_attn_bwd((const bf16*)q, (const bf16*)gattn, S, sets, (bf16*)dq, sk_ip > 0 ? 1 : -1, (float*)dki,
-                      (float*)dvi, nullptr, nullptr, B, C, heads, st);
+                      (float*)dvi, B, C, heads, st);
   if (e) return e;
   e = launch_gemm_wt<EPI_STORE_F32>(dq, M, C, wq, C, gxn, st);
   if (e) return e;
   return launch_ln_bwd(x, gxn, ln_w, g, dx, M, C, eps, st);
 }
 
-// K9: dx of K3. Per row: gh = g . W2 (fp32 [M, inner]); gy1 = [gh * gelu(gate) |
-// gh * a * gelu'(gate)] from the recomputed [a | gate] = LN(x) W1^T + b1 (bf16
-// [M, 2 inner]); gxn = gy1 . W1 (fp32 [M, C]); then the LayerNorm backward.
+// K9: dx of K3. gy1 = [gh * gelu(gate) | gh * a * gelu'(gate)] with gh = g . W2
+// and [a | gate] = LN(x) W1^T + b1, one GEMM a 64 x 64 tile of each half
+// (bf16 [M, 2 inner]); gxn = gy1 . W1 (fp32 [M, C]); then the LayerNorm
+// backward. scratch holds LN(x) [B, S, C] and gy1 [B, S, 2 inner] bf16; gxn
+// is fp32 scratch. (gy_split, gy_stages) plan the three-product GEMM
+// (64-wide tiles), (gx_bn, gx_split, gx_stages) the gxn GEMM.
 int apk_fused_ln_geglu_ff_bwd_dx(const void* x, const void* g, const void* ln_w, const void* ln_b,
-                                 const void* w1, const void* b1, const void* w2, void* gh, void* gy1, void* gxn,
-                                 void* dx, int B, int S, int C, int inner, float eps, void* stream) {
+                                 const void* w1, const void* b1, const void* w2, void* scratch, void* gxn, void* dx,
+                                 int B, int S, int C, int inner, float eps, int gy_split, int gy_stages, int gx_bn,
+                                 int gx_split, int gx_stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * S;
-  int e = launch_gemm_wt<EPI_STORE_F32>(g, M, C, w2, inner, gh, st);
+  bf16* xn = static_cast<bf16*>(scratch);
+  bf16* gy1 = xn + (size_t)M * C;
+  int e = launch_ln_rows(x, ln_w, ln_b, xn, M, C, eps, st);
   if (e) return e;
-  GemmArgs h = gemm_args(x, M, C, inner);
-  h.ln_w = (const bf16*)ln_w;
-  h.ln_b = (const bf16*)ln_b;
-  h.eps = eps;
-  h.w[0] = (const bf16*)w1;
-  h.c[0] = gy1;
-  h.bias = (const bf16*)b1;
-  h.aux = (const float*)gh;
-  e = launch_gemm<true, false, EPI_GEGLU_BWD>(h, 1, st);
+  e = launch_hgemm_geglu_bwd(xn, g, w1, b1, w2, gy1, M, inner, C, gy_split, gy_stages, st);
   if (e) return e;
-  e = launch_gemm_wt<EPI_STORE_F32>(gy1, M, 2 * inner, w1, C, gxn, st);
+  HgArgs gx = {};
+  gx.cf = static_cast<float*>(gxn);
+  e = launch_hgemm_kn(gx, gy1, &w1, 1, M, C, 2 * inner, gx_bn, gx_split, gx_stages, HG_STORE_F32, st);
   if (e) return e;
   return launch_ln_bwd(x, gxn, ln_w, g, dx, M, C, eps, st);
 }

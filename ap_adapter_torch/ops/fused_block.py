@@ -22,18 +22,22 @@ thread-block cluster where the output tiles do not fill the SMs
 through device memory, in one scratch allocation a call.
 
 K7 replaces ``pallas_fused_block.py::fused_ln_self_attention_bwd_dx``
-(``csrc/train_blocks.cu``, ``apk_fused_ln_self_attention_bwd_dx``): q/k/v
-recomputed by the LN+QKV GEMM, ``gattn = g·Wo``, a dq pass per query tile
-(row log-sum-exp, D = rowsum(P·dP), dq) and a dk/dv pass per key tile over
-all query tiles, ``gxn = dq·Wq + dk·Wk + dv·Wv`` in fp32, and the LayerNorm
-backward with the residual per row, on common.cuh's WMMA GEMM and
-streamed attention routines. It is bound by shared-memory traffic and its
-eight launches.
+(``csrc/train_blocks.cu``, ``apk_fused_ln_self_attention_bwd_dx``), seven
+launches a call on the same Hopper routines: K1's LayerNorm row pass and
+QKV GEMM recompute q/k/v; ``gattn = g·Wo`` on the GEMM reading Wo [out, in]
+as it lies (MN-major, bf16 store); the register-resident attention backward
+of ``csrc/attn_bwd.cuh``: a dq kernel per 64 query rows that sweeps the
+keys twice (the forward's statistics and D = rowsum(dO·O), then dq, with S,
+P, dP and dS in registers) and a dk/dv kernel per 64 keys that holds K/V in
+registers and loops over the query tiles; ``gxn = [dq‖dk‖dv]·[Wq; Wk; Wv]``
+as one MN-major GEMM with K = 3C and an fp32 store; and the LayerNorm
+backward with the residual per row (``k7_plan``). What bounds it on an
+H100: operations (QKV, gattn, five attention products, gxn).
 
 The softmax is max-subtracted (the TPU kernel's is clamp-50 and max-free;
 the two agree to fp32 rounding for logits in (-86, 50)); K7 recomputes the
-probabilities as exp(s - lse) of the same logits. The plain versions follow
-the JAX ``_xla_reference`` and autograd over it.
+probabilities as exp2(s·scale·log2e - lse2) of the same logits. The plain
+versions follow the JAX ``_xla_reference`` and autograd over it.
 """
 
 from __future__ import annotations
@@ -80,6 +84,24 @@ def k1_plan(b: int, s: int, c: int, heads: int, sms: int = H100_SMS) -> K1Plan:
     check_ln_width("fused_ln_self_attention", c)
     m = b * s
     return K1Plan(gemm_plan(m, c, c, sets=3, sms=sms), gemm_plan(m, c, c, sms=sms))
+
+
+class K7Plan(NamedTuple):
+    qkv: GemmPlan       # LN(x) [M, C] x three [C, C] weights, bf16 store (K1's)
+    gattn: GemmPlan     # g [M, C] x Wo read as [K, N], bf16 store
+    gxn: GemmPlan       # [dq | dk | dv] [M, 3C] x [Wq; Wk; Wv] read as [K, N], fp32 store
+
+
+@functools.lru_cache(maxsize=None)
+def k7_plan(b: int, s: int, c: int, heads: int, sms: int = H100_SMS) -> K7Plan:
+    """The launches of K7's GEMMs on x [b, s, c], by ``gemm_plan`` (the
+    attention backward's grids are fixed: 64 query rows, or 64 keys, a
+    CTA). Raises on a width the kernels do not take (``ck.check_heads``)."""
+
+    ck.check_heads("fused_ln_self_attention_bwd_dx", c, heads)
+    check_ln_width("fused_ln_self_attention_bwd_dx", c)
+    m = b * s
+    return K7Plan(gemm_plan(m, c, c, sets=3, sms=sms), gemm_plan(m, c, c, sms=sms), gemm_plan(m, c, 3 * c, sms=sms))
 
 
 def _check_weights(op: str, c: int, **weights) -> None:
@@ -134,15 +156,14 @@ def fused_ln_self_attention_bwd_dx(x, g, ln_w, ln_b, wq, wk, wv, wo, heads: int,
     ck.check_no_grad(op, **operands)
     if x.device.type == "cpu":
         return fused_ln_self_attention_bwd_dx_plain(x, g, ln_w, ln_b, wq, wk, wv, wo, heads, eps)
-    ck.check_heads(op, c, heads)
+    plan = k7_plan(b, s, c, heads, ck.sm_count(x.device))
     ck.check_operands(op, x, **operands)
-    q, k, v, gattn, dq, dk, dv, dx = (torch.empty_like(x) for _ in range(8))
-    lse, dsum = (x.new_empty(b, heads, s, dtype=torch.float32) for _ in range(2))
-    gxn = x.new_empty(b, s, c, dtype=torch.float32)
+    scratch = x.new_empty(8, b * s, c)      # LN(x), q, k, v, gattn, then [dq | dk | dv] as [M, 3C]
+    stats = x.new_empty(2 * b * heads * s + b * s * c, dtype=torch.float32)   # lse2, D; gxn
+    dx = torch.empty_like(x)
     ck.launch(op, x.data_ptr(), g.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wq.data_ptr(),
-              wk.data_ptr(), wv.data_ptr(), wo.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-              gattn.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
-              dsum.data_ptr(), gxn.data_ptr(), dx.data_ptr(), b, s, c, heads, eps)
+              wk.data_ptr(), wv.data_ptr(), wo.data_ptr(), scratch.data_ptr(), stats.data_ptr(), dx.data_ptr(),
+              b, s, c, heads, eps, *plan.qkv.launch_args, *plan.gattn.launch_args, *plan.gxn.launch_args)
     return dx
 
 

@@ -19,12 +19,18 @@ round trip through device memory, in one scratch allocation a call.
 
 K9 replaces ``pallas_fused_ff.py::fused_ln_geglu_ff_bwd_dx``
 (``csrc/train_blocks.cu``, ``apk_fused_ln_geglu_ff_bwd_dx``), row-local like
-the forward: ``gh = g·W2`` (fp32), the LN+W1 GEMM recomputed with a GEGLU
-backward epilogue (exact-erf derivative ``Phi(g) + g·phi(g)``) writing
-``[gh·gelu(g) ‖ gh·a·gelu'(g)]`` in bf16, ``gxn = gy1·W1`` (K = 8C) in fp32,
-and the LayerNorm backward with the residual per row. The TPU ran its kernel
-only where the weights fit VMEM (not at C = 640); this one runs at every
-width. Three GEMMs of the forward's size on common.cuh's WMMA GEMM.
+the forward, four launches a call on the same Hopper GEMM: the LayerNorm
+row pass; one GEMM for the three products of a 64 x 64 tile of gy1
+(``a`` and ``gate`` from W1's value and gate rows, K-major as K3 loads
+them, and ``gh = g·W2`` from W2 read as it lies, MN-major: two A operands,
+three W boxes a stage, three accumulators), whose epilogue applies the
+GEGLU backward (exact-erf derivative ``Phi(g) + g·phi(g)``) and writes
+``[gh·gelu(g) ‖ gh·a·gelu'(g)]`` in bf16, gh staying fp32 in registers;
+``gxn = gy1·W1`` (W1 read MN-major, K = 8C) in fp32, its k-blocks split
+over a cluster where the plan says (``k9_plan``); and the LayerNorm
+backward with the residual per row. The TPU ran its kernel only where the
+weights fit VMEM (not at C = 640); this one runs at every width. What
+bounds it on an H100: operations (the three products, then gxn).
 
 The TPU kernels used an Abramowitz-Stegun erf (error <= 1.5e-7); the CUDA
 kernels use ``erff`` and the plain versions the exact GELU.
@@ -82,6 +88,22 @@ def k3_plan(b: int, s: int, c: int, inner: int, sms: int = H100_SMS) -> K3Plan:
     return K3Plan(gemm_plan(m, inner, c, geglu=True, sms=sms), gemm_plan(m, c, inner, sms=sms))
 
 
+class K9Plan(NamedTuple):
+    gy1: GemmPlan       # LN(x), g [M, C] x W1's value/gate rows and W2's columns, the GEGLU backward epilogue
+    gxn: GemmPlan       # gy1 [M, 2·inner] x W1 read as [K, N], fp32 store
+
+
+@functools.lru_cache(maxsize=None)
+def k9_plan(b: int, s: int, c: int, inner: int, sms: int = H100_SMS) -> K9Plan:
+    """The launches of K9 on x [b, s, c]: both GEMMs by ``gemm_plan``.
+    Raises on a width the kernels do not take."""
+
+    _check_widths("fused_ln_geglu_ff_bwd_dx", c, inner)
+    check_ln_width("fused_ln_geglu_ff_bwd_dx", c)
+    m = b * s
+    return K9Plan(gemm_plan(m, inner, c, geglu_bwd=True, sms=sms), gemm_plan(m, c, 2 * inner, sms=sms))
+
+
 def fused_ln_geglu_ff(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5) -> torch.Tensor:
     """K3 on a CUDA tensor (bf16), the plain version on a CPU tensor. Records
     no autograd graph: differentiable callers use ``fused_ln_geglu_ff_vjp``."""
@@ -125,15 +147,14 @@ def fused_ln_geglu_ff_bwd_dx(x, g, ln_w, ln_b, w1, b1, w2, eps: float = 1e-5) ->
     ck.check_no_grad(op, **operands)
     if x.device.type == "cpu":
         return fused_ln_geglu_ff_bwd_dx_plain(x, g, ln_w, ln_b, w1, b1, w2, eps)
-    _check_widths(op, c, inner)
+    plan = k9_plan(b, s, c, inner, ck.sm_count(x.device))
     ck.check_operands(op, x, **operands)
-    gh = x.new_empty(b, s, inner, dtype=torch.float32)
-    gy1 = x.new_empty(b, s, 2 * inner)
+    scratch = x.new_empty(b * s * (c + 2 * inner))     # LN(x) [M, C], then gy1 [M, 2·inner]
     gxn = x.new_empty(b, s, c, dtype=torch.float32)
     dx = torch.empty_like(x)
     ck.launch(op, x.data_ptr(), g.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
-              b1.data_ptr(), w2.data_ptr(), gh.data_ptr(), gy1.data_ptr(), gxn.data_ptr(),
-              dx.data_ptr(), b, s, c, inner, eps)
+              b1.data_ptr(), w2.data_ptr(), scratch.data_ptr(), gxn.data_ptr(), dx.data_ptr(), b, s, c, inner,
+              eps, *plan.gy1.launch_args[1:], *plan.gxn.launch_args)
     return dx
 
 

@@ -3,7 +3,11 @@ of ``csrc/int8_blocks.cu`` and K13's implicit-GEMM convs in
 ``csrc/resnet.cu``), pure functions the CPU can check.
 
 The bf16 kernel computes ``C = epilogue(A @ Wᵀ)`` for A [M, K] and W [N, K]
-(torch Linear layout), one CTA a 64 x ``bn`` output tile: a producer warp
+(torch Linear layout), or ``C = epilogue(A @ W)`` for W [K, N] as it lies
+(read MN-major: the backward kernels K7 and K9 take their weights so; a
+stage holds the same bytes, ``bn / 64`` boxes of 64 k-rows x 64 columns in
+place of one ``bn`` x 64 box, so the plan is the same), one CTA a 64 x
+``bn`` output tile: a producer warp
 keeps TMA loads of k-blocks in flight through a ring of 2-4 stages and one
 consumer warpgroup runs ``wgmma``. A k-block is one 128-byte swizzle row of
 each operand: 64 bf16 values, or 128 int8 values for the int8 GEMM (whose
@@ -42,7 +46,7 @@ def _cdiv(a: int, b: int) -> int:
 
 
 class GemmPlan(NamedTuple):
-    bn: int             # output columns of a CTA: 128 or 64 (GEGLU: 64, value and gate side by side)
+    bn: int             # output columns of a CTA: 128 or 64 (GEGLU and its backward: 64, value and gate side by side)
     ksplit: int         # CTAs of a cluster, each an equal share of the k-blocks
     stages: int         # ring stages
     smem: int           # dynamic shared memory bytes a CTA (hg_smem_bytes)
@@ -72,33 +76,39 @@ def resident_ctas(smem: int) -> int:
     return min(CTAS_PER_SM, SMEM_PER_SM // (smem + 1024))
 
 
-def hg_smem_bytes(bn: int, geglu: bool, stages: int, ksplit: int) -> int:
-    """The ring (or the split-K partials, [bn/2 (x2)] x 128 fp32 or int32,
-    where larger), 2 x MAX_STAGES mbarriers and 1024 bytes of alignment
-    slack; the same for the int8 GEMM, whose k-block is 128 bytes too."""
+def hg_smem_bytes(bn: int, geglu: bool, stages: int, ksplit: int, geglu_bwd: bool = False) -> int:
+    """The ring (or the split-K partials, [bn/2 x accumulators] x 128 fp32
+    or int32, where larger), 2 x MAX_STAGES mbarriers and 1024 bytes of
+    alignment slack; the same for the int8 GEMM, whose k-block is 128 bytes
+    too. A stage: one A box and a W box per accumulator (GEGLU: value and
+    gate; its backward, K9's three products: two A boxes, xn and g, and
+    three W boxes, W1's value and gate rows and W2's columns)."""
 
-    dual = 2 if geglu else 1
-    ring = stages * (BM * 128 + bn * 128 * dual)
-    part = bn // 2 * dual * 128 * 4 if ksplit > 1 else 0
+    accs = 3 if geglu_bwd else 2 if geglu else 1
+    ring = stages * (BM * 128 * (2 if geglu_bwd else 1) + bn * 128 * accs)
+    part = bn // 2 * accs * 128 * 4 if ksplit > 1 else 0
     return max(ring, part) + 2 * MAX_STAGES * 8 + 1024
 
 
 @functools.lru_cache(maxsize=None)
 def gemm_plan(m: int, n: int, k: int, sets: int = 1, geglu: bool = False, sms: int = H100_SMS,
-              int8: bool = False) -> GemmPlan:
+              int8: bool = False, geglu_bwd: bool = False) -> GemmPlan:
     """The launch of ``sets`` products [m, k] x [k, n] (GEGLU: n output
-    columns from 2n weight rows; int8: the int8 GEMM, 128-deep k-blocks,
-    one set) by ``tile_plan``. Raises on a width the kernel does not take:
-    n % 64, k % 64, m < 1, sets outside 1-4."""
+    columns from 2n weight rows; ``geglu_bwd``: K9's three products of a
+    tile, n columns of gy1's value and gate halves, one set; int8: the int8
+    GEMM, 128-deep k-blocks, one set) by ``tile_plan``. Raises on a width
+    the kernel does not take: n % 64, k % 64, m < 1, sets outside 1-4."""
 
-    if m < 1 or n < 64 or n % 64 or k < BK or k % BK or not 1 <= sets <= 4 or (int8 and sets > 1):
-        raise ValueError(f"hopper gemm: needs M >= 1, N % 64 == 0, K % 64 == 0 and 1-3 weight sets "
-                         f"(M={m}, N={n}, K={k}, sets={sets}, int8={int8})")
-    return tile_plan(_cdiv(m, BM), n, _cdiv(k, BK8 if int8 else BK), sets, geglu, sms)
+    if (m < 1 or n < 64 or n % 64 or k < BK or k % BK or not 1 <= sets <= 4
+            or ((int8 or geglu_bwd) and sets > 1)):
+        raise ValueError(f"hopper gemm: needs M >= 1, N % 64 == 0, K % 64 == 0 and 1-4 weight sets "
+                         f"(M={m}, N={n}, K={k}, sets={sets}, int8={int8}, geglu_bwd={geglu_bwd})")
+    return tile_plan(_cdiv(m, BM), n, _cdiv(k, BK8 if int8 else BK), sets, geglu, sms, geglu_bwd)
 
 
 @functools.lru_cache(maxsize=None)
-def tile_plan(mt: int, n: int, nkb: int, sets: int = 1, geglu: bool = False, sms: int = H100_SMS) -> GemmPlan:
+def tile_plan(mt: int, n: int, nkb: int, sets: int = 1, geglu: bool = False, sms: int = H100_SMS,
+              geglu_bwd: bool = False) -> GemmPlan:
     """The launch of ``mt`` row tiles of 64 by n columns over ``nkb``
     k-blocks: the widest tile (128, else 64) whose grid reaches ``sms``
     CTAs. Where none does and the 64-wide tiles fill less than half the SMs,
@@ -107,20 +117,26 @@ def tile_plan(mt: int, n: int, nkb: int, sets: int = 1, geglu: bool = False, sms
     ``sms`` (at most 8, at least one k-block each); a short k-loop on more
     than half the SMs ran slower split than not. The ring has a stage per
     k-block of a slice (2-4), fewer where that keeps the grid in one wave
-    of resident CTAs (more CTAs to hide the loads' latency). The choices
-    follow ``scripts/sweep_block_plans.py``."""
+    of resident CTAs (more CTAs to hide the loads' latency), and fewer
+    where a grid of more than two waves would otherwise hold one CTA an SM.
+    The choices follow ``scripts/sweep_block_plans.py``."""
 
     def plan(bn: int, ks: int) -> GemmPlan:
         grid = ((n // bn) * ks, mt, sets)
         ctas = grid[0] * grid[1] * grid[2]
+        smem = lambda st: hg_smem_bytes(bn, geglu, st, ks, geglu_bwd)
         stages = hg_stages(nkb, ks)
         for st in range(stages, MIN_STAGES - 1, -1):     # the most stages that keep the grid in one wave
-            if ctas <= sms * resident_ctas(hg_smem_bytes(bn, geglu, st, ks)):
+            if ctas <= sms * resident_ctas(smem(st)):
                 stages = st
                 break
-        return GemmPlan(bn, ks, stages, hg_smem_bytes(bn, geglu, stages, ks), grid, nkb)
+        # a grid of more than two waves keeps two CTAs an SM, one's epilogue beside the other's loads (only K9's
+        # three-product GEMM, 40 KB a stage, holds one CTA an SM at more than two stages)
+        while stages > MIN_STAGES and resident_ctas(smem(stages)) < 2 < ctas / sms:
+            stages -= 1
+        return GemmPlan(bn, ks, stages, smem(stages), grid, nkb)
 
-    for bn in ((64,) if geglu else (128, 64)):
+    for bn in ((64,) if geglu or geglu_bwd else (128, 64)):
         if n % bn == 0 and mt * (n // bn) * sets >= sms:
             return plan(bn, 1)
     tiles = mt * (n // 64) * sets

@@ -23,6 +23,7 @@ prints its seconds:
    its bias), K7, K8 (dx, dk_ip/dv_ip and the adapter weight gradients) and
    K9 (dx) at the three training levels, B=8, against the plain version and
    autograd over it (limits 2e-2 of max|plain| forward, 5e-2 gradients);
+   K7's and K9's cases list their device kernels with each one's device ms;
 5. reference: one full-width UNet forward (hoisted K/V, a short latent) with
    the kernels in bf16 against the plain path in fp32 on the CPU, same weights;
 6. edit slice: the full-width ``PipelineConfig()`` in bf16 with random weights
@@ -171,11 +172,11 @@ KERNELS = {
     "dual_kv_attention": ("ap_adapter_torch/csrc/fused_hopper.cu", "ap_adapter_tpu/ops/pallas_attention.py:57"),
 }
 EDIT_KERNELS = ("fused_ln_self_attention", "fused_ln_cross_attention_kv", "fused_ln_geglu_ff")
-# redesigned for Hopper (hopper_gemm.cuh, reg_attention.cuh, the int8 wgmma GEMM, the TMA convs): their
-# cases list device kernels
+# redesigned for Hopper (hopper_gemm.cuh, reg_attention.cuh, attn_bwd.cuh, the int8 wgmma GEMM, the TMA
+# convs): their cases list device kernels
 REDESIGNED = ("fused_ln_self_attention", "fused_ln_cross_attention_kv", "fused_ln_geglu_ff", "dual_kv_attention",
               "fused_ln_self_attention_int8", "fused_ln_geglu_ff_int8", "fused_ln_cross_attention_int8",
-              "fused_resnet_block")
+              "fused_resnet_block", "fused_ln_self_attention_bwd_dx", "fused_ln_geglu_ff_bwd_dx")
 TRAIN_KERNELS = ("fused_ln_cross_attention", "fused_ln_self_attention_bwd_dx", "fused_ln_cross_attention_bwd",
                  "fused_ln_geglu_ff_bwd_dx")
 INT8_KERNELS = ("fused_ln_self_attention_int8", "fused_ln_cross_attention_int8", "fused_ln_geglu_ff_int8")
@@ -716,7 +717,7 @@ def train_kernel_phase(device) -> dict:
              lambda: fused_ln_geglu_ff_bwd_dx_plain(x, gy, ln_w, ln_b, w1, b1, w2)),
         ]
         for name, variant, keys, tol, kernel, plain in cases:
-            run_case(results, name, variant, (b, s, c), keys, kernel, plain, tol)
+            run_case(results, name, variant, (b, s, c), keys, kernel, plain, tol, split=name in REDESIGNED)
     return results
 
 

@@ -47,11 +47,13 @@ TRACE_TRIES = 4          # the tracer now and then hands back no device events: 
 # device kernels a call of the redesigned kernels and K12 (K11a: LN+quantize rows, int8 GEGLU GEMM, quantize
 # rows, int8 W2 GEMM; K11b: LN+quantize rows, int8 q GEMM, K/V GEMM, attention, quantize rows, int8 out GEMM;
 # K11c: context K/V GEMM, LN+quantize rows, int8 q GEMM, attention, quantize rows, int8 out GEMM; K13: GN1+SiLU,
-# conv1, GN2+SiLU, conv2)
+# conv1, GN2+SiLU, conv2; K7: LN rows, QKV GEMM, g.Wo GEMM, dq kernel, dkv kernel, gxn GEMM, LN backward; K9: LN
+# rows, the three-product GEMM, gxn GEMM, LN backward)
 EXPECTED_DEVICE_KERNELS = {"fused_ln_self_attention": 4, "fused_ln_cross_attention_kv": 4, "fused_ln_geglu_ff": 3,
                            "dual_kv_attention": 1, "group_norm_silu": 1, "fused_ln_geglu_ff_int8": 4,
                            "fused_ln_self_attention_int8": 6, "fused_ln_cross_attention_int8": 6,
-                           "fused_resnet_block": 4}
+                           "fused_resnet_block": 4, "fused_ln_self_attention_bwd_dx": 7,
+                           "fused_ln_geglu_ff_bwd_dx": 4}
 
 
 def device_profile(fn, iters: int = ITERS) -> dict:

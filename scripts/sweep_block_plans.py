@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Device time of K1's, K2's, K3's, K10's, K11a's, K11b's, K11c's and K13's
 kernels under other launch plans than the wrappers' own, at the edit path's
-shapes, on one NVIDIA GPU.
+shapes, and of K7's and K9's at the training shapes, on one NVIDIA GPU.
 
-    python3 scripts/sweep_block_plans.py [--kernels K1,K2,K3,K10,K11a,K11b,K11c,K13]
+    python3 scripts/sweep_block_plans.py [--kernels K1,K2,K3,K10,K11a,K11b,K11c,K13,K7,K9]
 
 For K1 (``fused_ln_self_attention``), K2 (``fused_ln_cross_attention_kv``,
 8 text + 128 adapter keys and 64 T5 keys with their bias) and K3
@@ -14,15 +14,18 @@ for K11a, K11b and K11c (``fused_ln_geglu_ff_int8``,
 ``fused_ln_self_attention_int8``, ``fused_ln_cross_attention_int8`` with
 K2's two context cases, int8 weights from ``quantize_weight``) at each
 (S, C), and for K13 (``fused_resnet_block``, with a per-sample temb) at
-every distinct resnet shape of the edit, bf16 inputs: the C entry point is
-called with the wrapper's plan (``k1_plan``, ``k2_plan``, ``k3_plan``,
-``key_tile``, ``k11a_plan``, ``k11b_plan``, ``k11c_plan``, ``conv_plan``),
-then with one choice
+every distinct resnet shape of the edit, and for K7
+(``fused_ln_self_attention_bwd_dx``) and K9 (``fused_ln_geglu_ff_bwd_dx``)
+at B=8 and each (S, C) of ``chip_smoke.TRAIN_SHAPES``, bf16 inputs: the C
+entry point is called with the wrapper's plan (``k1_plan``, ``k2_plan``,
+``k3_plan``, ``key_tile``, ``k11a_plan``, ``k11b_plan``, ``k11c_plan``,
+``conv_plan``, ``k7_plan``, ``k9_plan``), then with one choice
 changed at a time (each GEMM's tile width and split-K, then its ring's
 stage count; each key set's tile width), and ``chip_smoke.device_split``
 gives each device kernel's device ms a call (torch.profiler, 10 calls after
 3 warm-up). Every variant is checked against the plain version
-(``chip_smoke.TOL`` of max|plain|). Prints one line per variant, the
+(``chip_smoke.TOL`` of max|plain|; K7 and K9 against autograd over theirs,
+``chip_smoke.GRAD_TOL``). Prints one line per variant, the
 wrapper's plan marked, then the card's ``nvidia-smi`` line. Fails without a
 CUDA device.
 """
@@ -39,7 +42,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernels", default="K1,K2,K3,K10,K11a,K11b,K11c,K13")
+    parser.add_argument("--kernels", default="K1,K2,K3,K10,K11a,K11b,K11c,K13,K7,K9")
     which = set(parser.parse_args(argv).kernels.split(","))
 
     import torch
@@ -176,6 +179,8 @@ def main(argv=None) -> int:
                        quantize_weight, fused_ln_cross_attention_int8_plain, KEY_TILES)
     if "K13" in which:
         sweep_resnet(chip_smoke, ck, r, device)
+    if which & {"K7", "K9"}:
+        sweep_backward(chip_smoke, ck, r, which)
     if "K10" in which:
         for s, d in chip_smoke.DUAL_KV_LEVELS:
             for si in chip_smoke.DUAL_KV_AUDIO_KEYS:
@@ -234,6 +239,60 @@ def sweep_k11c(chip_smoke, ck, r, device, x, ln_w, ln_b, wq, wo, bo, s, c, heads
         want = plain(x, ctx, ln_w, ln_b, wq8, sq, wk, wv, wo8, so, bo, heads, bias=bias, **kw).float()
         for v in dict.fromkeys(variants):
             run(chip_smoke, f"K11c {label}", (s, c), v, v == base, lambda: k11c(*v), want)
+
+
+def sweep_backward(chip_smoke, ck, r, which) -> None:
+    """K7 and K9 at the training shapes (B = 8): each GEMM's plan, then one
+    choice changed at a time, against autograd over the plain versions."""
+
+    import torch
+
+    from ap_adapter_torch.ops.fused_block import fused_ln_self_attention_bwd_dx_plain, k7_plan
+    from ap_adapter_torch.ops.fused_ff import fused_ln_geglu_ff_bwd_dx_plain, k9_plan
+
+    heads, eps, b = chip_smoke.HEADS, 1e-5, chip_smoke.TRAIN_B
+    for s, c in chip_smoke.TRAIN_SHAPES:
+        m = b * s
+        x, g, ln_w, ln_b = r(b, s, c), r(b, s, c), 1 + r(c, scale=0.1), r(c, scale=0.1)
+        dx = torch.empty_like(x)
+        if "K7" in which:
+            wq, wk, wv, wo = (r(c, c, scale=c ** -0.5) for _ in range(4))
+            scratch = x.new_empty(8 * m * c)
+            stats = x.new_empty(2 * b * heads * s + m * c, dtype=torch.float32)
+
+            def k7(qkv, go, gx):
+                ck.launch("fused_ln_self_attention_bwd_dx", x.data_ptr(), g.data_ptr(), ln_w.data_ptr(),
+                          ln_b.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), wo.data_ptr(),
+                          scratch.data_ptr(), stats.data_ptr(), dx.data_ptr(), b, s, c, heads, eps, *qkv, *go, *gx)
+                return dx
+
+            p = k7_plan(b, s, c, heads)
+            base = (p.qkv.launch_args, p.gattn.launch_args, p.gxn.launch_args)
+            variants = [base] + [(v, *base[1:]) for v in gemm_variants(p.qkv, False)]
+            variants += [(base[0], v, base[2]) for v in gemm_variants(p.gattn, False)]
+            variants += [(*base[:2], v) for v in gemm_variants(p.gxn, False)]
+            want = fused_ln_self_attention_bwd_dx_plain(x, g, ln_w, ln_b, wq, wk, wv, wo, heads).float()
+            for v in dict.fromkeys(variants):
+                run(chip_smoke, "K7", (s, c), v, v == base, lambda: k7(*v), want, chip_smoke.GRAD_TOL)
+        if "K9" in which:
+            w1, b1, w2 = r(8 * c, c, scale=c ** -0.5), r(8 * c, scale=0.1), r(c, 4 * c, scale=(4 * c) ** -0.5)
+            scratch = x.new_empty(m * 9 * c)
+            gxn = x.new_empty(m * c, dtype=torch.float32)
+
+            def k9(gy, gx):
+                ck.launch("fused_ln_geglu_ff_bwd_dx", x.data_ptr(), g.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
+                          w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), scratch.data_ptr(), gxn.data_ptr(),
+                          dx.data_ptr(), b, s, c, 4 * c, eps, *gy[1:], *gx)
+                return dx
+
+            p = k9_plan(b, s, c, 4 * c)
+            base = (p.gy1.launch_args, p.gxn.launch_args)
+            variants = [base] + [(v, base[1]) for v in gemm_variants(p.gy1, True)]
+            variants += [(base[0], v) for v in gemm_variants(p.gxn, False)]
+            want = fused_ln_geglu_ff_bwd_dx_plain(x, g, ln_w, ln_b, w1, b1, w2).float()
+            for v in dict.fromkeys(variants):
+                run(chip_smoke, "K9", (s, c), v, v == base, lambda: k9(*v), want, chip_smoke.GRAD_TOL)
+        torch.cuda.synchronize()
 
 
 def tile_variants(base, counts, widths) -> list:
@@ -299,19 +358,19 @@ def gemm_variants(plan, geglu: bool) -> list:
 
 
 def short(name: str) -> str:
-    """``hgemm_kernel<64, 1>`` of ``void (anonymous namespace)::hgemm_kernel<64, 1>(...)``."""
+    """``hgemm_kernel<64, 1, false>`` of ``void (anonymous namespace)::hgemm_kernel<64, 1, false>(...)``."""
 
     found = re.search(r"::(\w+(?:<[^>]*>)?)\(", name)
     return found.group(1) if found else name[:40]
 
 
-def run(chip_smoke, name, shape, variant, planned, fn, want) -> None:
+def run(chip_smoke, name, shape, variant, planned, fn, want, tol=None) -> None:
     import torch
 
     got = fn().float()
     torch.cuda.synchronize()
     rel = (got - want).abs().max().item() / want.abs().max().item()
-    if not rel <= chip_smoke.TOL:
+    if not rel <= (chip_smoke.TOL if tol is None else tol):
         raise RuntimeError(f"{name} {shape} {variant}: error {rel} of max|plain|")
     split = chip_smoke.device_split(fn)
     kernels = ", ".join(f"{short(n)} {t:.4f}" for n, t in split.items())

@@ -18,13 +18,13 @@ from ap_adapter_torch.ops.dual_kv_attention import _plain as dual_kv_attention_p
 from ap_adapter_torch.ops.dual_kv_attention import fused_dual_kv_attention
 from ap_adapter_torch.ops.fused_block import (
     fused_ln_self_attention, fused_ln_self_attention_bwd_dx, fused_ln_self_attention_bwd_dx_plain,
-    fused_ln_self_attention_plain, fused_ln_self_attention_vjp)
+    fused_ln_self_attention_plain, fused_ln_self_attention_vjp, k7_plan)
 from ap_adapter_torch.ops.fused_cross import (
     fused_ln_cross_attention, fused_ln_cross_attention_bwd, fused_ln_cross_attention_bwd_plain,
     fused_ln_cross_attention_kv, fused_ln_cross_attention_kv_plain, fused_ln_cross_attention_plain,
     fused_ln_cross_attention_vjp)
 from ap_adapter_torch.ops.fused_ff import (
-    fused_ln_geglu_ff, fused_ln_geglu_ff_bwd_dx, fused_ln_geglu_ff_bwd_dx_plain, fused_ln_geglu_ff_plain)
+    fused_ln_geglu_ff, fused_ln_geglu_ff_bwd_dx, fused_ln_geglu_ff_bwd_dx_plain, fused_ln_geglu_ff_plain, k9_plan)
 from ap_adapter_torch.ops.groupnorm import group_norm_silu, group_norm_silu_plain
 from ap_adapter_torch.ops.int8 import (
     fused_ln_cross_attention_int8, fused_ln_cross_attention_int8_plain, fused_ln_geglu_ff_int8,
@@ -799,8 +799,102 @@ def test_k11a_k11c_device_kernels_as_planned(cuda_device):
     cases = [(lambda: fused_ln_geglu_ff_int8(x, *ops),
               ["ln_quant_rows_kernel<false>", "i8gemm_kernel<64, 2>", "quant_rows_kernel", "i8gemm_kernel<64, 1>"]),
              (lambda: fused_ln_cross_attention_int8(*args, **kw),
-              ["hgemm_kernel<64, 3>", "ln_quant_rows_kernel<false>", "i8gemm_kernel<64, 0>",
+              ["hgemm_kernel<64, 3, false>", "ln_quant_rows_kernel<false>", "i8gemm_kernel<64, 0>",
                "reg_attention_kernel<48, false, false, float>", "quant_rows_kernel", "i8gemm_kernel<64, 1>"])]
+    for fn, want in cases:
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(4):                    # the tracer now and then hands back no device events
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            if names:
+                break
+        short = [m.group(1) if (m := re.search(r"::(\w+(?:<[^>]*>)?)\(", n)) else n for n in names]
+        assert sorted(short) == sorted(want * 3), short
+
+
+def _k7_k9_operands(device, b, s, c, seed):
+    """x, g [b, s, c] and the LayerNorm, K1 (wq, wk, wv, wo) and K3 (w1, b1,
+    w2 at inner = 4c) weights of the backward kernels."""
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *shape, scale=1.0: _r(g, device, *shape, scale=scale)
+    ln = (1 + r(c, scale=0.1), r(c, scale=0.1))
+    return (r(b, s, c), r(b, s, c), ln, tuple(r(c, c, scale=c ** -0.5) for _ in range(4)),
+            (r(8 * c, c, scale=c ** -0.5), r(8 * c, scale=0.1), r(c, 4 * c, scale=(4 * c) ** -0.5)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,c,heads", [(8, 1024, 256, 8), (8, 256, 384, 8), (8, 64, 640, 8), (2, 81, 256, 8),
+                                         (1, 145, 384, 8), (3, 17, 640, 8), (2, 100, 256, 4), (1, 70, 128, 8)])
+def test_k7_k9_match_plain(cuda_device, b, s, c, heads):
+    """K7 (the MN-major GEMMs, the two-sweep dq kernel, the dkv kernel, the
+    K = 3C gxn GEMM) and K9 (the three-product GEMM with the GEGLU backward
+    epilogue, gy1 . W1 in fp32) against autograd over their plain versions:
+    the three training levels at B = 8 (head dims 32, 48, 80), ragged S (a
+    part-filled last query and key tile, 17 rows past 64, and a sequence
+    shorter than one tile), and head dims 64 and 16. One launch a call."""
+
+    x, gy, ln, (wq, wk, wv, wo), (w1, b1, w2) = _k7_k9_operands(cuda_device, b, s, c, 31)
+    before = dict(cuda_kernels.LAUNCHES)
+    _check(fused_ln_self_attention_bwd_dx(x, gy, *ln, wq, wk, wv, wo, heads),
+           fused_ln_self_attention_bwd_dx_plain(x, gy, *ln, wq, wk, wv, wo, heads), GRAD_TOL)
+    _check(fused_ln_geglu_ff_bwd_dx(x, gy, *ln, w1, b1, w2),
+           fused_ln_geglu_ff_bwd_dx_plain(x, gy, *ln, w1, b1, w2), GRAD_TOL)
+    moved = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
+    assert moved == {**dict.fromkeys(before, 0), "fused_ln_self_attention_bwd_dx": 1, "fused_ln_geglu_ff_bwd_dx": 1}
+
+
+@pytest.mark.gpu
+def test_k4_k7_k8_k9_are_deterministic(cuda_device):
+    """Two calls give the same bits: K7 and K9 at the 1024 level and at the
+    640 level (K9's gxn GEMM split over a cluster, fp32 partials in rank
+    order; K7's dq and dkv kernels with no atomics), and K4 and K8, which
+    keep the first port's routines (their bits against the parent tree's
+    are compared by ``scripts/profile_kernels.py``'s output digests)."""
+
+    fns = []
+    for s, c in ((1024, 256), (64, 640)):
+        x, gy, ln, (wq, wk, wv, wo), (w1, b1, w2) = _k7_k9_operands(cuda_device, 8, s, c, 32)
+        fns += [lambda x=x, gy=gy, ln=ln, w=(wq, wk, wv, wo): fused_ln_self_attention_bwd_dx(x, gy, *ln, *w, 8),
+                lambda x=x, gy=gy, ln=ln, w=(w1, b1, w2): fused_ln_geglu_ff_bwd_dx(x, gy, *ln, *w)]
+    g = torch.Generator(device=cuda_device).manual_seed(33)
+    r = lambda *shape, scale=1.0: _r(g, cuda_device, *shape, scale=scale)
+    x, gy, ln, (wq, wk, wv, wo), _ = _k7_k9_operands(cuda_device, 8, 256, 384, 34)
+    ctx, bo = r(8, 8 + 512, 768), r(384, scale=0.1)
+    wkc, wvc, wki, wvi = (r(384, 768, scale=768 ** -0.5) for _ in range(4))
+    kw = dict(wk_ip=wki, wv_ip=wvi, ip_scale=1.0)
+    fns += [lambda: fused_ln_cross_attention(x, ctx, *ln, wq, wkc, wvc, wo, bo, 8, **kw),
+            lambda: torch.cat([t.flatten().float() for t in
+                               fused_ln_cross_attention_bwd(x, gy, ctx, *ln, wq, wkc, wvc, wo, 8, **kw)])]
+    for fn in fns:
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_k7_k9_device_kernels_as_planned(cuda_device):
+    """A K7 call runs seven device kernels (the LayerNorm rows, the QKV GEMM,
+    g . Wo on the MN-major GEMM, the dq and dkv kernels, the gxn GEMM in
+    fp32, the LayerNorm backward) and a K9 call four (the LayerNorm rows,
+    the three-product GEMM, the gxn GEMM, the LayerNorm backward), none of
+    the first port's WMMA GEMM or streamed attention passes."""
+
+    from torch.profiler import ProfilerActivity, profile
+
+    x, gy, ln, (wq, wk, wv, wo), (w1, b1, w2) = _k7_k9_operands(cuda_device, 8, 256, 384, 35)
+    p7, p9 = k7_plan(8, 256, 384, 8), k9_plan(8, 256, 384, 4 * 384)
+    cases = [(lambda: fused_ln_self_attention_bwd_dx(x, gy, *ln, wq, wk, wv, wo, 8),
+              ["ln_rows_kernel", f"hgemm_kernel<{p7.qkv.bn}, 0, false>", f"hgemm_kernel<{p7.gattn.bn}, 0, true>",
+               "reg_attn_bwd_dq_kernel<48>", "reg_attn_bwd_dkv_kernel<48>", f"hgemm_kernel<{p7.gxn.bn}, 4, true>",
+               "ln_bwd_kernel"]),
+             (lambda: fused_ln_geglu_ff_bwd_dx(x, gy, *ln, w1, b1, w2),
+              ["ln_rows_kernel", "hgemm_kernel<64, 5, false>", f"hgemm_kernel<{p9.gxn.bn}, 4, true>",
+               "ln_bwd_kernel"])]
     for fn, want in cases:
         fn()
         torch.cuda.synchronize()

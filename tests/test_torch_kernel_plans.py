@@ -21,9 +21,9 @@ from ap_adapter_torch.configs import PipelineConfig
 from ap_adapter_torch.ops import hopper_gemm
 from ap_adapter_torch.ops.attention import sdpa
 from ap_adapter_torch.ops.dual_kv_attention import _plain as dual_kv_plain
-from ap_adapter_torch.ops.fused_block import k1_plan
+from ap_adapter_torch.ops.fused_block import k1_plan, k7_plan
 from ap_adapter_torch.ops.fused_cross import KEY_TILES, k2_plan, key_tile, key_tiles
-from ap_adapter_torch.ops.fused_ff import k3_plan
+from ap_adapter_torch.ops.fused_ff import k3_plan, k9_plan
 from ap_adapter_torch.ops.groupnorm import SMEM_LIMIT, gn_cluster_plan
 from ap_adapter_torch.ops.hopper_gemm import gemm_blocks, gemm_plan
 from ap_adapter_torch.ops.self_attention import attention_plan
@@ -115,13 +115,13 @@ def test_k2_gemm_plans_cover_fit_and_fill(b, s, c):
         _assert_gemm_covers_fits_and_fills(*gemm)
 
 
-def _assert_gemm_covers_fits_and_fills(name, plan, m, n, k, sets, geglu, int8=False):
+def _assert_gemm_covers_fits_and_fills(name, plan, m, n, k, sets, geglu, int8=False, geglu_bwd=False):
     """One GEMM's plan: each k-block of each output tile run by exactly one CTA
     and each 8-column group of each tile stored by exactly one, within the
     cluster, shared memory and fill limits of the kernel (int8: the int8
-    GEMM's 128-deep k-blocks)."""
+    GEMM's 128-deep k-blocks; geglu_bwd: K9's three-product GEMM)."""
 
-    assert plan == gemm_plan(m, n, k, sets, geglu, int8=int8), name
+    assert plan == gemm_plan(m, n, k, sets, geglu, int8=int8, geglu_bwd=geglu_bwd), name
     nkb = -(-k // (hopper_gemm.BK8 if int8 else hopper_gemm.BK))
     assert plan.nkb == nkb, (name, plan)
     kblocks, stored = Counter(), Counter()
@@ -133,7 +133,7 @@ def _assert_gemm_covers_fits_and_fills(name, plan, m, n, k, sets, geglu, int8=Fa
     assert kblocks == Counter((*t, kb) for t in tiles for kb in range(nkb)), name
     assert stored == Counter((m0, n0 + 8 * g, z) for m0, n0, z in tiles for g in range(plan.bn // 8)), name
     assert 1 <= plan.ksplit <= min(hopper_gemm.MAX_SPLIT, nkb, plan.bn // 8), (name, plan)
-    assert plan.bn in ((64,) if geglu else (64, 128)) and n % plan.bn == 0, (name, plan)
+    assert plan.bn in ((64,) if geglu or geglu_bwd else (64, 128)) and n % plan.bn == 0, (name, plan)
     assert 2 <= plan.stages <= min(4, max(2, -(-nkb // plan.ksplit))) and plan.smem <= SMEM_LIMIT, (name, plan)
     tiles = -(-m // 64) * (n // 64) * sets
     if tiles >= SMS or plan.ksplit > 1:
@@ -300,7 +300,10 @@ def test_gemm_plan_refuses_what_the_kernel_cannot_take(m, n, k, sets):
 
 @pytest.mark.parametrize("plan,args", [(k1_plan, (2, 64, 96, 8)), (k1_plan, (2, 64, 256, 5)),
                                        (k1_plan, (2, 64, 2112, 33)), (k3_plan, (2, 64, 256, 100)),
-                                       (k3_plan, (2, 64, 2112, 8448))])
+                                       (k3_plan, (2, 64, 2112, 8448)), (k7_plan, (2, 64, 96, 8)),
+                                       (k7_plan, (2, 64, 256, 5)), (k7_plan, (2, 64, 384, 16)),
+                                       (k7_plan, (2, 64, 2112, 33)), (k9_plan, (2, 64, 256, 100)),
+                                       (k9_plan, (2, 64, 96, 384)), (k9_plan, (2, 64, 2112, 8448))])
 def test_block_plans_refuse_other_widths(plan, args):
     """C % 64, head dims off 16-128 in steps of 16, inner % 64, and rows
     wider than the LayerNorm row pass takes (2048)."""
