@@ -4,11 +4,10 @@
 //
 //   * ln_rows_kernel: y = LN(x) rounded to bf16, one warp a row, fp32
 //     two-pass statistics from registers. Each row's statistics are
-//     computed once, where common.cuh's gemm_kernel recomputes them in every
-//     block of a row (12-30 times for K1's QKV GEMM). The rounding point is
-//     the one of common.cuh's prologue and of the JAX kernel: the normalised
-//     row, (x - mean) * rstd * w + b in fp32, rounded to bf16 before the
-//     product. The weights are not folded (that would move the rounding and
+//     computed once, where the first port's WMMA GEMM recomputed them in
+//     every block of a row (12-30 times for K1's QKV GEMM). The rounding
+//     point is the JAX kernel's: the normalised row, (x - mean) * rstd * w
+//     + b in fp32, rounded to bf16 before the product. The weights are not folded (that would move the rounding and
 //     cancel badly where a row's mean is large against its spread).
 //   * hgemm_kernel<BN, EPI>: one CTA a 64 x BN output tile (and one k-slice
 //     of it under split-K): one producer warp (its first lane issues the
@@ -23,12 +22,12 @@
 //     GEGLU (HG_GEGLU: value rows [n0, n0 + 64) and gate rows [N + n0, ...)
 //     of W into two accumulators; out = (a + b1) * gelu_erf(g + b1')).
 //   * HG_CTX: the bf16 store over rows gathered from a batched context
-//     (K11c's K/V projections): sets 2p and 2p + 1 (K and V of one key
-//     set) read A through the 3-D tensor map of pair p, {K, n_p, B} at the
-//     set's first context row with the context's batch stride; grid y is
-//     B x 64-row tiles, and TMA zero-fills a box past n_p, so no row of the
-//     other key set is read and nothing is copied. Output [B, n_p, N]
-//     contiguous, rows past n_p not stored.
+//     (the K/V projections of K4, K8 and K11c, launch_ctx_kv): sets 2p and
+//     2p + 1 (K and V of one key set) read A through the 3-D tensor map of
+//     pair p, {K, n_p, B} at the set's first context row with the context's
+//     batch stride; grid y is B x 64-row tiles, and TMA zero-fills a box
+//     past n_p, so no row of the other key set is read and nothing is
+//     copied. Output [B, n_p, N] contiguous, rows past n_p not stored.
 //   * HG_STORE_F32: the fp32 store ([M, N], the backward kernels' gxn).
 //   * WT (a template flag): W stored [K, N] as it lies, a Linear weight
 //     [out, in] read backwards (A . W, the product a backward takes with a
@@ -505,6 +504,38 @@ int launch_hgemm_geglu_bwd(const void* xn, const void* gm, const void* w1, const
   if (!e) e = cached_map_kn(&g.w[1], w2, K, N);
   if (e) return e;
   return launch_hgemm_t<64, HG_GEGLU_BWD>(g, 1, st);
+}
+
+// The context K/V projections of a cross-attention site in one launch
+// (hgemm_kernel, HG_CTX; K4, K8 and K11c): out
+// 0/1 = ctx[:, :n_text] . w[0/1]^T and, with n_ip > 0, out 2/3 =
+// ctx[:, n_text:n_text + n_ip] . w[2/3]^T, for ctx [B, Sk_total, Dc] and
+// weights [C, Dc]; each out [B, n, C] contiguous. The plan (bn, ksplit,
+// stages) is the wrapper's (gemm_plan over B x ceil(max(n_text, n_ip) / 64)
+// row tiles of 64 and 2 or 4 sets).
+int launch_ctx_kv(const void* ctx, int B, int Sk_total, int Dc, int n_text, int n_ip, const void* const* w,
+                  bf16* const* out, int C, int bn, int ksplit, int stages, cudaStream_t st) {
+  if (B < 1 || n_text < 1 || n_ip < 0 || n_text + n_ip > Sk_total || !hg_plan_ok(C, Dc, bn, ksplit, stages))
+    return (int)cudaErrorInvalidValue;
+  HgArgs g = {};
+  const int sets = n_ip > 0 ? 4 : 2;
+  g.ctx_n[0] = n_text;
+  g.ctx_n[1] = n_ip;
+  g.ctx_tiles = ((n_text > n_ip ? n_text : n_ip) + HG_BM - 1) / HG_BM;
+  g.M = B * g.ctx_tiles * HG_BM;
+  g.N = C;
+  g.K = Dc;
+  g.ksplit = ksplit;
+  g.stages = stages;
+  const long long bstride = (long long)Sk_total * Dc;
+  int e = cached_map(&g.a, ctx, n_text, Dc, HG_BM, 2, B, bstride);
+  if (!e && n_ip > 0) e = cached_map(&g.a_ip, (const bf16*)ctx + (size_t)n_text * Dc, n_ip, Dc, HG_BM, 2, B, bstride);
+  for (int s = 0; s < sets && !e; ++s) {
+    e = cached_map_2d(&g.w[s], w[s], C, Dc, bn);
+    g.c[s] = out[s];
+  }
+  if (e) return e;
+  return bn == 128 ? launch_hgemm_t<128, HG_CTX>(g, sets, st) : launch_hgemm_t<64, HG_CTX>(g, sets, st);
 }
 
 constexpr int LN_ROWS = 8;          // rows (warps) a block

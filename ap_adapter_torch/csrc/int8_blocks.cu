@@ -42,9 +42,10 @@
 //     each stage, two int32 accumulators; [a | g] = acc * s_row * s_col +
 //     b1, y = a * g * 0.5 * (1 + erf(g / sqrt 2)) in fp32, stored as fp32);
 //   * hgemm_kernel (hopper_gemm.cuh): K11b's K/V GEMM over the bf16
-//     LayerNorm rows, and K11c's context K/V projections (HG_CTX: the text
-//     and adapter rows of the context through one 3-D tensor map each, four
-//     weight sets in one launch, no copy);
+//     LayerNorm rows, and K11c's context K/V projections (launch_ctx_kv,
+//     HG_CTX, which K4 and K8 share: the text and adapter rows of the
+//     context through one 3-D tensor map each, four weight sets in one
+//     launch, no copy);
 //   * reg_attention_kernel<d, BIAS, ONE_SET, float> (reg_attention.cuh):
 //     one or two key sets (the text keys with the fp32 T5 bias, then the
 //     adapter keys), softmax scale 1 (q arrives pre-scaled by 1/sqrt(d)),
@@ -458,37 +459,6 @@ int launch_i8gemm(I8Args& g, const void* a8, const void* sa, const void* w8, con
   if (epi == I8_STORE)
     return bn == 128 ? launch_i8gemm_t<128, I8_STORE>(g, st) : launch_i8gemm_t<64, I8_STORE>(g, st);
   return bn == 128 ? launch_i8gemm_t<128, I8_BIAS_RESID>(g, st) : launch_i8gemm_t<64, I8_BIAS_RESID>(g, st);
-}
-
-// K11c's context K/V projections in one launch (hgemm_kernel, HG_CTX): out
-// 0/1 = ctx[:, :n_text] . w[0/1]^T and, with n_ip > 0, out 2/3 =
-// ctx[:, n_text:n_text + n_ip] . w[2/3]^T, for ctx [B, Sk_total, Dc] and
-// weights [C, Dc]; each out [B, n, C] contiguous. The plan (bn, ksplit,
-// stages) is the wrapper's (gemm_plan over B x ceil(max(n_text, n_ip) / 64)
-// row tiles of 64 and 2 or 4 sets).
-int launch_ctx_kv(const void* ctx, int B, int Sk_total, int Dc, int n_text, int n_ip, const void* const* w,
-                  bf16* const* out, int C, int bn, int ksplit, int stages, cudaStream_t st) {
-  if (B < 1 || n_text < 1 || n_ip < 0 || n_text + n_ip > Sk_total || !hg_plan_ok(C, Dc, bn, ksplit, stages))
-    return (int)cudaErrorInvalidValue;
-  HgArgs g = {};
-  const int sets = n_ip > 0 ? 4 : 2;
-  g.ctx_n[0] = n_text;
-  g.ctx_n[1] = n_ip;
-  g.ctx_tiles = ((n_text > n_ip ? n_text : n_ip) + HG_BM - 1) / HG_BM;
-  g.M = B * g.ctx_tiles * HG_BM;
-  g.N = C;
-  g.K = Dc;
-  g.ksplit = ksplit;
-  g.stages = stages;
-  const long long bstride = (long long)Sk_total * Dc;
-  int e = cached_map(&g.a, ctx, n_text, Dc, HG_BM, 2, B, bstride);
-  if (!e && n_ip > 0) e = cached_map(&g.a_ip, (const bf16*)ctx + (size_t)n_text * Dc, n_ip, Dc, HG_BM, 2, B, bstride);
-  for (int s = 0; s < sets && !e; ++s) {
-    e = cached_map_2d(&g.w[s], w[s], C, Dc, bn);
-    g.c[s] = out[s];
-  }
-  if (e) return e;
-  return bn == 128 ? launch_hgemm_t<128, HG_CTX>(g, sets, st) : launch_hgemm_t<64, HG_CTX>(g, sets, st);
 }
 
 }  // namespace

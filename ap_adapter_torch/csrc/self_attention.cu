@@ -8,8 +8,10 @@
 //      (any d, the whole K/V of a head resident in VMEM)
 // The head packing and the K/V residency answer the TPU's lane width and
 // VMEM. On Hopper the entry point routes by head dim: d % 16 == 0 and
-// d <= 128 goes to common.cuh's streamed online-softmax attention routine;
-// d % 64 == 0 with 128 < d <= 512 goes to wgmma_attention_kernel below. The
+// d <= 128 goes to the streamed online-softmax routine below (the first
+// port's attention, 64x64 WMMA tiles with K/V streamed through shared
+// memory, kept for this route alone); d % 64 == 0 with 128 < d <= 512 goes
+// to wgmma_attention_kernel below. The
 // path that reaches it is the VAE mid-block attention (one head, d = 512,
 // S = 4000 at edit time and 4096 in training); the smoke also holds the
 // entry point at the UNet's d = 32 and 80.
@@ -59,10 +61,214 @@
 #include "hopper.cuh"
 
 #include <cooperative_groups.h>
+#include <mma.h>
 
 namespace cg = cooperative_groups;
+using namespace nvcuda;
 
 namespace {
+
+// -- the streamed route (d <= 128): WMMA tiles, K/V streamed through shared memory --
+
+constexpr int TQ = 64;   // query rows per block (16 per warp)
+constexpr int TK = 64;   // keys per streamed tile
+constexpr int LDP = TK + 8;
+
+struct AttnLayout {
+  int ldq, lds, ldo;       // bf16 stride of Q/K/V tiles, fp32 stride of S/PV, fp32 stride of O
+  size_t q, k, v, s, p, o, f, corr, bytes;
+};
+
+__host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
+
+__host__ __device__ inline AttnLayout attn_layout(int d, bool dual) {
+  AttnLayout L;
+  L.ldq = d + 8;
+  L.lds = (d > TK ? d : TK) + 4;
+  L.ldo = d + 4;
+  size_t off = 0;
+  L.q = off; off = align128(off + (size_t)TQ * L.ldq * 2);
+  L.k = off; off = align128(off + (size_t)TK * L.ldq * 2);
+  L.v = off; off = align128(off + (size_t)TK * L.ldq * 2);
+  L.s = off; off = align128(off + (size_t)TQ * L.lds * 4);
+  L.p = off; off = align128(off + (size_t)TQ * LDP * 2);
+  L.o = off; off = align128(off + (size_t)TQ * L.ldo * 4);
+  L.f = off; if (dual) off = align128(off + (size_t)TQ * L.ldo * 4);
+  L.corr = off; off = align128(off + (size_t)TQ * 4);
+  L.bytes = off;
+  return L;
+}
+
+__device__ __forceinline__ void store_val(bf16* p, float v) { *p = __float2bfloat16(v); }
+
+// out[b, i, h*d:(h+1)*d] = softmax(q_i k^T * scale + bias) v  (+ s2 * the same
+// over the second K/V set, unbiased), combined in fp32 and stored as OutT.
+// d % 16 == 0, d <= 128.
+template <typename OutT>
+__global__ void __launch_bounds__(THREADS) attention_kernel(
+    const bf16* __restrict__ q, int ldq_g, int Sq,
+    const bf16* __restrict__ k, const bf16* __restrict__ v, int ldkv, int Sk,
+    const float* __restrict__ bias,
+    const bf16* __restrict__ k2, const bf16* __restrict__ v2, int ldkv2, int Sk2, float s2,
+    OutT* __restrict__ out, int ldo_g, int d, float sm_scale) {
+  extern __shared__ __align__(128) unsigned char dyn_smem[];
+  const bool dual = k2 != nullptr;
+  const AttnLayout L = attn_layout(d, dual);
+  bf16* Qs = reinterpret_cast<bf16*>(dyn_smem + L.q);
+  bf16* Ks = reinterpret_cast<bf16*>(dyn_smem + L.k);
+  bf16* Vs = reinterpret_cast<bf16*>(dyn_smem + L.v);
+  float* Ss = reinterpret_cast<float*>(dyn_smem + L.s);
+  bf16* Ps = reinterpret_cast<bf16*>(dyn_smem + L.p);
+  float* Os = reinterpret_cast<float*>(dyn_smem + L.o);
+  float* Fs = reinterpret_cast<float*>(dyn_smem + L.f);
+  float* Cr = reinterpret_cast<float*>(dyn_smem + L.corr);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TQ;
+  const int dv = d / 8;
+
+  for (int c = tid; c < TQ * dv; c += THREADS) {
+    const int r = c / dv, cc = (c % dv) * 8, row = q0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row < Sq) val = *reinterpret_cast<const uint4*>(q + ((size_t)b * Sq + row) * ldq_g + h * d + cc);
+    *reinterpret_cast<uint4*>(Qs + r * L.ldq + cc) = val;
+  }
+  for (int c = tid; c < TQ * L.ldo; c += THREADS) Os[c] = 0.f;
+
+  float* Sw = Ss + warp * 16 * L.lds;
+  const int nsets = dual ? 2 : 1;
+  for (int set = 0; set < nsets; ++set) {
+    const bf16* kp = set == 0 ? k : k2;
+    const bf16* vp = set == 0 ? v : v2;
+    const int ld = set == 0 ? ldkv : ldkv2;
+    const int skn = set == 0 ? Sk : Sk2;
+    const float* bp = set == 0 ? bias : nullptr;
+    float m_r[16], l_r[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      m_r[r] = -INFINITY;
+      l_r[r] = 0.f;
+    }
+
+    for (int k0 = 0; k0 < skn; k0 += TK) {
+      __syncthreads();
+      for (int c = tid; c < TK * dv; c += THREADS) {
+        const int r = c / dv, cc = (c % dv) * 8, row = k0 + r;
+        uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
+        if (row < skn) {
+          const size_t off = ((size_t)b * skn + row) * ld + h * d + cc;
+          kv = *reinterpret_cast<const uint4*>(kp + off);
+          vv = *reinterpret_cast<const uint4*>(vp + off);
+        }
+        *reinterpret_cast<uint4*>(Ks + r * L.ldq + cc) = kv;
+        *reinterpret_cast<uint4*>(Vs + r * L.ldq + cc) = vv;
+      }
+      __syncthreads();
+
+      // S = Q K^T for this warp's 16 query rows
+      for (int j = 0; j < TK / 16; ++j) {
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+        wmma::fill_fragment(acc, 0.f);
+        for (int kk = 0; kk < d; kk += 16) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bb;
+          wmma::load_matrix_sync(a, Qs + warp * 16 * L.ldq + kk, L.ldq);
+          wmma::load_matrix_sync(bb, Ks + j * 16 * L.ldq + kk, L.ldq);
+          wmma::mma_sync(acc, a, bb, acc);
+        }
+        wmma::store_matrix_sync(Sw + j * 16, acc, L.lds, wmma::mem_row_major);
+      }
+      __syncwarp();
+
+      // online softmax; each lane owns key columns lane and lane + 32
+      const int c0 = k0 + lane, c1 = k0 + lane + 32;
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        float x0 = Sw[r * L.lds + lane] * sm_scale;
+        float x1 = Sw[r * L.lds + lane + 32] * sm_scale;
+        if (bp != nullptr) {
+          if (c0 < skn) x0 += bp[(size_t)b * skn + c0];
+          if (c1 < skn) x1 += bp[(size_t)b * skn + c1];
+        }
+        if (c0 >= skn) x0 = -INFINITY;
+        if (c1 >= skn) x1 = -INFINITY;
+        const float m_new = fmaxf(m_r[r], warp_max(fmaxf(x0, x1)));
+        const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
+        const float corr = expf(m_r[r] - m_new);
+        l_r[r] = l_r[r] * corr + warp_sum(p0 + p1);
+        m_r[r] = m_new;
+        const int gr = warp * 16 + r;
+        Ps[gr * LDP + lane] = __float2bfloat16(p0);
+        Ps[gr * LDP + lane + 32] = __float2bfloat16(p1);
+        if (lane == 0) Cr[gr] = corr;
+      }
+      __syncwarp();
+
+      // PV for this warp's rows into Sw (S is dead now)
+      for (int dj = 0; dj < d; dj += 16) {
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+        wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+        for (int kk = 0; kk < TK; kk += 16) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bb;
+          wmma::load_matrix_sync(a, Ps + warp * 16 * LDP + kk, LDP);
+          wmma::load_matrix_sync(bb, Vs + kk * L.ldq + dj, L.ldq);
+          wmma::mma_sync(acc, a, bb, acc);
+        }
+        wmma::store_matrix_sync(Sw + dj, acc, L.lds, wmma::mem_row_major);
+      }
+      __syncwarp();
+      for (int e = lane; e < 16 * d; e += 32) {
+        const int r = e / d, c = e % d, gr = warp * 16 + r;
+        Os[gr * L.ldo + c] = Os[gr * L.ldo + c] * Cr[gr] + Sw[r * L.lds + c];
+      }
+      __syncwarp();
+    }
+
+    // normalise this set; combine the sets as out_1 + s2 * out_2
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+      if (lane == 0) Cr[warp * 16 + r] = 1.f / l_r[r];
+    __syncwarp();
+    const bool last = set == nsets - 1;
+    for (int e = lane; e < 16 * d; e += 32) {
+      const int r = e / d, c = e % d, gr = warp * 16 + r;
+      const float val = Os[gr * L.ldo + c] * Cr[gr];
+      if (!last) {
+        Fs[gr * L.ldo + c] = val;
+        Os[gr * L.ldo + c] = 0.f;
+      } else {
+        const float res = dual ? Fs[gr * L.ldo + c] + s2 * val : val;
+        const int row = q0 + gr;
+        if (row < Sq) store_val(out + ((size_t)b * Sq + row) * ldo_g + h * d + c, res);
+      }
+    }
+    __syncwarp();
+  }
+}
+
+template <typename OutT>
+int launch_attention(const bf16* q, int Sq, const bf16* k, const bf16* v, int Sk, const float* bias,
+                     const bf16* k2, const bf16* v2, int Sk2, float s2, OutT* out,
+                     int B, int C, int heads, float sm_scale, cudaStream_t st) {
+  const int d = C / heads;
+  const AttnLayout L = attn_layout(d, k2 != nullptr);
+  static size_t configured = 0;
+  if (L.bytes > configured) {
+    cudaError_t e = cudaFuncSetAttribute(attention_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)L.bytes);
+    if (e != cudaSuccess) return (int)e;
+    configured = L.bytes;
+  }
+  dim3 grid((Sq + TQ - 1) / TQ, heads, B);
+  attention_kernel<OutT><<<grid, THREADS, L.bytes, st>>>(q, C, Sq, k, v, C, Sk, bias, k2, v2, C, Sk2, s2, out, C, d,
+                                                         sm_scale);
+  return (int)cudaGetLastError();
+}
+
+// -- the wgmma route (128 < d <= 512) --
+
 
 constexpr int WA_TQ = 64;                 // query rows per block
 constexpr int WA_TK = 32;                 // keys per pipelined tile

@@ -35,11 +35,11 @@ _SIGNATURES = {
     "apk_fused_ln_cross_attention_kv": [_P] * 8 + [_I, _P, _P, _P, _I, _F, _P, _P] + [_I] * 4 + [_F]
     + [_I] * 8 + [_P],
     "apk_fused_ln_geglu_ff": [_P] * 9 + [_I] * 4 + [_F] + [_I] * 5 + [_P],
-    "apk_fused_ln_cross_attention": [_P, _P, _I, _I, _I] + [_P] * 9 + [_F] + [_P] * 8
-    + [_I] * 4 + [_F, _P],
+    "apk_fused_ln_cross_attention": [_P, _P, _I, _I, _I] + [_P] * 9 + [_F] + [_P] * 4 + [_I] * 4 + [_F]
+    + [_I] * 11 + [_P],
     "apk_fused_ln_self_attention_bwd_dx": [_P] * 11 + [_I] * 4 + [_F] + [_I] * 9 + [_P],
-    "apk_fused_ln_cross_attention_bwd": [_P, _P, _P, _I, _I, _I] + [_P] * 8 + [_F] + [_P] * 14
-    + [_I] * 4 + [_F, _P],
+    "apk_fused_ln_cross_attention_bwd": [_P, _P, _P, _I, _I, _I] + [_P] * 8 + [_F] + [_P] * 7 + [_I] * 4 + [_F]
+    + [_I] * 12 + [_P],
     "apk_fused_ln_geglu_ff_bwd_dx": [_P] * 10 + [_I] * 4 + [_F] + [_I] * 5 + [_P],
     "apk_fused_ln_geglu_ff_int8": [_P] * 15 + [_I] * 4 + [_F] + [_I] * 5 + [_P],
     "apk_fused_ln_self_attention_int8": [_P] * 15 + [_I] * 4 + [_F, _F] + [_I] * 9 + [_P],

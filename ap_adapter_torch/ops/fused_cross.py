@@ -28,23 +28,29 @@ the launches' own latency.
 
 K4 replaces ``pallas_fused_cross.py::fused_ln_cross_attention`` (``_kernel``):
 the cross site when K/V are not hoisted, as in training. The kernel
-(``csrc/train_blocks.cu``, ``apk_fused_ln_cross_attention``) projects the
-text K/V from the first ``num_ip_tokens`` context rows and the adapter K/V
-from the rest with ``common.cuh``'s WMMA GEMM (the rows gathered from the
-strided context in place), then its LN+Q GEMM, its streamed two-set
-attention and its out GEMM. The projections are
-[B·Sk, Dc]x[Dc, C] with Dc = 768 or 1024 and Sk up to 520; at pool 1 they
-are as large as the query projection.
+(``csrc/fused_hopper.cu``, ``apk_fused_ln_cross_attention``), five launches
+a call: the context K/V GEMM (``csrc/hopper_gemm.cuh::launch_ctx_kv``, as
+K11c's: the text K/V from the first ``num_ip_tokens`` context rows and the
+adapter K/V from the rest, 2 or 4 weight sets in one launch, the rows read
+in place from the strided context through 3-D tensor maps), then K2's four
+launches over the K/V it projected. The projections are [B·Sk, Dc]x[Dc, C]
+with Dc = 768 or 1024 and Sk up to 520; at pool 1 they are as large as the
+query projection. ``k4_plan`` plans it, with one scratch allocation a call.
 
 K8 replaces ``pallas_fused_cross.py::fused_ln_cross_attention_bwd``
-(``apk_fused_ln_cross_attention_bwd``): the projections recomputed,
-``gattn = g·Wo``, a dq pass per query tile over both key sets (the adapter's
-with its share ``s·gattn`` of the gradient), a dk/dv pass per adapter key
-tile over every query tile, which gives the per-position ``dk_ip``/``dv_ip``
-in fp32, then ``gxn = dq·Wq`` and the LayerNorm backward. The text branch
-needs only dq, never dk/dv. The adapter weight gradients
-``dW = dk_ipᵀ·ctx_ip`` are one ``torch.matmul`` outside the kernel, as the
-JAX package leaves them to XLA.
+(``csrc/train_blocks.cu``, ``apk_fused_ln_cross_attention_bwd``), eight
+launches at an adapter site and seven elsewhere: the context K/V GEMM, the
+LayerNorm rows and the Q GEMM recomputed as K4 runs them; ``gattn = g·Wo``
+(the GEMM reading Wo [K, N] MN-major, as K7's); the two-set dq kernel
+(``csrc/attn_bwd.cuh``: sweep 1 over the text keys with their T5 bias and
+then the adapter keys, each set's row statistics, sweep 2 over both sets
+into one dq, the adapter's output gradient ``bf16(s·gattn)`` as JAX rounds
+it); the dkv kernel over the adapter keys alone, which gives the
+per-position ``dk_ip``/``dv_ip`` in fp32 (the text branch needs only dq,
+never dk/dv); ``gxn = dq·Wq`` in fp32 and the LayerNorm backward.
+``k8_plan`` plans it. The adapter weight gradients ``dW = dk_ipᵀ·ctx_ip``
+are one library product outside the kernel (``adapter_weight_grads``), as
+the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -58,7 +64,8 @@ import torch.nn.functional as F
 from ap_adapter_torch.models.layers import layer_norm_f32
 from ap_adapter_torch.ops import cuda_kernels as ck
 from ap_adapter_torch.ops.attention import sdpa
-from ap_adapter_torch.ops.hopper_gemm import H100_SMS, GemmPlan, check_ln_width, gemm_plan
+from ap_adapter_torch.ops.hopper_gemm import (
+    H100_SMS, GemmPlan, check_ln_width, ctx_kv_plan, gemm_plan, scratch_layout)
 
 KEY_TILES = (16, 32, 64)    # keys a tile of the register-resident attention (a stage holds 64)
 
@@ -105,6 +112,11 @@ def key_tiles(n: int, n_ip: int) -> Iterator[Tuple[int, int, int, bool]]:
             yield kset, it * tk, tk, it * tk + tk > count
 
 
+def _check_block(op: str, c: int, heads: int) -> None:
+    ck.check_heads(op, c, heads)
+    check_ln_width(op, c)
+
+
 class K2Plan(NamedTuple):
     q: GemmPlan         # LN(x) [M, C] x Wq, bf16 store
     out: GemmPlan       # attention [M, C] x Wo, bias + residual
@@ -116,9 +128,7 @@ def k2_plan(b: int, s: int, c: int, heads: int, sms: int = H100_SMS) -> K2Plan:
     attention's grid is fixed: 64 query rows a CTA). Raises on a width the
     kernels do not take (``ck.check_heads``)."""
 
-    op = "fused_ln_cross_attention_kv"
-    ck.check_heads(op, c, heads)
-    check_ln_width(op, c)
+    _check_block("fused_ln_cross_attention_kv", c, heads)
     plan = gemm_plan(b * s, c, c, sms=sms)      # both [M, C] x [C, C]
     return K2Plan(plan, plan)
 
@@ -219,11 +229,60 @@ def _check_cross(op: str, x, context, wk, wv, wq, wo, wk_ip, wv_ip, num_ip_token
     return sk_text, sk_ip
 
 
-def _check_cuda_cross(op: str, x, context, heads: int, operands, dtypes=None) -> None:
-    ck.check_heads(op, x.shape[-1], heads)
-    if context.shape[-1] % 32:
-        raise ValueError(f"{op}: kernel needs the context width % 32 == 0, got {context.shape[-1]}")
-    ck.check_operands(op, x, dtypes, **operands)
+class K4Plan(NamedTuple):
+    kv: GemmPlan        # context rows x Wk, Wv (, Wk_ip, Wv_ip), bf16 store: B x ctx_tiles row tiles, 2 or 4 sets
+    q: GemmPlan         # LN(x) [M, C] x Wq, bf16 store (K2's)
+    out: GemmPlan       # attention [M, C] x Wo, bias + residual (K2's)
+    tk: int             # keys a tile of the text set
+    tk_ip: int          # keys a tile of the adapter set
+    offsets: Tuple[int, ...]   # kv (k, v, ki, vi), then K2's LN(x), q, attention output in the scratch
+    nbytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def k4_plan(b: int, s: int, c: int, heads: int, sk_text: int, sk_ip: int, dc: int,
+            sms: int = H100_SMS) -> K4Plan:
+    """The launches of K4 on x [b, s, c] against a context of ``sk_text``
+    text and ``sk_ip`` adapter rows (0: no adapter set) of width ``dc``: the
+    context K/V GEMM (``ctx_kv_plan``), K2's Q and out GEMMs by
+    ``gemm_plan``, each key set's tile (``key_tile``) and the scratch.
+    Raises on a width the kernels do not take."""
+
+    op = "fused_ln_cross_attention"
+    _check_block(op, c, heads)
+    kv = ctx_kv_plan(op, b, c, sk_text, sk_ip, dc, sms)
+    plan = gemm_plan(b * s, c, c, sms=sms)      # both [M, C] x [C, C]
+    offsets, nbytes = scratch_layout(2 * 2 * b * (sk_text + sk_ip) * c, 3 * 2 * b * s * c)
+    return K4Plan(kv, plan, plan, key_tile(sk_text), key_tile(sk_ip), offsets, nbytes)
+
+
+class K8Plan(NamedTuple):
+    kv: GemmPlan        # K4's context K/V GEMM
+    q: GemmPlan         # LN(x) [M, C] x Wq, bf16 store
+    gattn: GemmPlan     # g [M, C] x Wo read as [K, N], bf16 store
+    gxn: GemmPlan       # dq [M, C] x Wq read as [K, N], fp32 store
+    offsets: Tuple[int, ...]   # kv (k, v, ki, vi); LN(x), q, gattn, bf16(s·gattn), dq; lse2, D, gxn in the scratch
+    nbytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def k8_plan(b: int, s: int, c: int, heads: int, sk_text: int, sk_ip: int, dc: int,
+            sms: int = H100_SMS) -> K8Plan:
+    """The launches of K8 on x [b, s, c] against K4's context: K4's context
+    K/V and Q GEMMs, ``g·Wo`` and ``gxn = dq·Wq`` by ``gemm_plan`` (the
+    attention backward's grids are fixed: 64 query rows, or 64 adapter keys,
+    a CTA, and 64-key tiles of both sets), and the scratch: the K/V (bf16),
+    five [M, C] bf16 buffers, and fp32 lse2 and D of both sets [2, b, heads,
+    s] each and gxn [M, C]. Raises on a width the kernels do not take."""
+
+    op = "fused_ln_cross_attention_bwd"
+    _check_block(op, c, heads)
+    kv = ctx_kv_plan(op, b, c, sk_text, sk_ip, dc, sms)
+    m = b * s
+    plan = gemm_plan(m, c, c, sms=sms)          # Q, g·Wo and dq·Wq: [M, C] x [C, C]
+    offsets, nbytes = scratch_layout(2 * 2 * b * (sk_text + sk_ip) * c, 5 * 2 * m * c,
+                                     4 * (2 * 2 * b * heads * s + m * c))
+    return K8Plan(kv, plan, plan, plan, offsets, nbytes)
 
 
 def fused_ln_cross_attention(
@@ -246,17 +305,16 @@ def fused_ln_cross_attention(
         return fused_ln_cross_attention_plain(
             x, context, ln_w, ln_b, wq, wk, wv, wo, bo, heads, wk_ip=wk_ip, wv_ip=wv_ip,
             ip_scale=ip_scale, num_ip_tokens=num_ip_tokens, bias=bias, eps=eps)
-    _check_cuda_cross(op, x, context, heads, operands)
-    q, attn, out = (torch.empty_like(x) for _ in range(3))
-    k, v = (x.new_empty(b, sk_text, c) for _ in range(2))
-    ki = vi = None
-    if sk_ip:
-        ki, vi = (x.new_empty(b, sk_ip, c) for _ in range(2))
+    ck.check_operands(op, x, **operands)
+    plan = k4_plan(b, s, c, heads, sk_text, sk_ip, context.shape[2], ck.sm_count(x.device))
+    scratch = x.new_empty(plan.nbytes, dtype=torch.uint8)
+    out = torch.empty_like(x)
+    kv, act = (scratch.data_ptr() + o for o in plan.offsets)
     ck.launch(op, x.data_ptr(), context.data_ptr(), context.shape[1], context.shape[2], sk_text,
               ln_w.data_ptr(), ln_b.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
               ck.ptr(wk_ip), ck.ptr(wv_ip), wo.data_ptr(), bo.data_ptr(), float(ip_scale), ck.ptr(bias),
-              q.data_ptr(), k.data_ptr(), v.data_ptr(), ck.ptr(ki), ck.ptr(vi), attn.data_ptr(),
-              out.data_ptr(), b, s, c, heads, eps)
+              kv, act, out.data_ptr(), b, s, c, heads, eps, plan.tk, plan.tk_ip,
+              *plan.kv.launch_args, *plan.q.launch_args, *plan.out.launch_args)
     return out
 
 
@@ -304,30 +362,48 @@ def fused_ln_cross_attention_bwd(
         return fused_ln_cross_attention_bwd_plain(
             x, g, context, ln_w, ln_b, wq, wk, wv, wo, heads, wk_ip=wk_ip, wv_ip=wv_ip,
             ip_scale=ip_scale, num_ip_tokens=num_ip_tokens, bias=bias, eps=eps)
-    _check_cuda_cross(op, x, context, heads, operands)
-    q, gattn, dq, dx = (torch.empty_like(x) for _ in range(4))
-    k, v = (x.new_empty(b, sk_text, c) for _ in range(2))
-    lse, dsum = (x.new_empty(2, b, heads, s, dtype=torch.float32) for _ in range(2))
-    gxn = x.new_empty(b, s, c, dtype=torch.float32)
-    ki = vi = dki = dvi = None
+    ck.check_operands(op, x, **operands)
+    plan = k8_plan(b, s, c, heads, sk_text, sk_ip, context.shape[2], ck.sm_count(x.device))
+    scratch = x.new_empty(plan.nbytes, dtype=torch.uint8)
+    dx = torch.empty_like(x)
+    dki = dvi = None
     if sk_ip:
-        ki, vi = (x.new_empty(b, sk_ip, c) for _ in range(2))
-        dki, dvi = (x.new_empty(b, sk_ip, c, dtype=torch.float32) for _ in range(2))
+        dki, dvi = x.new_empty(2, b, sk_ip, c, dtype=torch.float32).unbind(0)
+    kv, act, stats = (scratch.data_ptr() + o for o in plan.offsets)
     ck.launch(op, x.data_ptr(), g.data_ptr(), context.data_ptr(), context.shape[1], context.shape[2],
               sk_text, ln_w.data_ptr(), ln_b.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
-              ck.ptr(wk_ip), ck.ptr(wv_ip), wo.data_ptr(), float(ip_scale), ck.ptr(bias), q.data_ptr(),
-              k.data_ptr(), v.data_ptr(), ck.ptr(ki), ck.ptr(vi), gattn.data_ptr(), dq.data_ptr(),
-              lse.data_ptr(), dsum.data_ptr(), gxn.data_ptr(), dx.data_ptr(), ck.ptr(dki), ck.ptr(dvi),
-              b, s, c, heads, eps)
+              ck.ptr(wk_ip), ck.ptr(wv_ip), wo.data_ptr(), float(ip_scale), ck.ptr(bias), kv, act, stats,
+              dx.data_ptr(), ck.ptr(dki), ck.ptr(dvi), b, s, c, heads, eps, *plan.kv.launch_args,
+              *plan.q.launch_args, *plan.gattn.launch_args, *plan.gxn.launch_args)
     return dx, dki, dvi
+
+
+def adapter_weight_grads(dk: torch.Tensor, dv: torch.Tensor, ip: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The adapter projections' weight gradients ``dW = Σ_b dᵀ·ip`` [C, Dc]
+    in fp32, for d = dk and dv [B, Sk_ip, C] (K8's per-position gradients,
+    fp32) and the adapter's context rows ip [B, Sk_ip, Dc], with JAX's
+    roundings (``pallas_fused_cross.py:710-713``): the gradients in the
+    context's dtype, fp32 accumulation, an fp32 result. On the card with a
+    bf16 context, both in one tensor-core product with an fp32 result
+    (``torch.mm(..., out_dtype=torch.float32)`` over ``[dk | dv]``);
+    elsewhere the same in fp32 arithmetic (in fp32 the cast rounds
+    nothing)."""
+
+    if dk.is_cuda and ip.dtype == torch.bfloat16:
+        c = dk.shape[-1]
+        d = torch.cat((dk, dv), -1).to(ip.dtype).reshape(-1, 2 * c)
+        w = torch.mm(d.t(), ip.reshape(-1, ip.shape[-1]), out_dtype=torch.float32)
+        return w[:c], w[c:]
+    return tuple(torch.einsum("bkc,bkd->cd", t.to(ip.dtype).float(), ip.float()) for t in (dk, dv))
 
 
 class _FusedLnCrossAttention(torch.autograd.Function):
     """Forward K4, backward K8: dx, and the adapter weight gradients
-    ``dW_k_ip = dk_ipᵀ·ctx_ip`` / ``dW_v_ip`` in fp32 (returned in the
-    adapter weights' own dtype, fp32 in training). Any other input that
-    needs a gradient gets it from autograd over the plain version,
-    recomputed; the context is frozen input and gets none unless asked."""
+    ``dW_k_ip = dk_ipᵀ·ctx_ip`` / ``dW_v_ip`` in fp32 (``adapter_weight_grads``;
+    returned in the adapter weights' own dtype, fp32 in training). Any other
+    input that needs a gradient gets it from autograd over the plain
+    version, recomputed; the context is frozen input and gets none unless
+    asked."""
 
     @staticmethod
     def forward(ctx, x, context, ln_w, ln_b, wq, wk, wv, wo, bo, wk_ip, wv_ip, bias,
@@ -354,12 +430,10 @@ class _FusedLnCrossAttention(torch.autograd.Function):
                 x, g, context, ln_w, ln_b, wq, wk, wv, wo, heads, wk_ip=wki, wv_ip=wvi,
                 ip_scale=ip_scale, num_ip_tokens=num_ip_tokens, bias=bias, eps=eps)
             grads[0] = dx if needs[0] else None
-            if wk_ip is not None:
-                ip = context[:, num_ip_tokens:].float()
-                if needs[9]:
-                    grads[9] = torch.einsum("bkc,bkd->cd", dki, ip).to(wk_ip.dtype)
-                if needs[10]:
-                    grads[10] = torch.einsum("bkc,bkd->cd", dvi, ip).to(wv_ip.dtype)
+            if wk_ip is not None and (needs[9] or needs[10]):
+                dwk, dwv = adapter_weight_grads(dki, dvi, context[:, num_ip_tokens:])
+                grads[9] = dwk.to(wk_ip.dtype) if needs[9] else None
+                grads[10] = dwv.to(wv_ip.dtype) if needs[10] else None
         rest = [n if i not in (0, 9, 10) else False for i, n in enumerate(needs)]
         if any(rest):
             fn = lambda x_, c_, lw, lb, q_, k_, v_, o_, bo_, ki_, vi_, bias_: fused_ln_cross_attention_plain(

@@ -20,6 +20,10 @@ stages from the counts of row tiles and k-blocks, which ``gemm_plan`` (a
 matrix product) and ``ops/resnet.py::conv_plan`` (a 3x3 conv) compute;
 ``gemm_blocks`` lists the (row, column, set, k-blocks) of each CTA by the
 kernel's own formulas, so that the tests can check the coverage.
+``ctx_kv_plan`` plans the context K/V GEMM of K4, K8 and K11c, which reads
+the text and adapter rows of a batched context through 3-D tensor maps
+(``ctx_tiles``, ``ctx_boxes``); ``scratch_layout`` lays out a wrapper's one
+scratch allocation.
 """
 
 from __future__ import annotations
@@ -170,3 +174,53 @@ def gemm_blocks(plan: GemmPlan) -> Iterator[Tuple[int, int, int, int, int, range
                 rank = x % ks
                 groups = range(units) if ks == 1 else range(rank * units // ks, (rank + 1) * units // ks)
                 yield (y * BM, (x // ks) * plan.bn, z, rank * nkb // ks, (rank + 1) * nkb // ks, groups)
+
+
+def scratch_layout(*sizes: int) -> Tuple[Tuple[int, ...], int]:
+    """Byte offsets of buffers of ``sizes`` bytes in one scratch allocation,
+    each 256-byte aligned (the TMA maps and 16-byte loads need 16), and the
+    allocation's size."""
+
+    offsets, at = [], 0
+    for n in sizes:
+        offsets.append(at)
+        at += -(-n // 256) * 256
+    return tuple(offsets), at
+
+
+def ctx_tiles(sk_text: int, sk_ip: int) -> int:
+    """64-row tiles a batch entry of the context K/V GEMM (``launch_ctx_kv``,
+    the K/V projections of K4, K8 and K11c): those of the longer key set
+    (the shorter set's surplus CTAs leave at once)."""
+
+    return -(-max(sk_text, sk_ip) // BM)
+
+
+def ctx_boxes(b: int, sk_text: int, sk_ip: int) -> Iterator[Tuple[int, int, int, int, int]]:
+    """The row tiles of the context K/V GEMM that do work, by the kernel's
+    formulas (``hgemm_kernel``, HG_CTX), as (pair, batch entry, first row
+    within the pair's key set, rows stored, first output row): grid y runs
+    over ``b * ctx_tiles`` tiles, entry = y / tiles, m0 = (y % tiles) * 64;
+    a tile at or past the pair's n rows leaves; the box's rows past n are
+    zero-filled by TMA, and output row entry * n + m0 + i is stored for
+    i < n - m0. Pair 0 is the text set, pair 1 the adapter set."""
+
+    tiles = ctx_tiles(sk_text, sk_ip)
+    for pair, n in enumerate((sk_text, sk_ip)):
+        for y in range(b * tiles):
+            entry, m0 = y // tiles, (y % tiles) * BM
+            if m0 < n:
+                yield pair, entry, m0, min(BM, n - m0), entry * n + m0
+
+
+def ctx_kv_plan(op: str, b: int, c: int, sk_text: int, sk_ip: int, dc: int, sms: int = H100_SMS) -> GemmPlan:
+    """The launch of the context K/V GEMM (``launch_ctx_kv``) for ``b``
+    contexts of ``sk_text`` text and ``sk_ip`` adapter rows (0: no adapter
+    set) of width ``dc``: 2 or 4 weight sets [c, dc] over ``b * ctx_tiles``
+    row tiles of 64, by ``gemm_plan``. Raises unless dc % 64 == 0 (the
+    rows' TMA boxes start 16-byte aligned then) and there are text keys."""
+
+    if dc % 64 or sk_text < 1 or sk_ip < 0:
+        raise ValueError(f"{op}: the context K/V GEMM needs a context width % 64 == 0 (its rows' TMA boxes "
+                         f"start 16-byte aligned then) and text keys (Dc={dc}, keys {sk_text} + {sk_ip})")
+    return gemm_plan(b * ctx_tiles(sk_text, sk_ip) * BM, c, dc, sets=4 if sk_ip else 2, sms=sms)

@@ -64,16 +64,17 @@ not by the int8 tensor-core rate; times and bounds are in ``PERF.md``.
 from __future__ import annotations
 
 import functools
-from typing import Iterator, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ap_adapter_torch.ops import cuda_kernels as ck
 from ap_adapter_torch.ops.fused_block import _check_weights
-from ap_adapter_torch.ops.fused_cross import _check_cross, _check_cuda_cross, _split_context, key_tile
+from ap_adapter_torch.ops.fused_cross import _check_cross, _split_context, key_tile
 from ap_adapter_torch.ops.fused_ff import _check_widths
-from ap_adapter_torch.ops.hopper_gemm import BM, H100_SMS, GemmPlan, check_ln_width, gemm_plan
+from ap_adapter_torch.ops.hopper_gemm import (
+    H100_SMS, GemmPlan, check_ln_width, ctx_kv_plan, gemm_plan, scratch_layout)
 
 _INV127 = 1.0 / 127.0
 
@@ -224,18 +225,6 @@ def _quant_dtypes(w8: str, scale: str, w8b: str, scale_b: str) -> dict:
     return {w8: torch.int8, w8b: torch.int8, scale: torch.float32, scale_b: torch.float32}
 
 
-def scratch_layout(*sizes: int) -> Tuple[Tuple[int, ...], int]:
-    """Byte offsets of buffers of ``sizes`` bytes in one scratch allocation,
-    each 256-byte aligned (the TMA maps and 16-byte loads need 16), and the
-    allocation's size."""
-
-    offsets, at = [], 0
-    for n in sizes:
-        offsets.append(at)
-        at += -(-n // 256) * 256
-    return tuple(offsets), at
-
-
 class K11aPlan(NamedTuple):
     w1: GemmPlan        # int8 LN(x) rows [M, C] x W1q [2·inner, C], GEGLU epilogue, fp32 store
     w2: GemmPlan        # int8 GEGLU rows [M, inner] x W2q [C, inner], bias + residual
@@ -340,30 +329,6 @@ class K11cPlan(NamedTuple):
     nbytes: int
 
 
-def ctx_tiles(sk_text: int, sk_ip: int) -> int:
-    """64-row tiles a batch entry of the context K/V GEMM: those of the
-    longer key set (the shorter set's surplus CTAs leave at once)."""
-
-    return -(-max(sk_text, sk_ip) // BM)
-
-
-def ctx_boxes(b: int, sk_text: int, sk_ip: int) -> Iterator[Tuple[int, int, int, int, int]]:
-    """The row tiles of the context K/V GEMM that do work, by the kernel's
-    formulas (``hgemm_kernel``, HG_CTX), as (pair, batch entry, first row
-    within the pair's key set, rows stored, first output row): grid y runs
-    over ``b * ctx_tiles`` tiles, entry = y / tiles, m0 = (y % tiles) * 64;
-    a tile at or past the pair's n rows leaves; the box's rows past n are
-    zero-filled by TMA, and output row entry * n + m0 + i is stored for
-    i < n - m0. Pair 0 is the text set, pair 1 the adapter set."""
-
-    tiles = ctx_tiles(sk_text, sk_ip)
-    for pair, n in enumerate((sk_text, sk_ip)):
-        for y in range(b * tiles):
-            entry, m0 = y // tiles, (y % tiles) * BM
-            if m0 < n:
-                yield pair, entry, m0, min(BM, n - m0), entry * n + m0
-
-
 @functools.lru_cache(maxsize=None)
 def k11c_plan(b: int, s: int, c: int, heads: int, sk_text: int, sk_ip: int, dc: int,
               sms: int = H100_SMS) -> K11cPlan:
@@ -377,12 +342,9 @@ def k11c_plan(b: int, s: int, c: int, heads: int, sk_text: int, sk_ip: int, dc: 
     op = "fused_ln_cross_attention_int8"
     ck.check_heads(op, c, heads)
     check_ln_width(op, c)
-    if dc % 64 or sk_text < 1 or sk_ip < 0:
-        raise ValueError(f"{op}: the context K/V GEMM needs a context width % 64 == 0 (its rows' TMA boxes "
-                         f"start 16-byte aligned then) and text keys (Dc={dc}, keys {sk_text} + {sk_ip})")
+    kv = ctx_kv_plan(op, b, c, sk_text, sk_ip, dc, sms)
     m = b * s
     i8 = gemm_plan(m, c, c, sms=sms, int8=True)
-    kv = gemm_plan(b * ctx_tiles(sk_text, sk_ip) * BM, c, dc, sets=4 if sk_ip else 2, sms=sms)
     offsets, nbytes = scratch_layout(m * c, 4 * m, 2 * m * c, 2 * 2 * b * (sk_text + sk_ip) * c, 4 * m * c)
     return K11cPlan(kv, i8, i8, key_tile(sk_text), key_tile(sk_ip), offsets, nbytes)
 
@@ -408,7 +370,7 @@ def fused_ln_cross_attention_int8(
         return fused_ln_cross_attention_int8_plain(
             x, context, ln_w, ln_b, wq8, sq, wk, wv, wo8, so, bo, heads, wk_ip=wk_ip, wv_ip=wv_ip,
             ip_scale=ip_scale, num_ip_tokens=num_ip_tokens, bias=bias, eps=eps)
-    _check_cuda_cross(op, x, context, heads, operands, _quant_dtypes("wq8", "sq", "wo8", "so"))
+    ck.check_operands(op, x, _quant_dtypes("wq8", "sq", "wo8", "so"), **operands)
     plan = k11c_plan(b, s, c, heads, sk_text, sk_ip, context.shape[2], ck.sm_count(x.device))
     scratch = x.new_empty(plan.nbytes, dtype=torch.uint8)
     out = torch.empty_like(x)

@@ -23,7 +23,7 @@ prints its seconds:
    its bias), K7, K8 (dx, dk_ip/dv_ip and the adapter weight gradients) and
    K9 (dx) at the three training levels, B=8, against the plain version and
    autograd over it (limits 2e-2 of max|plain| forward, 5e-2 gradients);
-   K7's and K9's cases list their device kernels with each one's device ms;
+   their cases list their device kernels with each one's device ms;
 5. reference: one full-width UNet forward (hoisted K/V, a short latent) with
    the kernels in bf16 against the plain path in fp32 on the CPU, same weights;
 6. edit slice: the full-width ``PipelineConfig()`` in bf16 with random weights
@@ -150,7 +150,7 @@ KERNELS = {
                                     "ap_adapter_tpu/ops/pallas_fused_cross.py:288"),
     "fused_ln_geglu_ff": ("ap_adapter_torch/csrc/fused_hopper.cu",
                           "ap_adapter_tpu/ops/pallas_fused_ff.py:70"),
-    "fused_ln_cross_attention": ("ap_adapter_torch/csrc/train_blocks.cu",
+    "fused_ln_cross_attention": ("ap_adapter_torch/csrc/fused_hopper.cu",
                                  "ap_adapter_tpu/ops/pallas_fused_cross.py:150"),
     "fused_ln_self_attention_bwd_dx": ("ap_adapter_torch/csrc/train_blocks.cu",
                                        "ap_adapter_tpu/ops/pallas_fused_block.py:740"),
@@ -176,7 +176,8 @@ EDIT_KERNELS = ("fused_ln_self_attention", "fused_ln_cross_attention_kv", "fused
 # convs): their cases list device kernels
 REDESIGNED = ("fused_ln_self_attention", "fused_ln_cross_attention_kv", "fused_ln_geglu_ff", "dual_kv_attention",
               "fused_ln_self_attention_int8", "fused_ln_geglu_ff_int8", "fused_ln_cross_attention_int8",
-              "fused_resnet_block", "fused_ln_self_attention_bwd_dx", "fused_ln_geglu_ff_bwd_dx")
+              "fused_resnet_block", "fused_ln_self_attention_bwd_dx", "fused_ln_geglu_ff_bwd_dx",
+              "fused_ln_cross_attention", "fused_ln_cross_attention_bwd")
 TRAIN_KERNELS = ("fused_ln_cross_attention", "fused_ln_self_attention_bwd_dx", "fused_ln_cross_attention_bwd",
                  "fused_ln_geglu_ff_bwd_dx")
 INT8_KERNELS = ("fused_ln_self_attention_int8", "fused_ln_cross_attention_int8", "fused_ln_geglu_ff_int8")
@@ -661,7 +662,7 @@ def train_kernel_phase(device) -> dict:
     from ap_adapter_torch.ops.fused_block import (
         fused_ln_self_attention_bwd_dx, fused_ln_self_attention_bwd_dx_plain)
     from ap_adapter_torch.ops.fused_cross import (
-        fused_ln_cross_attention, fused_ln_cross_attention_bwd, fused_ln_cross_attention_bwd_plain,
+        adapter_weight_grads, fused_ln_cross_attention, fused_ln_cross_attention_bwd, fused_ln_cross_attention_bwd_plain,
         fused_ln_cross_attention_plain)
     from ap_adapter_torch.ops.fused_ff import fused_ln_geglu_ff_bwd_dx, fused_ln_geglu_ff_bwd_dx_plain
 
@@ -686,12 +687,12 @@ def train_kernel_phase(device) -> dict:
         bias = torch.zeros(b, 64, device=device)
         bias[::2, 20:] = -10000.0
         ad = dict(wk_ip=wki, wv_ip=wvi, ip_scale=1.0)
-        ip = ctx[:, 8:].float()
+        ip = ctx[:, 8:]
 
         def with_dw(fn):
             def run():
                 dx, dki, dvi = fn()
-                return (dx, dki, dvi, torch.einsum("bkc,bkd->cd", dki, ip), torch.einsum("bkc,bkd->cd", dvi, ip))
+                return dx, dki, dvi, *adapter_weight_grads(dki, dvi, ip)
             return run
 
         cases = [

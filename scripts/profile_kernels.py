@@ -48,12 +48,15 @@ TRACE_TRIES = 4          # the tracer now and then hands back no device events: 
 # rows, int8 W2 GEMM; K11b: LN+quantize rows, int8 q GEMM, K/V GEMM, attention, quantize rows, int8 out GEMM;
 # K11c: context K/V GEMM, LN+quantize rows, int8 q GEMM, attention, quantize rows, int8 out GEMM; K13: GN1+SiLU,
 # conv1, GN2+SiLU, conv2; K7: LN rows, QKV GEMM, g.Wo GEMM, dq kernel, dkv kernel, gxn GEMM, LN backward; K9: LN
-# rows, the three-product GEMM, gxn GEMM, LN backward)
+# rows, the three-product GEMM, gxn GEMM, LN backward; K4: context K/V GEMM, then K2's four; K8 at a T5 site:
+# context K/V GEMM, LN rows, Q GEMM, g.Wo GEMM, dq kernel, gxn GEMM, LN backward). A dict holds a count by case
+# variant: K8's adapter cases also run the adapter weight-gradient products, library calls.
 EXPECTED_DEVICE_KERNELS = {"fused_ln_self_attention": 4, "fused_ln_cross_attention_kv": 4, "fused_ln_geglu_ff": 3,
                            "dual_kv_attention": 1, "group_norm_silu": 1, "fused_ln_geglu_ff_int8": 4,
                            "fused_ln_self_attention_int8": 6, "fused_ln_cross_attention_int8": 6,
                            "fused_resnet_block": 4, "fused_ln_self_attention_bwd_dx": 7,
-                           "fused_ln_geglu_ff_bwd_dx": 4}
+                           "fused_ln_geglu_ff_bwd_dx": 4, "fused_ln_cross_attention": 5,
+                           "fused_ln_cross_attention_bwd": {"t5+bias": 7}}
 
 
 def device_profile(fn, iters: int = ITERS) -> dict:
@@ -163,9 +166,12 @@ def main(argv=None) -> int:
         k["device_kernels"] = sorted(set(n))
         want = EXPECTED_DEVICE_KERNELS.get(name)
         k["expected_device_kernels"] = want
+        by_case = want if isinstance(want, dict) else {c["variant"]: want for c in k["cases"]}
+        differs = any(c["variant"] in by_case and by_case[c["variant"]] is not None
+                      and c["device_kernels"] != by_case[c["variant"]] for c in k["cases"])
         print(f"kernel {name:30s} device_ms={k['device_ms']:.4f} over {len(k['cases'])} cases, device kernels per "
               f"call {k['device_kernels']}"
-              + ("" if want is None else f" (expected {want}{'' if k['device_kernels'] == [want] else ': DIFFERS'})")
+              + ("" if want is None else f" (expected {want}{': DIFFERS' if differs else ''})")
               + (f", library_device_ms={k['library_device_ms']:.4f} (kernel {k['library_cases_device_ms']:.4f} "
                  f"on those cases)" if k["library_device_ms"] is not None else "")
               + "".join(f", {n}_device_ms={t:.4f} (information)" for n, t in k["info_device_ms"].items()),

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Device time of K1's, K2's, K3's, K10's, K11a's, K11b's, K11c's and K13's
 kernels under other launch plans than the wrappers' own, at the edit path's
-shapes, and of K7's and K9's at the training shapes, on one NVIDIA GPU.
+shapes, and of K4's, K7's, K8's and K9's at the training shapes, on one
+NVIDIA GPU.
 
-    python3 scripts/sweep_block_plans.py [--kernels K1,K2,K3,K10,K11a,K11b,K11c,K13,K7,K9]
+    python3 scripts/sweep_block_plans.py [--kernels K1,K2,K3,K10,K11a,K11b,K11c,K13,K4,K7,K8,K9]
 
 For K1 (``fused_ln_self_attention``), K2 (``fused_ln_cross_attention_kv``,
 8 text + 128 adapter keys and 64 T5 keys with their bias) and K3
@@ -14,18 +15,21 @@ for K11a, K11b and K11c (``fused_ln_geglu_ff_int8``,
 ``fused_ln_self_attention_int8``, ``fused_ln_cross_attention_int8`` with
 K2's two context cases, int8 weights from ``quantize_weight``) at each
 (S, C), and for K13 (``fused_resnet_block``, with a per-sample temb) at
-every distinct resnet shape of the edit, and for K7
-(``fused_ln_self_attention_bwd_dx``) and K9 (``fused_ln_geglu_ff_bwd_dx``)
-at B=8 and each (S, C) of ``chip_smoke.TRAIN_SHAPES``, bf16 inputs: the C
-entry point is called with the wrapper's plan (``k1_plan``, ``k2_plan``,
-``k3_plan``, ``key_tile``, ``k11a_plan``, ``k11b_plan``, ``k11c_plan``,
-``conv_plan``, ``k7_plan``, ``k9_plan``), then with one choice
+every distinct resnet shape of the edit, and for K4
+(``fused_ln_cross_attention``) and K8 (``fused_ln_cross_attention_bwd``,
+both with 8 text + 512 adapter context rows of 768 and 64 T5 rows of 1024
+with their bias), K7 (``fused_ln_self_attention_bwd_dx``) and K9
+(``fused_ln_geglu_ff_bwd_dx``) at B=8 and each (S, C) of
+``chip_smoke.TRAIN_SHAPES``, bf16 inputs: the C entry point is called with
+the wrapper's plan (``k1_plan``, ``k2_plan``, ``k3_plan``, ``key_tile``,
+``k11a_plan``, ``k11b_plan``, ``k11c_plan``, ``conv_plan``, ``k4_plan``,
+``k7_plan``, ``k8_plan``, ``k9_plan``), then with one choice
 changed at a time (each GEMM's tile width and split-K, then its ring's
 stage count; each key set's tile width), and ``chip_smoke.device_split``
 gives each device kernel's device ms a call (torch.profiler, 10 calls after
 3 warm-up). Every variant is checked against the plain version
-(``chip_smoke.TOL`` of max|plain|; K7 and K9 against autograd over theirs,
-``chip_smoke.GRAD_TOL``). Prints one line per variant, the
+(``chip_smoke.TOL`` of max|plain|; K7, K8 (dx) and K9 against autograd over
+theirs, ``chip_smoke.GRAD_TOL``). Prints one line per variant, the
 wrapper's plan marked, then the card's ``nvidia-smi`` line. Fails without a
 CUDA device.
 """
@@ -42,7 +46,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernels", default="K1,K2,K3,K10,K11a,K11b,K11c,K13,K7,K9")
+    parser.add_argument("--kernels", default="K1,K2,K3,K10,K11a,K11b,K11c,K13,K4,K7,K8,K9")
     which = set(parser.parse_args(argv).kernels.split(","))
 
     import torch
@@ -181,6 +185,8 @@ def main(argv=None) -> int:
         sweep_resnet(chip_smoke, ck, r, device)
     if which & {"K7", "K9"}:
         sweep_backward(chip_smoke, ck, r, which)
+    if which & {"K4", "K8"}:
+        sweep_cross(chip_smoke, ck, r, device, which)
     if "K10" in which:
         for s, d in chip_smoke.DUAL_KV_LEVELS:
             for si in chip_smoke.DUAL_KV_AUDIO_KEYS:
@@ -292,6 +298,74 @@ def sweep_backward(chip_smoke, ck, r, which) -> None:
             want = fused_ln_geglu_ff_bwd_dx_plain(x, g, ln_w, ln_b, w1, b1, w2).float()
             for v in dict.fromkeys(variants):
                 run(chip_smoke, "K9", (s, c), v, v == base, lambda: k9(*v), want, chip_smoke.GRAD_TOL)
+        torch.cuda.synchronize()
+
+
+def sweep_cross(chip_smoke, ck, r, device, which) -> None:
+    """K4 and K8 at the training shapes (B = 8) with two contexts (8 text +
+    512 adapter rows of 768; 64 T5 rows of 1024 with their bias): the plan,
+    then K4's key tiles and each GEMM's plan changed one at a time; K8's dx
+    against autograd over its plain version."""
+
+    import torch
+
+    from ap_adapter_torch.ops.fused_cross import (
+        KEY_TILES, fused_ln_cross_attention_bwd_plain, fused_ln_cross_attention_plain, k4_plan, k8_plan)
+
+    heads, eps, b = chip_smoke.HEADS, 1e-5, chip_smoke.TRAIN_B
+    t5_bias = torch.zeros(b, 64, device=device)
+    t5_bias[::2, 20:] = -10000.0
+    for s, c in chip_smoke.TRAIN_SHAPES:
+        x, g, ln_w, ln_b = r(b, s, c), r(b, s, c), 1 + r(c, scale=0.1), r(c, scale=0.1)
+        wq, wo, bo = r(c, c, scale=c ** -0.5), r(c, c, scale=c ** -0.5), r(c, scale=0.1)
+        out, dx = torch.empty_like(x), torch.empty_like(x)
+        for label, sk, sk_ip, dc, bias in (("adapter", 8, 512, 768, None), ("t5+bias", 64, 0, 1024, t5_bias)):
+            ctx = r(b, sk + sk_ip, dc)
+            wk, wv, wki, wvi = (r(c, dc, scale=dc ** -0.5) if i < 2 or sk_ip else None for i in range(4))
+            kw = dict(wk_ip=wki, wv_ip=wvi, ip_scale=0.5, num_ip_tokens=sk) if sk_ip else {}
+            head = (x.data_ptr(), ctx.data_ptr(), sk + sk_ip, dc, sk)
+            if "K4" in which:
+                p = k4_plan(b, s, c, heads, sk, sk_ip, dc)
+                scr = torch.empty(p.nbytes, dtype=torch.uint8, device=device)
+
+                def k4(tiles, kvp, qp, op):
+                    ck.launch("fused_ln_cross_attention", *head, ln_w.data_ptr(), ln_b.data_ptr(), wq.data_ptr(),
+                              wk.data_ptr(), wv.data_ptr(), ck.ptr(wki), ck.ptr(wvi), wo.data_ptr(), bo.data_ptr(),
+                              0.5, ck.ptr(bias), *(scr.data_ptr() + o for o in p.offsets), out.data_ptr(), b, s, c,
+                              heads, eps, *tiles, *kvp, *qp, *op)
+                    return out
+
+                base = ((p.tk, p.tk_ip), p.kv.launch_args, p.q.launch_args, p.out.launch_args)
+                variants = [base] + [(t, *base[1:]) for t in tile_variants(base[0], (sk, sk_ip), KEY_TILES)]
+                variants += [(base[0], v, *base[2:]) for v in gemm_variants(p.kv, False)]
+                variants += [(*base[:2], v, base[3]) for v in gemm_variants(p.q, False)]
+                variants += [(*base[:3], v) for v in gemm_variants(p.out, False)]
+                want = fused_ln_cross_attention_plain(x, ctx, ln_w, ln_b, wq, wk, wv, wo, bo, heads, bias=bias,
+                                                      **kw).float()
+                for v in dict.fromkeys(variants):
+                    run(chip_smoke, f"K4 {label}", (s, c), v, v == base, lambda: k4(*v), want)
+            if "K8" in which:
+                p = k8_plan(b, s, c, heads, sk, sk_ip, dc)
+                scr = torch.empty(p.nbytes, dtype=torch.uint8, device=device)
+                dk = x.new_empty(2, b, max(sk_ip, 1), c, dtype=torch.float32)
+
+                def k8(kvp, qp, gop, gxp):
+                    ck.launch("fused_ln_cross_attention_bwd", x.data_ptr(), g.data_ptr(), *head[1:],
+                              ln_w.data_ptr(), ln_b.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
+                              ck.ptr(wki), ck.ptr(wvi), wo.data_ptr(), 0.5, ck.ptr(bias),
+                              *(scr.data_ptr() + o for o in p.offsets), dx.data_ptr(), dk[0].data_ptr(),
+                              dk[1].data_ptr(), b, s, c, heads, eps, *kvp, *qp, *gop, *gxp)
+                    return dx
+
+                base = (p.kv.launch_args, p.q.launch_args, p.gattn.launch_args, p.gxn.launch_args)
+                variants = [base] + [(v, *base[1:]) for v in gemm_variants(p.kv, False)]
+                variants += [(base[0], v, *base[2:]) for v in gemm_variants(p.q, False)]
+                variants += [(*base[:2], v, base[3]) for v in gemm_variants(p.gattn, False)]
+                variants += [(*base[:3], v) for v in gemm_variants(p.gxn, False)]
+                want = fused_ln_cross_attention_bwd_plain(x, g, ctx, ln_w, ln_b, wq, wk, wv, wo, heads, bias=bias,
+                                                          **kw)[0].float()
+                for v in dict.fromkeys(variants):
+                    run(chip_smoke, f"K8 {label}", (s, c), v, v == base, lambda: k8(*v), want, chip_smoke.GRAD_TOL)
         torch.cuda.synchronize()
 
 

@@ -20,9 +20,9 @@ from ap_adapter_torch.ops.fused_block import (
     fused_ln_self_attention, fused_ln_self_attention_bwd_dx, fused_ln_self_attention_bwd_dx_plain,
     fused_ln_self_attention_plain, fused_ln_self_attention_vjp, k7_plan)
 from ap_adapter_torch.ops.fused_cross import (
-    fused_ln_cross_attention, fused_ln_cross_attention_bwd, fused_ln_cross_attention_bwd_plain,
+    adapter_weight_grads, fused_ln_cross_attention, fused_ln_cross_attention_bwd, fused_ln_cross_attention_bwd_plain,
     fused_ln_cross_attention_kv, fused_ln_cross_attention_kv_plain, fused_ln_cross_attention_plain,
-    fused_ln_cross_attention_vjp)
+    fused_ln_cross_attention_vjp, k4_plan, k8_plan)
 from ap_adapter_torch.ops.fused_ff import (
     fused_ln_geglu_ff, fused_ln_geglu_ff_bwd_dx, fused_ln_geglu_ff_bwd_dx_plain, fused_ln_geglu_ff_plain, k9_plan)
 from ap_adapter_torch.ops.groupnorm import group_norm_silu, group_norm_silu_plain
@@ -852,9 +852,10 @@ def test_k7_k9_match_plain(cuda_device, b, s, c, heads):
 def test_k4_k7_k8_k9_are_deterministic(cuda_device):
     """Two calls give the same bits: K7 and K9 at the 1024 level and at the
     640 level (K9's gxn GEMM split over a cluster, fp32 partials in rank
-    order; K7's dq and dkv kernels with no atomics), and K4 and K8, which
-    keep the first port's routines (their bits against the parent tree's
-    are compared by ``scripts/profile_kernels.py``'s output digests)."""
+    order; K7's dq and dkv kernels with no atomics), and K4 and K8 at the
+    384 level with 512 adapter keys (the context GEMM's partials in rank
+    order, K8's two-set dq kernel and its fp32 adapter dkv kernel with no
+    atomics)."""
 
     fns = []
     for s, c in ((1024, 256), (64, 640)):
@@ -890,7 +891,8 @@ def test_k7_k9_device_kernels_as_planned(cuda_device):
     p7, p9 = k7_plan(8, 256, 384, 8), k9_plan(8, 256, 384, 4 * 384)
     cases = [(lambda: fused_ln_self_attention_bwd_dx(x, gy, *ln, wq, wk, wv, wo, 8),
               ["ln_rows_kernel", f"hgemm_kernel<{p7.qkv.bn}, 0, false>", f"hgemm_kernel<{p7.gattn.bn}, 0, true>",
-               "reg_attn_bwd_dq_kernel<48>", "reg_attn_bwd_dkv_kernel<48>", f"hgemm_kernel<{p7.gxn.bn}, 4, true>",
+               "reg_attn_bwd_dq_kernel<48, false>", "reg_attn_bwd_dkv_kernel<48, __nv_bfloat16>",
+               f"hgemm_kernel<{p7.gxn.bn}, 4, true>",
                "ln_bwd_kernel"]),
              (lambda: fused_ln_geglu_ff_bwd_dx(x, gy, *ln, w1, b1, w2),
               ["ln_rows_kernel", "hgemm_kernel<64, 5, false>", f"hgemm_kernel<{p9.gxn.bn}, 4, true>",
@@ -908,3 +910,104 @@ def test_k7_k9_device_kernels_as_planned(cuda_device):
                 break
         short = [m.group(1) if (m := re.search(r"::(\w+(?:<[^>]*>)?)\(", n)) else n for n in names]
         assert sorted(short) == sorted(want * 3), short
+
+
+def _k4_k8_operands(device, b, s, c, heads, sk, sk_ip, dc, biased, seed):
+    """K4's and K8's operands for x [b, s, c] against a context of sk text and
+    sk_ip adapter rows of width dc: (x, g, context, ln_w, ln_b, wq, wk, wv,
+    wo, bo) and the keyword arguments (the adapter's weights with ip_scale
+    0.55 where sk_ip > 0; a T5 padding bias that masks most keys of the
+    first batch entry where biased)."""
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *shape, scale=1.0: _r(g, device, *shape, scale=scale)
+    args = (r(b, s, c), r(b, s, c), r(b, sk + sk_ip, dc), 1 + r(c, scale=0.1), r(c, scale=0.1),
+            r(c, c, scale=c ** -0.5), r(c, dc, scale=dc ** -0.5), r(c, dc, scale=dc ** -0.5),
+            r(c, c, scale=c ** -0.5), r(c, scale=0.1))
+    kw = dict(num_ip_tokens=sk)
+    if sk_ip:
+        kw.update(wk_ip=r(c, dc, scale=dc ** -0.5), wv_ip=r(c, dc, scale=dc ** -0.5), ip_scale=0.55)
+    if biased:
+        bias = torch.zeros(b, sk, device=device)
+        bias[0, sk // 3:] = -10000.0          # padded T5 positions
+        kw["bias"] = bias
+    return args, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,c,heads", [(8, 1024, 256, 8), (8, 256, 384, 8), (8, 64, 640, 8), (2, 81, 256, 4),
+                                         (3, 145, 384, 8), (1, 17, 128, 8)])
+@pytest.mark.parametrize("sk,sk_ip,dc,biased", [(8, 20, 768, False), (8, 128, 768, False), (8, 512, 768, False),
+                                                (64, 0, 1024, True), (70, 0, 1024, True), (8, 0, 768, False)])
+def test_k4_k8_match_plain(cuda_device, b, s, c, heads, sk, sk_ip, dc, biased):
+    """K4 (the context K/V GEMM, then K2's chain) and K8 (the context K/V
+    GEMM, LN rows, the Q GEMM, g . Wo, the two-set dq kernel, the adapter's
+    dkv kernel, dq . Wq in fp32, the LayerNorm backward) against their plain
+    versions and autograd over them: the training levels at B = 8 (head dims
+    32, 48, 80), ragged S (a part-filled last query tile, a sequence shorter
+    than one tile) and head dims 64 and 16; 20, 128 and 512 adapter keys,
+    no adapter set, and T5 contexts of 64 and 70 keys (one and two key
+    tiles) with padding rows masked by the bias. K8's dk_ip/dv_ip and the
+    adapter weight gradients (``adapter_weight_grads``) are held
+    too. One launch a call."""
+
+    (x, gy, ctx, *w), kw = _k4_k8_operands(cuda_device, b, s, c, heads, sk, sk_ip, dc, biased, 36)
+    before = dict(cuda_kernels.LAUNCHES)
+    _check(fused_ln_cross_attention(x, ctx, *w, heads, **kw), fused_ln_cross_attention_plain(x, ctx, *w, heads, **kw))
+    got = fused_ln_cross_attention_bwd(x, gy, ctx, *w[:6], heads, **kw)       # no bo
+    want = fused_ln_cross_attention_bwd_plain(x, gy, ctx, *w[:6], heads, **kw)
+    _check(got[0], want[0], GRAD_TOL)
+    if sk_ip:
+        for a, wnt in zip(got[1:], want[1:]):
+            assert a.dtype == torch.float32
+            _check(a, wnt, GRAD_TOL)
+        for a, wnt in zip(adapter_weight_grads(*got[1:], ctx[:, sk:]), adapter_weight_grads(*want[1:], ctx[:, sk:])):
+            _check(a, wnt, GRAD_TOL)
+    else:
+        assert got[1:] == (None, None) and want[1:] == (None, None)
+    moved = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
+    assert moved == {**dict.fromkeys(before, 0), "fused_ln_cross_attention": 1, "fused_ln_cross_attention_bwd": 1}
+
+
+@pytest.mark.gpu
+def test_k4_k8_device_kernels_as_planned(cuda_device):
+    """A K4 call runs five device kernels (the context K/V GEMM, the
+    LayerNorm rows, the Q GEMM, the two-key-set attention, the out GEMM) and
+    a K8 call eight at an adapter site (the context K/V GEMM, the LayerNorm
+    rows, the Q GEMM, g . Wo on the MN-major GEMM, the two-set dq kernel,
+    the adapter's dkv kernel, dq . Wq in fp32, the LayerNorm backward) and
+    seven at a T5 site (no dkv kernel); none of the first port's WMMA GEMM
+    or streamed attention."""
+
+    from torch.profiler import ProfilerActivity, profile
+
+    cases = []
+    for sk, sk_ip, dc, biased in ((8, 512, 768, False), (64, 0, 1024, True)):
+        (x, gy, ctx, *w), kw = _k4_k8_operands(cuda_device, 8, 256, 384, 8, sk, sk_ip, dc, biased, 37)
+        p4, p8 = k4_plan(8, 256, 384, 8, sk, sk_ip, dc), k8_plan(8, 256, 384, 8, sk, sk_ip, dc)
+        bias = "true" if biased else "false"
+        cases.append((lambda x=x, ctx=ctx, w=w, kw=kw: fused_ln_cross_attention(x, ctx, *w, 8, **kw),
+                      [f"hgemm_kernel<{p4.kv.bn}, 3, false>", "ln_rows_kernel", f"hgemm_kernel<{p4.q.bn}, 0, false>",
+                       f"reg_attention_kernel<48, {bias}, false>", f"hgemm_kernel<{p4.out.bn}, 1, false>"]))
+        cases.append((lambda x=x, gy=gy, ctx=ctx, w=w, kw=kw: fused_ln_cross_attention_bwd(x, gy, ctx, *w[:6], 8, **kw),
+                      [f"hgemm_kernel<{p8.kv.bn}, 3, false>", "ln_rows_kernel", f"hgemm_kernel<{p8.q.bn}, 0, false>",
+                       f"hgemm_kernel<{p8.gattn.bn}, 0, true>", "reg_attn_bwd_dq_kernel<48, true>"]
+                      + (["reg_attn_bwd_dkv_kernel<48, float>"] if sk_ip else [])
+                      + [f"hgemm_kernel<{p8.gxn.bn}, 4, true>", "ln_bwd_kernel"]))
+    for fn, want in cases:
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(4):                    # the tracer now and then hands back no device events
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            if names:
+                break
+        short = [m.group(1) if (m := re.search(r"::(\w+(?:<[^>]*>)?)\(", n)) else n for n in names]
+        # the attention's store type (its fourth template argument) is spelled as the compiler names bf16
+        short = [re.sub(r"^(reg_attention_kernel<\d+, \w+, \w+), [^>]*>$", r"\1>", n) for n in short]
+        assert sorted(short) == sorted(want * 3), short
+        assert not any(n.startswith(("gemm_kernel<", "attention_kernel<")) for n in short)
+

@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 
 from ap_adapter_torch.ops import hopper_gemm
-from ap_adapter_torch.ops.hopper_gemm import SMEM_LIMIT, gemm_plan, hg_smem_bytes
-from ap_adapter_torch.ops.int8 import BM, ctx_boxes, ctx_tiles, k11a_plan, k11b_plan, k11c_plan
+from ap_adapter_torch.ops.hopper_gemm import BM, SMEM_LIMIT, ctx_boxes, ctx_tiles, gemm_plan, hg_smem_bytes
+from ap_adapter_torch.ops.int8 import k11a_plan, k11b_plan, k11c_plan
 from chip_smoke import HEADS, SHAPES
 from tests.test_torch_kernel_plans import _assert_gemm_covers_fits_and_fills
 

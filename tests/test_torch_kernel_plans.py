@@ -22,7 +22,7 @@ from ap_adapter_torch.ops import hopper_gemm
 from ap_adapter_torch.ops.attention import sdpa
 from ap_adapter_torch.ops.dual_kv_attention import _plain as dual_kv_plain
 from ap_adapter_torch.ops.fused_block import k1_plan, k7_plan
-from ap_adapter_torch.ops.fused_cross import KEY_TILES, k2_plan, key_tile, key_tiles
+from ap_adapter_torch.ops.fused_cross import KEY_TILES, k2_plan, k4_plan, k8_plan, key_tile, key_tiles
 from ap_adapter_torch.ops.fused_ff import k3_plan, k9_plan
 from ap_adapter_torch.ops.groupnorm import SMEM_LIMIT, gn_cluster_plan
 from ap_adapter_torch.ops.hopper_gemm import gemm_blocks, gemm_plan
@@ -303,10 +303,15 @@ def test_gemm_plan_refuses_what_the_kernel_cannot_take(m, n, k, sets):
                                        (k3_plan, (2, 64, 2112, 8448)), (k7_plan, (2, 64, 96, 8)),
                                        (k7_plan, (2, 64, 256, 5)), (k7_plan, (2, 64, 384, 16)),
                                        (k7_plan, (2, 64, 2112, 33)), (k9_plan, (2, 64, 256, 100)),
-                                       (k9_plan, (2, 64, 96, 384)), (k9_plan, (2, 64, 2112, 8448))])
+                                       (k9_plan, (2, 64, 96, 384)), (k9_plan, (2, 64, 2112, 8448)),
+                                       (k4_plan, (2, 64, 256, 8, 8, 128, 96)), (k4_plan, (2, 64, 256, 5, 8, 0, 768)),
+                                       (k4_plan, (2, 64, 256, 8, 0, 0, 768)), (k4_plan, (2, 64, 2112, 33, 8, 0, 768)),
+                                       (k8_plan, (2, 64, 256, 8, 8, 128, 96)), (k8_plan, (2, 64, 256, 5, 8, 0, 768)),
+                                       (k8_plan, (2, 64, 256, 8, 64, 0, 1000)), (k8_plan, (2, 64, 384, 16, 8, 0, 768))])
 def test_block_plans_refuse_other_widths(plan, args):
-    """C % 64, head dims off 16-128 in steps of 16, inner % 64, and rows
-    wider than the LayerNorm row pass takes (2048)."""
+    """C % 64, head dims off 16-128 in steps of 16, inner % 64, rows wider
+    than the LayerNorm row pass takes (2048), and (K4, K8) a context width
+    off 64 or no text keys."""
 
     with pytest.raises(ValueError):
         plan(*args)
