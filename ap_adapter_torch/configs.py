@@ -411,6 +411,15 @@ def tiny_pipeline_config(dtype: Any = torch.float32) -> PipelineConfig:
     )
 
 
+def audioldm_v1_unet_config(base: UNetConfig = UNetConfig(), clap_dim: int = 512) -> UNetConfig:
+    """An AudioLDM v1 UNet (the JAX ``pipeline/audioldm_v1.py:26-39``): one
+    double-self-attention transformer group per layer, the CLAP text
+    embedding as a class label concatenated onto the time embedding."""
+
+    return dataclasses.replace(base, in_channels=8, out_channels=8, cross_attention_dims=(None,),
+                               class_embed_dim=clap_dim, class_embeddings_concat=True)
+
+
 # ---------------------------------------------------------------------------
 # Task templates — parity with reference config.py:1-83
 # ---------------------------------------------------------------------------

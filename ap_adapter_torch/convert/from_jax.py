@@ -105,6 +105,26 @@ def _transformer2d(sd: StateDict, prefix: str, p: Tree, num_layers: int, has_ada
         _linear(sd, f"{tp}.ff.net.2", b["ff"]["out_proj"])
 
 
+def _unprefixed(fill, *args) -> StateDict:
+    """The keys ``fill(sd, prefix, *args)`` writes, without the prefix."""
+
+    sd: StateDict = {}
+    fill(sd, "_", *args)
+    return {k[2:]: v for k, v in sd.items()}
+
+
+def attention_state_dict(tree: Tree, has_adapter: bool) -> StateDict:
+    """One ``CrossAttention`` (diffusers ``Attention``) tree -> its keys."""
+
+    return _unprefixed(_attention, tree, has_adapter)
+
+
+def transformer2d_state_dict(tree: Tree, num_layers: int, has_adapter: bool) -> StateDict:
+    """One ``Transformer2DModel`` tree (blocks stacked [L, ...]) -> its keys."""
+
+    return _unprefixed(_transformer2d, tree, num_layers, has_adapter)
+
+
 def _resnet(sd: StateDict, prefix: str, p: Tree) -> None:
     _norm(sd, f"{prefix}.norm1", p["norm1"])
     _conv2d(sd, f"{prefix}.conv1", p["conv1"])
@@ -117,14 +137,20 @@ def _resnet(sd: StateDict, prefix: str, p: Tree) -> None:
 
 
 def unet_state_dict(tree: Tree, config) -> StateDict:
-    """``config``: the UNetConfig (topology)."""
+    """``config``: the UNetConfig (topology). A ``cn_text_only`` UNet has no
+    adapter keys; a class-embedding UNet (``class_embed_dim``, AudioLDM v1)
+    has ``class_embedding.{weight,bias}``, which ``torch_import`` does not
+    map."""
 
     sd: StateDict = {}
     dims = config.cross_attention_dims
+    adapter_dim = None if config.cn_text_only else config.adapter_cross_attention_dim
     n_blocks = len(config.block_out_channels)
     _conv2d(sd, "conv_in", tree["conv_in"])
     _linear(sd, "time_embedding.linear_1", tree["time_embedding_linear_1"])
     _linear(sd, "time_embedding.linear_2", tree["time_embedding_linear_2"])
+    if config.class_embed_dim is not None:
+        _linear(sd, "class_embedding", tree["class_embedding"])
     _norm(sd, "conv_norm_out", tree["conv_norm_out"])
     _conv2d(sd, "conv_out", tree["conv_out"])
 
@@ -132,7 +158,7 @@ def unet_state_dict(tree: Tree, config) -> StateDict:
         for idx, dim in enumerate(dims):
             _transformer2d(sd, f"{tprefix}.attentions.{layer * len(dims) + idx}",
                            tree[name][f"attentions_{idx}"], config.transformer_layers_per_block,
-                           dim is not None and dim == config.adapter_cross_attention_dim)
+                           dim is not None and dim == adapter_dim)
 
     for b in range(n_blocks):
         for l in range(config.layers_per_block):

@@ -18,7 +18,9 @@ card unless asked (``--device``)::
     python -m ap_adapter_torch.eval.runner --in-domain-dirs eval_audio_in_domain \\
         --out-of-domain-dirs eval_audio_out_of_domain --vggish-ckpt vggish.pt
 
-Prompts go through the hash tokenizer (the HF tokenizers are not ported).
+The functions take a checkpoint's ``HFTokenizers`` (``tokenizers=``), as
+JAX's do; without them, and from the CLI (JAX's builds none either),
+prompts go through the hash tokenizer.
 """
 
 from __future__ import annotations
@@ -73,7 +75,7 @@ def _space_name(scorer) -> str:
 
 def run_batched_eval(pipe, clip_paths: List[str], task: TaskConfig, batch_size: int = 8,
                      compute_fad: bool = True, output_dir: Optional[str] = None, scorer=None,
-                     return_embeddings: bool = False):
+                     return_embeddings: bool = False, tokenizers=None):
     """Edit every clip (prompt: the task's first positive prompt) in batches
     of ``batch_size`` (a trailing partial batch is left out, as in JAX);
     returns {n, clips_per_s, fad_<space>} and optionally writes the edits as
@@ -91,8 +93,8 @@ def run_batched_eval(pipe, clip_paths: List[str], task: TaskConfig, batch_size: 
     cfg = pipe.config
     prompt = task.positive_text_prompts[0]
     neg = task.negative_text_prompts[0] if task.negative_text_prompts else ""
-    pos_b = make_text_batch(cfg, [prompt] * batch_size)
-    neg_b = make_text_batch(cfg, [neg] * batch_size)
+    pos_b = make_text_batch(cfg, [prompt] * batch_size, tokenizers)
+    neg_b = make_text_batch(cfg, [neg] * batch_size, tokenizers)
     gen_kwargs = dict(audio_length_in_s=task.audio_length_in_s, num_inference_steps=task.num_inference_steps,
                       guidance_scale=task.guidance_scale, ap_scale=task.ap_scale, time_pool=task.time_pooling,
                       freq_pool=task.freq_pooling, materialize=False)
@@ -140,7 +142,7 @@ def run_batched_eval(pipe, clip_paths: List[str], task: TaskConfig, batch_size: 
 
 
 def run_eval_protocol(pipe, domains: dict, task: TaskConfig, batch_size: int = 8,
-                      output_dir: Optional[str] = None, scorer=None) -> dict:
+                      output_dir: Optional[str] = None, scorer=None, tokenizers=None) -> dict:
     """The paper's FAD protocol. ``domains``: {name: {"source": [dirs],
     "reference": [dirs]}}; every SOURCE clip is edited with the task
     template, then ``fad_<name>`` (REFERENCE-set embeddings against the
@@ -158,7 +160,7 @@ def run_eval_protocol(pipe, domains: dict, task: TaskConfig, batch_size: int = 8
         res, src_e, gen_e = run_batched_eval(
             pipe, clips, task, batch_size=batch_size, compute_fad=True,
             output_dir=os.path.join(output_dir, name) if output_dir else None, scorer=scorer,
-            return_embeddings=True)
+            return_embeddings=True, tokenizers=tokenizers)
         if gen_e is not None:
             ref_paths = eval_clips(spec.get("reference", spec["source"]))
             ref_e = src_e if ref_paths == clips else _embed_wavs(pipe, scorer, [load_wav(p) for p in ref_paths])

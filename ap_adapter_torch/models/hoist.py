@@ -31,9 +31,14 @@ def precompute_cross_kv(
 ) -> Dict:
     """{group name: {"attentions_{idx}": (k, v, ki, vi)}, "__bias1__": bias or None};
     k/v/ki/vi are [L, B, Sk, C] in the UNet's dtype (ki/vi None where the site
-    has no adapter tokens)."""
+    has no adapter tokens). Refuses a ``cn_text_only`` UNet, as the JAX
+    hoist.py:150-153 does: that UNet strips ehs0 to its text tokens after
+    this would have projected the whole context."""
 
     c = unet.config
+    if c.cn_text_only:
+        raise ValueError("K/V hoisting is not supported for cn_text_only (ControlNet-branch) UNets; "
+                         "pass ctx_kv=None")
     dtype = unet.conv_in.weight.dtype
     out: Dict = {"__bias1__": None if t5_mask is None else (1.0 - t5_mask.float()) * -10000.0}
     for name, t2ds in unet.attention_groups():

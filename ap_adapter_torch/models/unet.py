@@ -5,8 +5,14 @@ Counterpart of ``ap_adapter_tpu/models/unet.py``. The public layout is NHWC
 convolutions run on NCHW inside. Every attention "layer" is a group of
 ``len(cross_attention_dims)`` Transformer2DModels over two conditioning
 streams, and the decoupled audio-KV adapter lives at the sites whose
-cross-attention dim is ``adapter_cross_attention_dim``. The config's
-switches route the sites as ``models/unet_blocks.py`` describes; under
+cross-attention dim is ``adapter_cross_attention_dim``. Two variants of the
+JAX module (its unet.py:67-99,118) are kept: a class-embedding UNet
+(``class_embed_dim``, AudioLDM v1: ``class_labels`` through a "simple
+projection" concatenated onto the time embedding or added to it) and the
+ControlNet branch (``cn_text_only``: the GPT-2+AudioMAE stream cut to its
+first ``adapter_num_tokens`` text tokens before any site sees it, and no
+adapter weights). The config's switches route the sites as
+``models/unet_blocks.py`` describes; under
 ``use_pallas_attention`` the adapter sites take K10 BEFORE K2/K4, unlike the
 JAX routing (its unet_blocks.py:403-585), where the fused routes come first.
 """
@@ -64,20 +70,20 @@ class AudioLDM2UNet(nn.Module):
     def __init__(self, config: UNetConfig = UNetConfig()):
         super().__init__()
         c = self.config = config
-        if c.cn_text_only or c.class_embed_dim is not None:
-            raise NotImplementedError("ControlNet-branch and class-embedding UNets are not ported")
         ch = c.block_out_channels
         groups, eps, ted = c.norm_num_groups, c.norm_eps, c.time_embed_dim
         n_dims = len(c.cross_attention_dims)
+        # every resnet's time_emb_proj reads [temb | class embedding] under the concat
+        temb_channels = 2 * ted if c.class_embed_dim is not None and c.class_embeddings_concat else ted
 
         def resnet(cin, cout):
-            return ResnetBlock2D(cin, cout, groups, eps, ted, use_groupnorm_kernel=c.use_pallas_groupnorm,
+            return ResnetBlock2D(cin, cout, groups, eps, temb_channels, use_groupnorm_kernel=c.use_pallas_groupnorm,
                                  use_resnet_kernel=c.use_pallas_resnet)
 
         def t2d_group(channels):
             return [Transformer2DModel(
                 channels, c.num_attention_heads, c.transformer_layers_per_block, dim,
-                use_adapter=dim is not None and dim == c.adapter_cross_attention_dim,
+                use_adapter=dim is not None and dim == c.adapter_cross_attention_dim and not c.cn_text_only,
                 num_ip_tokens=c.adapter_num_tokens, groups=groups, use_int8=c.use_int8,
                 use_dual_kv=c.use_pallas_attention)
                 for dim in c.cross_attention_dims]
@@ -85,6 +91,8 @@ class AudioLDM2UNet(nn.Module):
         self.conv_in = nn.Conv2d(c.in_channels, ch[0], c.conv_in_kernel,
                                  padding=(c.conv_in_kernel - 1) // 2)
         self.time_embedding = TimestepEmbedding(ch[0], ted)
+        if c.class_embed_dim is not None:
+            self.class_embedding = nn.Linear(c.class_embed_dim, ted)     # diffusers "simple_projection"
 
         skip_ch, x_ch = [ch[0]], ch[0]
         self.down_blocks = nn.ModuleList()
@@ -149,10 +157,11 @@ class AudioLDM2UNet(nn.Module):
         self,
         sample: torch.Tensor,                  # [B, H, W, C_in] NHWC
         timesteps: torch.Tensor,               # [B] or scalar
-        encoder_hidden_states: torch.Tensor,   # [B, S0, D0] GPT-2 (+ AudioMAE)
-        encoder_hidden_states_1: torch.Tensor,  # [B, S1, D1] T5
+        encoder_hidden_states: Optional[torch.Tensor] = None,   # [B, S0, D0] GPT-2 (+ AudioMAE)
+        encoder_hidden_states_1: Optional[torch.Tensor] = None,  # [B, S1, D1] T5
         encoder_attention_mask_1: Optional[torch.Tensor] = None,  # [B, S1] {0,1}
         ip_scale: float = 0.0,
+        class_labels: Optional[torch.Tensor] = None,  # [B, class_embed_dim]
         ctx_kv: Optional[Dict] = None,         # hoisted cross K/V (models/hoist.py)
         temb_rows: Optional[Dict[str, torch.Tensor]] = None,  # {resnet: [C]} this step's rows
     ) -> torch.Tensor:
@@ -164,6 +173,10 @@ class AudioLDM2UNet(nn.Module):
             # the int8 sites project K/V in the step; a hoisted bias would
             # drop the T5 mask there (the JAX pipeline.py:272-277)
             raise ValueError("a use_int8 UNet takes no hoisted K/V (ctx_kv)")
+        if c.cn_text_only and ctx_kv is not None:
+            # the rows would hold the audio tokens that this UNet strips (the JAX hoist.py:150-153)
+            raise ValueError("K/V hoisting is not supported for cn_text_only (ControlNet-branch) UNets; "
+                             "pass ctx_kv=None")
         # the T5 stream's padding bias [B, S1]; the GPT-2+AudioMAE stream is never masked
         if ctx_kv is not None:
             bias1 = ctx_kv["__bias1__"]
@@ -180,8 +193,20 @@ class AudioLDM2UNet(nn.Module):
                                            c.freq_shift).to(dtype)
             temb = self.time_embedding(t_emb)
 
-        ehs0 = encoder_hidden_states.to(dtype)
-        ehs1 = encoder_hidden_states_1.to(dtype)
+        if c.class_embed_dim is not None and class_labels is not None:
+            if temb is None:
+                raise ValueError(
+                    "class_labels conditioning is incompatible with hoisted temb_rows: the precomputed rows do "
+                    "not include the class embedding. Pass temb_rows=None for class-conditioned runs.")
+            cemb = self.class_embedding(class_labels.to(dtype))
+            temb = torch.cat([temb, cemb], dim=-1) if c.class_embeddings_concat else temb + cemb
+
+        ehs0 = None if encoder_hidden_states is None else encoder_hidden_states.to(dtype)
+        ehs1 = None if encoder_hidden_states_1 is None else encoder_hidden_states_1.to(dtype)
+        if c.cn_text_only and ehs0 is not None and ehs0.shape[1] > c.adapter_num_tokens:
+            # the ControlNet branch attends the leading text tokens only (the reference's
+            # CNAttnProcessor2_0, attention_processor.py:585-586)
+            ehs0 = ehs0[:, : c.adapter_num_tokens].contiguous()
 
         def trow(name):
             return temb_rows.get(name) if temb_rows is not None else None

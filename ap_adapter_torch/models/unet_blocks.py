@@ -44,6 +44,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ap_adapter_torch.models.layers import layer_norm_f32
+from ap_adapter_torch.ops.attention import dual_kv_attention, sdpa, self_attention
 from ap_adapter_torch.ops.dual_kv_attention import fused_dual_kv_attention
 from ap_adapter_torch.ops.fused_block import fused_ln_self_attention_vjp
 from ap_adapter_torch.ops.fused_cross import fused_ln_cross_attention_kv, fused_ln_cross_attention_vjp
@@ -190,8 +191,10 @@ class AdapterKV(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    """diffusers ``Attention`` with an optional decoupled audio-KV branch,
-    always called with its preceding LayerNorm (``x + attn(LN(x))``).
+    """diffusers ``Attention`` with an optional decoupled audio-KV branch.
+    The UNet calls it with its preceding LayerNorm (``x + attn(LN(x))``);
+    called with ``norm=None`` it is the bare ``attn(x)``, as the JAX module
+    is without ``pre_ln``.
 
     With the adapter, the context splits at ``num_ip_tokens``: the first
     tokens (GPT-2) give the text K/V, the rest (AudioMAE) the adapter K/V, and
@@ -256,10 +259,33 @@ class CrossAttention(nn.Module):
         out = fused_dual_kv_attention(q.reshape(b, s, self.heads, d), k, v, ki, vi, ip_scale, bias=bias)
         return x + F.linear(out.reshape(b, s, c), self.to_out[0].weight, self.to_out[0].bias)
 
-    def forward(self, x: torch.Tensor, norm: nn.LayerNorm,
+    def _forward_bare(self, x, context, bias, ip_scale) -> torch.Tensor:
+        """The JAX route without ``pre_ln`` (unet_blocks.py:521-582), which
+        the JAX package computes outside any kernel: q/k/v projections,
+        ``sdpa`` with the additive mask (``self_attention`` without a
+        context), both K/V sets through ``dual_kv_attention`` where the
+        adapter is live and the context is longer than ``num_ip_tokens``,
+        the out projection; no residual. ``bias``: [B, Sk], or a mask that
+        broadcasts to [B, heads, Sq, Sk]."""
+
+        b, s, _ = x.shape
+        inner = self.to_q.weight.shape[0]
+        split = lambda t: t.reshape(b, -1, self.heads, inner // self.heads)
+        q = split(F.linear(x, self.to_q.weight))
+        if not self.is_cross:
+            out = self_attention(q, split(F.linear(x, self.to_k.weight)), split(F.linear(x, self.to_v.weight)))
+        else:
+            k, v, ki, vi = (None if t is None else split(t) for t in self.project_kv(context))
+            mask = bias[:, None, None, :] if bias is not None and bias.dim() == 2 else bias
+            out = sdpa(q, k, v, mask) if ki is None else dual_kv_attention(q, k, v, ki, vi, ip_scale, mask)
+        return F.linear(out.reshape(b, s, inner), self.to_out[0].weight, self.to_out[0].bias)
+
+    def forward(self, x: torch.Tensor, norm: Optional[nn.LayerNorm],
                 context: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
                 ip_scale: float = 0.0, kv: Optional[KV] = None) -> torch.Tensor:
         out = self.to_out[0]
+        if norm is None:
+            return self._forward_bare(x, context, bias, ip_scale)
         if self.use_int8:      # the UNet refuses hoisted K/V under use_int8
             return self._forward_int8(x, norm, context, bias, ip_scale)
         if not self.is_cross:

@@ -71,6 +71,14 @@ def dual_kv_attention(
     return out_text + torch.as_tensor(ip_scale, dtype=out_ip.dtype) * out_ip
 
 
+def strip_adapter_tokens(context: torch.Tensor, num_tokens: int) -> torch.Tensor:
+    """ControlNet-style context [B, Sk, D]: the trailing ``num_tokens``
+    adapter tokens dropped, so the site attends text only (the reference's
+    ``CNAttnProcessor(2_0)``, attention_processor.py:473-623)."""
+
+    return context[:, : context.shape[1] - num_tokens]
+
+
 def mask_to_bias(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """[B, Sk] {0,1} padding mask -> [B, 1, 1, Sk] additive fp32 bias with
     the reference's -10000 convention."""

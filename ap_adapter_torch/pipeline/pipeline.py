@@ -11,7 +11,7 @@ Token ids come from the host (``pipeline/tokenize.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,12 +82,49 @@ class TextBatch:
                                                             dataclasses.astuple(second))))
 
 
-class PipelineModules(nn.Module):
-    """Every submodel of one PipelineConfig.
+class Submodels(nn.Module):
+    """Named submodels (``NAMES``) built on the meta device (no memory):
+    ``init_random`` or ``load_state_dicts`` materializes the weights on a
+    device."""
 
-    Built on the meta device (no memory): ``init_random`` or
-    ``load_state_dicts`` materializes the weights on a device.
-    """
+    NAMES: Tuple[str, ...] = ()
+
+    @property
+    def device(self) -> torch.device:
+        return self.unet.conv_in.weight.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.unet.conv_in.weight.dtype
+
+    @torch.no_grad()
+    def init_random(self, seed: int = 0, device="cuda", dtype: Optional[torch.dtype] = None) -> "Submodels":
+        """Random weights, drawn on ``device`` from a seeded ``torch.Generator``:
+        ones for norm scales and the sos/eos embeddings, zeros for biases,
+        N(0, 0.02) for everything else (the JAX package's fast_init rules)."""
+
+        self.to_empty(device=device)
+        return fill_random_(self.to(dtype or self.config.dtype), seed)
+
+    def load_state_dicts(self, state_dicts: Mapping[str, Mapping[str, object]], device="cuda",
+                         dtype: Optional[torch.dtype] = None) -> "Submodels":
+        """Load ``{submodel name: HF/diffusers state dict}`` (numpy arrays or
+        tensors) strictly, the VAE's encoder and decoder both."""
+
+        dtype = dtype or self.config.dtype
+        for name in self.NAMES:
+            module = getattr(self, name)
+            own = set(module.state_dict())
+            sd = {k: torch.as_tensor(np.asarray(v)) for k, v in state_dicts[name].items()}
+            extra = [k for k in sd if k not in own]
+            if extra:
+                raise KeyError(f"{name}: unexpected keys {extra[:5]}")
+            module.load_state_dict(sd, strict=True, assign=True)
+        return self.to(device=device, dtype=dtype)
+
+
+class PipelineModules(Submodels):
+    """Every submodel of one PipelineConfig."""
 
     NAMES = ("clap", "t5", "gpt2", "projection", "audiomae", "unet", "vae", "vocoder")
 
@@ -103,40 +140,6 @@ class PipelineModules(nn.Module):
             self.unet = AudioLDM2UNet(config.unet)
             self.vae = AutoencoderKL(config.vae)
             self.vocoder = HiFiGAN(config.vocoder)
-
-    @property
-    def device(self) -> torch.device:
-        return self.unet.conv_in.weight.device
-
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.unet.conv_in.weight.dtype
-
-    @torch.no_grad()
-    def init_random(self, seed: int = 0, device="cuda", dtype: Optional[torch.dtype] = None
-                    ) -> "PipelineModules":
-        """Random weights, drawn on ``device`` from a seeded ``torch.Generator``:
-        ones for norm scales and the sos/eos embeddings, zeros for biases,
-        N(0, 0.02) for everything else (the JAX package's fast_init rules)."""
-
-        self.to_empty(device=device)
-        return fill_random_(self.to(dtype or self.config.dtype), seed)
-
-    def load_state_dicts(self, state_dicts: Mapping[str, Mapping[str, object]], device="cuda",
-                         dtype: Optional[torch.dtype] = None) -> "PipelineModules":
-        """Load ``{submodel name: HF/diffusers state dict}`` (numpy arrays or
-        tensors) strictly, the VAE's encoder and decoder both."""
-
-        dtype = dtype or self.config.dtype
-        for name in self.NAMES:
-            module = getattr(self, name)
-            own = set(module.state_dict())
-            sd = {k: torch.as_tensor(np.asarray(v)) for k, v in state_dicts[name].items()}
-            extra = [k for k in sd if k not in own]
-            if extra:
-                raise KeyError(f"{name}: unexpected keys {extra[:5]}")
-            module.load_state_dict(sd, strict=True, assign=True)
-        return self.to(device=device, dtype=dtype)
 
     # -- conditioning --------------------------------------------------------
 

@@ -13,10 +13,11 @@ under the reference's file names. Runs on the card (``--device``, default
         --audio-prompt clip.wav --random-weights --output-dir out
 
 ``--checkpoint-dir`` names a directory of ``<submodel>.npz`` HF/diffusers
-state dicts, as ``train/cli.py`` reads them. Not ported yet, and refused
-(ROADMAP.md, Queue 1): ``--tensor-parallel`` above 1 (step 11) and the HF
-tokenizers of a checkpoint's ``tokenizer/`` directory (step 0); prompts go
-through the hash tokenizer.
+state dicts, as ``train/cli.py`` reads them; where it holds ``tokenizer/``
+and ``tokenizer_2/``, prompts go through those transformers tokenizers
+(``pipeline/tokenize.py::HFTokenizers``), else through the hash tokenizer.
+Not ported yet, and refused (ROADMAP.md, Queue 1 item 8):
+``--tensor-parallel`` above 1.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from ap_adapter_torch.adapter.params import import_flat_adapter
 from ap_adapter_torch.audio.io import load_wav, save_wav
 from ap_adapter_torch.configs import PipelineConfig, TaskConfig, get_task_config, tiny_pipeline_config
 from ap_adapter_torch.pipeline.pipeline import AudioLDM2Pipeline, PipelineModules
-from ap_adapter_torch.pipeline.tokenize import make_text_batch
+from ap_adapter_torch.pipeline.tokenize import HFTokenizers, make_text_batch
 
 
 def load_pipeline(
@@ -49,7 +50,7 @@ def load_pipeline(
 
     if tensor_parallel > 1:
         raise NotImplementedError("--tensor-parallel > 1 is not ported to ap_adapter_torch yet "
-                                  "(ROADMAP.md, Queue 1 step 11)")
+                                  "(ROADMAP.md, Queue 1 item 8)")
     if checkpoint_dir:
         sds = {}
         for name in PipelineModules.NAMES:
@@ -78,19 +79,17 @@ def _output_name(task: TaskConfig, prompt: str, j: int, suffix: str = "") -> str
     return f"{prompt[0]}_{j}_ip{task.ap_scale}_t{task.time_pooling}_f{task.freq_pooling}{suffix}.wav"
 
 
-def _text_batches(task: TaskConfig, cfg: PipelineConfig, prompt: str):
+def _text_batches(task: TaskConfig, cfg: PipelineConfig, prompt: str, tokenizers):
     neg_prompt = task.negative_text_prompts[0] if task.negative_text_prompts else ""
-    return (make_text_batch(cfg, [prompt] * task.num_files),
-            make_text_batch(cfg, [neg_prompt] * task.num_files))
+    return (make_text_batch(cfg, [prompt] * task.num_files, tokenizers),
+            make_text_batch(cfg, [neg_prompt] * task.num_files, tokenizers))
 
 
-def run_task(task: TaskConfig, pipe: AudioLDM2Pipeline, tokenizers=None) -> List[str]:
+def run_task(task: TaskConfig, pipe: AudioLDM2Pipeline, tokenizers: Optional[HFTokenizers] = None) -> List[str]:
     """Execute one task template; returns the written wav paths (the
-    reference's file naming)."""
+    reference's file naming). ``tokenizers``: a checkpoint's, else the hash
+    tokenizer."""
 
-    if tokenizers is not None:
-        raise NotImplementedError("HF tokenizers are not ported to ap_adapter_torch yet (ROADMAP.md, Queue 1 "
-                                  "step 0)")
     os.makedirs(task.output_dir, exist_ok=True)
     cfg = pipe.config
     fbank = None
@@ -100,7 +99,7 @@ def run_task(task: TaskConfig, pipe: AudioLDM2Pipeline, tokenizers=None) -> List
         fbank = fb.expand(task.num_files, *fb.shape[1:]).contiguous()
     written = []
     for prompt in task.positive_text_prompts:
-        pos, neg = _text_batches(task, cfg, prompt)
+        pos, neg = _text_batches(task, cfg, prompt, tokenizers)
         wavs = pipe.generate(pos, neg, fbank, audio_length_in_s=task.audio_length_in_s,
                              num_inference_steps=task.num_inference_steps, guidance_scale=task.guidance_scale,
                              ap_scale=task.ap_scale, time_pool=task.time_pooling, freq_pool=task.freq_pooling)
@@ -111,16 +110,14 @@ def run_task(task: TaskConfig, pipe: AudioLDM2Pipeline, tokenizers=None) -> List
     return written
 
 
-def run_sdedit_task(task: TaskConfig, pipe: AudioLDM2Pipeline, tokenizers=None) -> List[str]:
+def run_sdedit_task(task: TaskConfig, pipe: AudioLDM2Pipeline,
+                    tokenizers: Optional[HFTokenizers] = None) -> List[str]:
     """The SDEdit route of style transfer (``pipeline/style_transfer.py``):
     the source clip's latent noised to mid-schedule, the truncated DDIM tail,
     wavs named as ``run_task`` names them, with ``_sdedit``."""
 
     from ap_adapter_torch.pipeline.style_transfer import generate_style_transfer
 
-    if tokenizers is not None:
-        raise NotImplementedError("HF tokenizers are not ported to ap_adapter_torch yet (ROADMAP.md, Queue 1 "
-                                  "step 0)")
     if not task.audio_prompt_file:
         raise ValueError("--sdedit requires --audio-prompt (the source clip whose latent seeds the "
                          "truncated schedule)")
@@ -129,7 +126,7 @@ def run_sdedit_task(task: TaskConfig, pipe: AudioLDM2Pipeline, tokenizers=None) 
     wav, sr = load_wav(task.audio_prompt_file)
     written = []
     for prompt in task.positive_text_prompts:
-        pos, neg = _text_batches(task, cfg, prompt)
+        pos, neg = _text_batches(task, cfg, prompt, tokenizers)
         wavs = generate_style_transfer(
             pipe, wav, sr, pos, neg, audio_length_in_s=task.audio_length_in_s,
             num_inference_steps=task.num_inference_steps, guidance_scale=task.guidance_scale,
@@ -175,9 +172,9 @@ def main(argv=None) -> List[str]:
 
     if args.sdedit and args.task != "style_transfer":
         parser.error("--sdedit is only valid with --task style_transfer")
+    tokenizers = None
     if args.checkpoint_dir and os.path.isdir(os.path.join(args.checkpoint_dir, "tokenizer")):
-        raise NotImplementedError("HF tokenizers are not ported to ap_adapter_torch yet (ROADMAP.md, Queue 1 "
-                                  "step 0)")
+        tokenizers = HFTokenizers(args.checkpoint_dir)
 
     overrides = {}
     if args.audio_length is not None:
@@ -195,7 +192,7 @@ def main(argv=None) -> List[str]:
     pipe = load_pipeline(config, checkpoint_dir=args.checkpoint_dir or None,
                          adapter_ckpt=args.adapter_ckpt or None, tensor_parallel=args.tensor_parallel,
                          device=args.device)
-    paths = (run_sdedit_task if args.sdedit else run_task)(task, pipe)
+    paths = (run_sdedit_task if args.sdedit else run_task)(task, pipe, tokenizers)
     for p in paths:
         print(p)
     return paths

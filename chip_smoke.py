@@ -23,7 +23,10 @@ prints its seconds:
    its bias), K7, K8 (dx, dk_ip/dv_ip and the adapter weight gradients) and
    K9 (dx) at the three training levels, B=8, against the plain version and
    autograd over it (limits 2e-2 of max|plain| forward, 5e-2 gradients);
-   their cases list their device kernels with each one's device ms;
+   then K4 at the three edit levels, B=2, with no adapter set: 8 text keys
+   at 768 wide, and 64 T5 keys at 1024 wide with the padding bias (the
+   ControlNet-branch request's cross sites); their cases list their device
+   kernels with each one's device ms;
 5. reference: one full-width UNet forward (hoisted K/V, a short latent) with
    the kernels in bf16 against the plain path in fp32 on the CPU, same weights;
 6. edit slice: the full-width ``PipelineConfig()`` in bf16 with random weights
@@ -102,12 +105,24 @@ prints its seconds:
    seeded synthetic 10 s clips at batch 8, once in the CLAP space and once
    in the VGGish space (random full-width VGGish): clips/s, the source-vs-
    edit FAD, exact launch counts (two requests' worth); then
-   ``run_eval_protocol`` with the clips split into two domains.
+   ``run_eval_protocol`` with the clips split into two domains;
+18. v1 edit slice: the AudioLDM v1 pipeline (``pipeline/audioldm_v1.py``,
+   CLAP class labels, double self-attention) at ``PipelineConfig()``'s widths
+   in bf16 with random weights (seed 0): its UNet step in bf16 against fp32
+   on the CPU (limit 5e-2 of max|ref|), one warm-up request, then 2 requests
+   of 10 s at 50 CFG DDIM steps, batch 1: the waveform checks of phase 6,
+   seconds, peak memory and exact launch counts derived from its config
+   (1600 K1, 800 K3, one self-attention);
+19. ControlNet-branch edit slice: the phase-6 weights without the adapter's
+   under ``cn_text_only`` with hoisting off: a generate with hoisting on
+   must refuse; one request with exact counts (9600 K1, 6400 K3, 3200 K4,
+   no K2), then the same seed with a different audio prompt, whose waveform
+   must be bit-equal.
 
-Phases 6, 8, 10, 12 and 15-17 also count one self-attention launch per
+Phases 6, 8, 10, 12, 15-19 also count one self-attention launch per
 request and per training micro-step (the VAE mid block at 4000 and 4096
-positions). Phases run in the order 1-4, 9, 11, 14, 5, 6, 10, 12, 15, 16,
-17, 13, 7, 8. Two lines before the last is a JSON object with one entry per
+positions). Phases run in the order 1-4, 9, 11, 14, 5, 6, 10, 12, 15, 18,
+19, 16, 17, 13, 7, 8. Two lines before the last is a JSON object with one entry per
 kernel (``launches``: the count over its path's run, the edit requests for
 K1-K3 and the self-attention, the int8 requests for K11a-c, the training
 steps for K4 and K7-K9, the resnet-kernel requests for K12 and K13, the
@@ -719,14 +734,33 @@ def train_kernel_phase(device) -> dict:
         ]
         for name, variant, keys, tol, kernel, plain in cases:
             run_case(results, name, variant, (b, s, c), keys, kernel, plain, tol, split=name in REDESIGNED)
+
+    # K4 at the edit shapes with no adapter set: the ControlNet-branch request's cross sites (the GPT-2 stream
+    # stripped to its 8 text tokens at 768 wide; the T5 stream, 64 keys at 1024 wide, with its padding bias)
+    for s, c in SHAPES:
+        x = r(2, s, c)
+        ln_w, ln_b = 1 + r(c, scale=0.1), r(c, scale=0.1)
+        wq, wo = (r(c, c, scale=c ** -0.5) for _ in range(2))
+        bo = r(c, scale=0.1)
+        for variant, sk, dc in (("edit-text", 8, 768), ("edit-t5", 64, 1024)):
+            ctx = r(2, sk, dc)
+            wkc, wvc = (r(c, dc, scale=dc ** -0.5) for _ in range(2))
+            kw = {}
+            if variant == "edit-t5":
+                kw["bias"] = torch.zeros(2, sk, device=device)
+                kw["bias"][1, 12:] = -10000.0
+            run_case(results, "fused_ln_cross_attention", variant, (2, s, c), dict(sk=sk, dc=dc),
+                     lambda: fused_ln_cross_attention(x, ctx, ln_w, ln_b, wq, wkc, wvc, wo, bo, HEADS, **kw),
+                     lambda: fused_ln_cross_attention_plain(x, ctx, ln_w, ln_b, wq, wkc, wvc, wo, bo, HEADS, **kw),
+                     TOL, split=True)
     return results
 
 
-def expected_launches(unet_config) -> dict:
+def expected_launches(unet_config, hoisted: bool = True) -> dict:
     """Kernel calls per UNet forward: every transformer block runs K1 at attn1,
-    K1 or K2 at attn2 (double-self or cross) and K3 at its feed-forward;
-    under use_pallas_attention the adapter sites (the audio-token stream) run
-    K10 in place of K2."""
+    K1 or K2 at attn2 (double-self or cross; K4 where the K/V are not
+    ``hoisted``) and K3 at its feed-forward; under use_pallas_attention the
+    adapter sites (the audio-token stream) run K10 in place of K2."""
 
     c = unet_config
     groups = (sum(c.down_block_has_attn) * c.layers_per_block + 1
@@ -735,8 +769,9 @@ def expected_launches(unet_config) -> dict:
     n_cross = sum(d is not None for d in c.cross_attention_dims)
     n_self = len(c.cross_attention_dims) - n_cross
     n_k10 = sum(d == c.adapter_cross_attention_dim for d in c.cross_attention_dims) if c.use_pallas_attention else 0
+    cross = "fused_ln_cross_attention_kv" if hoisted else "fused_ln_cross_attention"
     out = {"fused_ln_self_attention": groups * blocks * (len(c.cross_attention_dims) + n_self),
-           "fused_ln_cross_attention_kv": groups * blocks * (n_cross - n_k10),
+           cross: groups * blocks * (n_cross - n_k10),
            "fused_ln_geglu_ff": groups * blocks * len(c.cross_attention_dims)}
     if n_k10:
         out["dual_kv_attention"] = groups * blocks * n_k10
@@ -816,14 +851,15 @@ def reference_phase(modules, device) -> float:
     return err / peak
 
 
-def expected_request_launches(unet_config, steps: int) -> dict:
+def expected_request_launches(unet_config, steps: int, hoisted: bool = True) -> dict:
     """Kernel calls per edit request of ``steps`` UNet forwards for the
-    configuration: the transformer sites (bf16 or int8), the resnet kernels
-    where their switch is on (K13 over K12), and one self-attention launch
-    (the VAE decode's mid block, at 4000 positions)."""
+    configuration: the transformer sites (bf16 or int8; K4 at the cross
+    sites where the K/V are not ``hoisted``), the resnet kernels where their
+    switch is on (K13 over K12), and one self-attention launch (the VAE
+    decode's mid block, at 4000 positions)."""
 
     per_forward = dict(expected_int8_launches(unet_config) if unet_config.use_int8 else
-                       expected_launches(unet_config))
+                       expected_launches(unet_config, hoisted))
     n_resnets = len(resnet_shapes(unet_config, *EDIT_LATENT))
     if unet_config.use_pallas_resnet:
         per_forward["fused_resnet_block"] = n_resnets
@@ -832,12 +868,45 @@ def expected_request_launches(unet_config, steps: int) -> dict:
     return {**{k: v * steps for k, v in per_forward.items()}, "self_attention": 1}
 
 
-def slice_phase(pipe, device, requests: int = 2) -> list:
-    """Serve ``requests`` edit requests (seeds 0, 1) with exact launch counts
-    for the pipeline's configuration; each run keeps its waveform."""
+def serve(name: str, generate, requests: int, want: dict, samples: int) -> list:
+    """Run ``generate(i)`` (one request, a waveform [1, samples] as numpy)
+    for i < ``requests`` with the launch counts set to 0 first: each
+    request's seconds and peak memory, the waveform checks, and launch
+    counts exactly ``want``; each run keeps its waveform."""
 
     import numpy as np
     import torch
+
+    from ap_adapter_torch.ops import cuda_kernels
+
+    cuda_kernels.reset_launch_counts()
+    runs, before = [], dict(cuda_kernels.LAUNCHES)
+    for i in range(requests):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wav = generate(i)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        now = dict(cuda_kernels.LAUNCHES)
+        moved = {k: now[k] - before[k] for k in now}
+        before = now
+        mem = torch.cuda.max_memory_allocated()
+        log(f"request {i} ({name}): {seconds:.3f} s, max_memory_allocated={mem / 2**30:.3f} GiB, "
+            f"wav {wav.shape} std={wav.std():.4g} max|wav|={np.abs(wav).max():.4g}, launches {moved}")
+        check_waveform(f"request {i} ({name})", wav, samples)
+        if moved != want:
+            raise RuntimeError(f"request {i} ({name}): launch counts {moved} != expected {want}")
+        runs.append({"seconds": seconds, "max_memory_allocated": mem, "launches": moved, "wav": wav})
+    return runs
+
+
+def slice_phase(pipe, device, requests: int = 2, seeds=None, audio_seeds=None) -> list:
+    """Serve ``requests`` edit requests (latent seeds ``seeds``, default 0, 1,
+    ...; the audio prompt's fbank drawn from ``audio_seeds``, default 0 for
+    all) with exact launch counts for the pipeline's configuration."""
+
+    import numpy as np
 
     from ap_adapter_torch.configs import get_task_config
     from ap_adapter_torch.ops import cuda_kernels
@@ -847,44 +916,25 @@ def slice_phase(pipe, device, requests: int = 2) -> list:
     task = get_task_config("timbre_transfer")
     pos = make_text_batch(c, [task.positive_text_prompts[0]])
     neg = make_text_batch(c, [task.negative_text_prompts[0]])
-    fbank = np.random.default_rng(0).standard_normal((1, *c.audiomae.img_size)).astype(np.float32)
-    per_request = expected_request_launches(c.unet, task.num_inference_steps)
-    want = {k: per_request.get(k, 0) for k in cuda_kernels.LAUNCHES}
-    samples = int(task.audio_length_in_s * c.vocoder.sampling_rate)
+    seeds = range(requests) if seeds is None else seeds
+    audio_seeds = [0] * requests if audio_seeds is None else audio_seeds
+    per_request = expected_request_launches(c.unet, task.num_inference_steps, c.hoist_step_invariants)
 
-    cuda_kernels.reset_launch_counts()
-    runs, before = [], dict(cuda_kernels.LAUNCHES)
-    for i in range(requests):
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        wav = pipe.generate(pos, neg, fbank, audio_length_in_s=task.audio_length_in_s,
-                            num_inference_steps=task.num_inference_steps,
-                            guidance_scale=task.guidance_scale, ap_scale=task.ap_scale,
-                            time_pool=task.time_pooling, freq_pool=task.freq_pooling, seed=i)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        now = dict(cuda_kernels.LAUNCHES)
-        moved = {k: now[k] - before[k] for k in now}
-        before = now
-        mem = torch.cuda.max_memory_allocated()
-        log(f"request {i} ({config_name(c.unet)}): {seconds:.3f} s, "
-            f"max_memory_allocated={mem / 2**30:.3f} GiB, "
-            f"wav {wav.shape} std={wav.std():.4g} max|wav|={np.abs(wav).max():.4g}, launches {moved}")
-        if wav.shape != (1, samples) or not np.all(np.isfinite(wav)) or not wav.std() > 0:
-            raise RuntimeError(f"request {i}: bad waveform {wav.shape}")
-        if np.abs(wav).max() > 1.0:
-            raise RuntimeError(f"request {i}: waveform outside the tanh range")
-        if moved != want:
-            raise RuntimeError(f"request {i}: launch counts {moved} != expected {want}")
-        runs.append({"seconds": seconds, "max_memory_allocated": mem, "launches": moved, "wav": wav})
-    return runs
+    def generate(i):
+        fbank = np.random.default_rng(audio_seeds[i]).standard_normal((1, *c.audiomae.img_size)).astype(np.float32)
+        return pipe.generate(pos, neg, fbank, audio_length_in_s=task.audio_length_in_s,
+                             num_inference_steps=task.num_inference_steps, guidance_scale=task.guidance_scale,
+                             ap_scale=task.ap_scale, time_pool=task.time_pooling, freq_pool=task.freq_pooling,
+                             seed=seeds[i])
+
+    return serve(config_name(c.unet), generate, requests, {k: per_request.get(k, 0) for k in cuda_kernels.LAUNCHES},
+                 int(task.audio_length_in_s * c.vocoder.sampling_rate))
 
 
 def config_name(unet_config) -> str:
     return ("int8" if unet_config.use_int8 else "K13" if unet_config.use_pallas_resnet
             else "K12" if unet_config.use_pallas_groupnorm else "K10" if unet_config.use_pallas_attention
-            else "bf16")
+            else "cn" if unet_config.cn_text_only else "bf16")
 
 
 def int8_slice_phase(modules, bf16_runs, device) -> tuple:
@@ -985,6 +1035,137 @@ def k10_slice_phase(modules, bf16_runs, device):
     log(f"request 0: K10 {run['seconds']:.3f} s, {run['max_memory_allocated'] / 2**30:.3f} GiB; bf16 "
         f"{bf16_runs[0]['seconds']:.3f} s, {bf16_runs[0]['max_memory_allocated'] / 2**30:.3f} GiB")
     return pipe, {**run, **check_quality("K10", run["wav"], bf16_runs[0]["wav"], config.mel)}
+
+
+def check_waveform(name, wav, samples) -> None:
+    import numpy as np
+
+    if wav.shape != (1, samples) or not np.all(np.isfinite(wav)) or not wav.std() > 0:
+        raise RuntimeError(f"{name}: bad waveform {wav.shape}")
+    if np.abs(wav).max() > 1.0:
+        raise RuntimeError(f"{name}: waveform outside the tanh range")
+
+
+def v1_reference(unet, device) -> float:
+    """One step of the full-width v1 UNet on a short latent: bf16 kernels on
+    the card against the plain path in fp32 on the CPU, with the same
+    weights, as ``reference_phase`` holds the AudioLDM2 UNet."""
+
+    import copy
+
+    import torch
+
+    g = torch.Generator().manual_seed(2)
+    lat = torch.randn(2, 16, 16, unet.config.in_channels, generator=g)
+    labels = torch.nn.functional.normalize(torch.randn(2, unet.config.class_embed_dim, generator=g), dim=-1)
+    ts = torch.full((2,), 501.0)
+
+    def run(u, dev):
+        with torch.no_grad():
+            return u(lat.to(dev), ts.to(dev), class_labels=labels.to(dev)).float().cpu()
+
+    got = run(unet, device)
+    ref = copy.deepcopy(unet).to("cpu", torch.float32)
+    want = run(ref, "cpu")
+    del ref
+    err, peak = (got - want).abs().max().item(), want.abs().max().item()
+    log(f"v1 reference: full-width v1 UNet, bf16 kernels on {device} vs fp32 plain on cpu: "
+        f"max_abs_err={err:.4g} rel={err / peak:.4g} (limit {UNET_TOL})")
+    if not (torch.isfinite(got).all() and err <= UNET_TOL * peak):
+        raise RuntimeError(f"v1 UNet reference check failed: {err} > {UNET_TOL} * {peak}")
+    return err / peak
+
+
+def v1_slice_phase(device, requests: int = 2) -> dict:
+    """The AudioLDM v1 pipeline (``pipeline/audioldm_v1.py``) at
+    ``PipelineConfig()``'s widths in bf16 with random weights (seed 0): its
+    UNet step against fp32 on the CPU, one warm-up request, then
+    ``requests`` 10 s requests at 50 CFG DDIM steps, batch 1, guidance 2.5,
+    with exact launch counts derived from the v1 UNet's config (K1 at both
+    self-attention sites of every block, K3 at every feed-forward, one
+    self-attention launch in the VAE decode)."""
+
+    import torch
+
+    from ap_adapter_torch.configs import PipelineConfig
+    from ap_adapter_torch.ops import cuda_kernels
+    from ap_adapter_torch.pipeline.audioldm_v1 import AudioLDMv1Pipeline
+    from ap_adapter_torch.pipeline.tokenize import make_text_batch
+
+    config = PipelineConfig()
+    held = torch.cuda.memory_allocated()        # the other phases' pipelines, still alive
+    t0 = time.perf_counter()
+    pipe = AudioLDMv1Pipeline.init_random(config, seed=0, device=device, dtype=torch.bfloat16)
+    n_params = sum(p.numel() for p in pipe.modules.parameters())
+    log(f"v1 random weights: {n_params / 1e6:.1f}M params in {time.perf_counter() - t0:.1f} s")
+    rel = v1_reference(pipe.modules.unet, device)
+
+    steps, seconds = 50, 10.0
+    samples = int(seconds * config.vocoder.sampling_rate)
+    per_request = expected_request_launches(pipe.unet_config, steps, hoisted=False)
+    want = {k: per_request.get(k, 0) for k in cuda_kernels.LAUNCHES}
+    if {k: v for k, v in want.items() if v} != {"fused_ln_self_attention": 1600, "fused_ln_geglu_ff": 800,
+                                                "self_attention": 1}:
+        raise RuntimeError(f"unexpected v1 routing at full width: {want}")
+    pos = make_text_batch(config, ["a recording of a violin solo"])
+    neg = make_text_batch(config, ["low quality"])
+    pipe.generate(pos, neg, audio_length_in_s=seconds, num_inference_steps=steps, seed=99)     # warm-up
+    runs = serve("v1", lambda i: pipe.generate(pos, neg, audio_length_in_s=seconds, num_inference_steps=steps,
+                                               seed=i), requests, want, samples)
+    for i, run in enumerate(runs):
+        run["v1_memory"] = run["max_memory_allocated"] - held
+        log(f"v1 request {i}: {run['v1_memory'] / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB that other "
+            f"pipelines held before this one was built")
+    del pipe
+    torch.cuda.empty_cache()
+    return {"reference_rel_err": rel, "requests": runs}
+
+
+def cn_slice_phase(modules, device) -> dict:
+    """The bf16 slice's weights (shared, not copied; the adapter's dropped)
+    under ``cn_text_only`` with hoisting off: a generate with hoisting on
+    must refuse; then one request with exact launch counts (K4 at every
+    cross site, none of K2) and a second with the same seed and a different
+    audio prompt, whose waveform must be bit-equal (the UNet strips the
+    AudioMAE tokens, and K1, K3 and K4 are deterministic)."""
+
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ap_adapter_torch.pipeline.pipeline import AudioLDM2Pipeline, PipelineModules
+    from ap_adapter_torch.pipeline.tokenize import make_text_batch
+
+    sd = {k: v for k, v in modules.state_dict().items() if ".processor." not in k}
+
+    def pipeline(config):
+        mods = PipelineModules(config)
+        mods.load_state_dict(sd, strict=True, assign=True)
+        return AudioLDM2Pipeline(config, mods)
+
+    hoisted = modules.config.replace(unet=dataclasses.replace(modules.config.unet, cn_text_only=True))
+    text = make_text_batch(hoisted, ["a violin"])
+    try:
+        pipeline(hoisted).generate(text, text, np.zeros((1, *hoisted.audiomae.img_size), np.float32),
+                                   audio_length_in_s=1.0, num_inference_steps=1)
+    except ValueError as e:
+        if "cn_text_only" not in str(e):
+            raise
+        log(f"cn with hoisting on refuses: {e}")
+    else:
+        raise RuntimeError("a cn_text_only generate with hoisting on did not refuse")
+    pipe = pipeline(hoisted.replace(hoist_step_invariants=False))
+    runs = slice_phase(pipe, device, requests=2, seeds=(0, 0), audio_seeds=(0, 1))
+    if runs[0]["launches"]["fused_ln_cross_attention_kv"] != 0 or runs[0]["launches"]["fused_ln_cross_attention"] != 3200:
+        raise RuntimeError(f"cn request: {runs[0]['launches']}")
+    equal = bool(np.array_equal(runs[0]["wav"], runs[1]["wav"]))
+    log(f"cn requests 0 and 1 (same seed, audio prompts from seeds 0 and 1): waveforms bit-equal: {equal}")
+    if not equal:
+        raise RuntimeError("cn_text_only: the waveform changed with the audio prompt")
+    del pipe
+    torch.cuda.empty_cache()
+    return {"requests": runs, "bit_equal_under_a_changed_audio_prompt": equal}
 
 
 def clap_scorer(pipe, device):
@@ -1385,6 +1566,8 @@ def main() -> int:
     int8_runs, int8_quality = phase("int8 edit slice", int8_slice_phase, pipe.modules, runs, device)
     switch_runs = phase("resnet-kernel edit slices", switch_slice_phase, pipe.modules, runs, device)
     k10_pipe, k10_run = phase("K10 edit slice", k10_slice_phase, pipe.modules, runs, device)
+    v1 = phase("v1 edit slice", v1_slice_phase, device)
+    cn = phase("ControlNet-branch edit slice", cn_slice_phase, pipe.modules, device)
     scorer = clap_scorer(pipe, device)
     ranked = phase("re-ranking", ranked_phase, k10_pipe, scorer, device)
     del k10_pipe
@@ -1420,7 +1603,12 @@ def main() -> int:
         "int8_requests": [brief(r) for r in int8_runs], "int8_quality": int8_quality,
         "resnet_kernel_requests": {k: brief(r) for k, r in switch_runs.items()},
         "task_cli": {k: brief(r) for k, r in task_runs.items()},
-        "k10_request": brief(k10_run), "generate_ranked": ranked, "eval": evaluation,
+        "k10_request": brief(k10_run), "v1_reference_rel_err": v1["reference_rel_err"],
+        "v1_requests": [{**brief(r), "v1_memory": r["v1_memory"],
+                         "launches": {k: n for k, n in r["launches"].items() if n}} for r in v1["requests"]],
+        "cn_requests": [{**brief(r), "launches": {k: n for k, n in r["launches"].items() if n}}
+                        for r in cn["requests"]],
+        "cn_bit_equal": cn["bit_equal_under_a_changed_audio_prompt"], "generate_ranked": ranked, "eval": evaluation,
         "training_launches": {k: training["launches"][k] for k in KERNELS},
         "training_steps": training["steps"], "training_reference": train_ref, "phase_seconds": phases}
     if min(total.values()) <= 0 or set(cuda_kernels.LAUNCHES) != set(KERNELS):

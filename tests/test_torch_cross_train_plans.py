@@ -25,14 +25,17 @@ import torch
 
 from ap_adapter_torch.ops.fused_cross import fused_ln_cross_attention_kv_plain, k2_plan, k4_plan, k8_plan, key_tile
 from ap_adapter_torch.ops.hopper_gemm import BM, ctx_boxes, ctx_tiles
-from chip_smoke import HEADS, TRAIN_B, TRAIN_SHAPES
+from chip_smoke import HEADS, SHAPES, TRAIN_B, TRAIN_SHAPES
 from tests.test_torch_kernel_plans import _assert_gemm_covers_fits_and_fills
 from tests.test_torch_train_plans import LOG2E, T, _round, kn_gemm, ln_bwd, ln_rows
 
-# (B, S, C) of K4 and K8 calls: the three training levels, and ragged S
-CROSS_SHAPES = [(TRAIN_B, s, c) for s, c in TRAIN_SHAPES] + [(2, 81, 256), (3, 145, 384), (1, 17, 640)]
-# (text keys, adapter keys, context width): GPT-2 + AudioMAE at pool 1, T5 with no adapter set, ragged adapter sets
-CROSS_KEYS = [(8, 512, 768), (64, 0, 1024), (8, 20, 768), (8, 128, 768), (70, 0, 1024)]
+# (B, S, C) of K4 and K8 calls: the three training levels, the three edit levels (K4 in the ControlNet-branch
+# request), and ragged S
+CROSS_SHAPES = ([(TRAIN_B, s, c) for s, c in TRAIN_SHAPES] + [(2, s, c) for s, c in SHAPES]
+                + [(2, 81, 256), (3, 145, 384), (1, 17, 640)])
+# (text keys, adapter keys, context width): GPT-2 + AudioMAE at pool 1, T5 with no adapter set, ragged adapter
+# sets, and GPT-2's 8 text keys alone (the ControlNet branch strips the AudioMAE tokens)
+CROSS_KEYS = [(8, 512, 768), (64, 0, 1024), (8, 20, 768), (8, 128, 768), (70, 0, 1024), (8, 0, 768)]
 
 
 @pytest.mark.parametrize("keys", CROSS_KEYS)

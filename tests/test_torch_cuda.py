@@ -1011,3 +1011,76 @@ def test_k4_k8_device_kernels_as_planned(cuda_device):
         assert sorted(short) == sorted(want * 3), short
         assert not any(n.startswith(("gemm_kernel<", "attention_kernel<")) for n in short)
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,c", [(1000, 256), (252, 384), (64, 640)])
+@pytest.mark.parametrize("sk,dc,biased", [(8, 768, False), (64, 1024, True)])
+def test_k4_at_the_edit_shapes(cuda_device, s, c, sk, dc, biased):
+    """K4 where the ControlNet-branch request runs it: B = 2 at the three
+    edit levels, no adapter set; the GPT-2 stream cut to its 8 text keys at
+    768 wide, and the T5 stream's 64 keys at 1024 wide with the padding
+    bias. One launch a call."""
+
+    (x, _, ctx, *w), kw = _k4_k8_operands(cuda_device, 2, s, c, 8, sk, 0, dc, biased, 38)
+    before = cuda_kernels.LAUNCHES["fused_ln_cross_attention"]
+    _check(fused_ln_cross_attention(x, ctx, *w, 8, **kw), fused_ln_cross_attention_plain(x, ctx, *w, 8, **kw))
+    assert cuda_kernels.LAUNCHES["fused_ln_cross_attention"] == before + 1
+
+
+@pytest.mark.gpu
+def test_v1_unet_step_matches_fp32(cuda_device):
+    """One step of the full-width v1 UNet (class labels, double
+    self-attention; 16x16 latent, B = 2) with the bf16 kernels on the card
+    against the same weights in fp32 on the CPU (the plain path), within
+    5e-2 of max|ref|: 32 K1 and 16 K3, nothing else."""
+
+    import copy
+
+    from ap_adapter_torch.configs import PipelineConfig
+    from ap_adapter_torch.pipeline.audioldm_v1 import AudioLDMv1Pipeline
+
+    unet = AudioLDMv1Pipeline.init_random(PipelineConfig(), 0, cuda_device, torch.bfloat16).modules.unet
+    g = torch.Generator().manual_seed(2)
+    lat = torch.randn(2, 16, 16, 8, generator=g)
+    labels = torch.nn.functional.normalize(torch.randn(2, unet.config.class_embed_dim, generator=g), dim=-1)
+    ts = torch.full((2,), 501.0)
+    cuda_kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = unet(lat.to(cuda_device), ts.to(cuda_device), class_labels=labels.to(cuda_device)).float().cpu()
+        moved = {k: v for k, v in cuda_kernels.LAUNCHES.items() if v}
+        want = copy.deepcopy(unet).to("cpu", torch.float32)(lat, ts, class_labels=labels)
+    assert moved == {"fused_ln_self_attention": 32, "fused_ln_geglu_ff": 16}
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 5e-2 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_cn_request_launch_counts(cuda_device):
+    """A ControlNet-branch request (full width, hoisting off, 2 CFG DDIM
+    steps of a 10 s clip, batch 1): per UNet forward 192 K1, 128 K3 and 64 K4
+    (no K2), one self-attention launch in the VAE decode; the same seed with
+    another audio prompt gives a bit-equal waveform."""
+
+    import dataclasses
+
+    import numpy as np
+
+    from ap_adapter_torch.configs import PipelineConfig
+    from ap_adapter_torch.pipeline.pipeline import AudioLDM2Pipeline
+    from ap_adapter_torch.pipeline.tokenize import make_text_batch
+
+    base = PipelineConfig()
+    config = base.replace(unet=dataclasses.replace(base.unet, cn_text_only=True), hoist_step_invariants=False)
+    pipe = AudioLDM2Pipeline.from_random(config, 0, cuda_device, torch.bfloat16)
+    text = make_text_batch(config, ["a recording of a violin solo"])
+    wavs = []
+    for audio_seed in (0, 1):
+        fbank = np.random.default_rng(audio_seed).standard_normal((1, 1024, 128)).astype(np.float32)
+        cuda_kernels.reset_launch_counts()
+        wavs.append(pipe.generate(text, text, fbank, audio_length_in_s=10.0, num_inference_steps=2, seed=0))
+        assert {k: v for k, v in cuda_kernels.LAUNCHES.items() if v} == {
+            "fused_ln_self_attention": 384, "fused_ln_geglu_ff": 256, "fused_ln_cross_attention": 128,
+            "self_attention": 1}
+    assert wavs[0].shape == (1, 160000) and np.all(np.isfinite(wavs[0]))
+    assert np.array_equal(wavs[0], wavs[1])

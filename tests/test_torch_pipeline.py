@@ -34,19 +34,9 @@ from ap_adapter_torch.pipeline.pipeline import AudioLDM2Pipeline, PipelineModule
 from ap_adapter_torch.pipeline.style_transfer import sdedit_generate_waveform
 from ap_adapter_torch.pipeline.tokenize import make_text_batch
 from tests.torch_port_common import (  # noqa: F401 (autouse fixture)
-    JaxMelTap, hf_vocoder, jax_source_digest, jax_tiny, one_torch_thread, param_fingerprints, port_tiny,
-    vocoder_input)
+    JaxMelTap, hf_vocoder, jax_tiny, one_torch_thread, port_tiny, stale_reference, vocoder_input, within)
 
 GOLDEN = Path(__file__).parent / "golden" / "torch_sdedit.npz"
-
-
-def within(got, want, what):
-    """Within 1e-3 absolute and 1e-3 of max|want|: the waveform is
-    tanh-bounded and small with the random 0.02-std weights, the mel is not."""
-
-    assert got.shape == want.shape and np.all(np.isfinite(got)) and np.abs(want).max() > 0, what
-    err = np.abs(got - want).max()
-    assert err <= 1e-3 and err <= 1e-3 * np.abs(want).max(), (what, err, np.abs(want).max())
 
 
 def check_edit(run, jax_mel):
@@ -103,11 +93,7 @@ def test_sdedit_matches_jax():
 
     ref = np.load(GOLDEN)
     _, params = jax_tiny()
-    stale = "stale reference: rerun scripts/make_torch_sdedit_golden.py"
-    assert str(ref["jax_source_sha256"]) == jax_source_digest(), stale
-    fps = param_fingerprints(params, trees=sorted(params))
-    assert fps["fp_names"].tolist() == ref["fp_names"].tolist(), stale
-    np.testing.assert_allclose(fps["fp_values"], ref["fp_values"], rtol=1e-9, err_msg=stale)
+    stale_reference(ref, params, sorted(params), "scripts/make_torch_sdedit_golden.py")
 
     def text(name):
         return TextBatch(*(ref[f"in/{name}/{f}"] for f in ("clap_ids", "clap_mask", "t5_ids", "t5_mask")))
@@ -169,10 +155,12 @@ def test_entry_points_default_to_cuda():
     from ap_adapter_torch.eval import runner
     from ap_adapter_torch.eval.clap_scoring import ClapScorer
     from ap_adapter_torch.eval.vggish import VggishEmbedder
+    from ap_adapter_torch.pipeline.audioldm_v1 import AudioLDMv1Pipeline
     from ap_adapter_torch.pipeline.tasks import load_pipeline
     from ap_adapter_torch.train.cli import build_parser
 
     for fn in (PipelineModules.init_random, PipelineModules.load_state_dicts, AudioLDM2Pipeline.from_random,
+               AudioLDMv1Pipeline.init_random, AudioLDMv1Pipeline.load_state_dicts,
                load_pipeline, ClapScorer, VggishEmbedder, VggishEmbedder.from_torch_checkpoint):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
     assert build_parser().parse_args(["--train-manifest", "m.json"]).device == "cuda"
@@ -184,14 +172,16 @@ def test_entry_points_default_to_cuda():
 
 def test_port_imports_no_jax():
     """In a fresh interpreter, importing every module of the port loads no
-    jax, flax or ap_adapter_tpu, and builds no kernel."""
+    jax, flax or ap_adapter_tpu, nor transformers (which the machine with
+    the card lacks; ``HFTokenizers`` imports it when built), and builds no
+    kernel."""
 
     code = """
 import importlib, pkgutil, sys
 import ap_adapter_torch
 for m in pkgutil.walk_packages(ap_adapter_torch.__path__, "ap_adapter_torch."):
     importlib.import_module(m.name)
-bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "ap_adapter_tpu"))
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "ap_adapter_tpu", "transformers"))
 assert not bad, bad
 from ap_adapter_torch.ops import cuda_kernels
 assert cuda_kernels._lib is None

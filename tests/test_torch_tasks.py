@@ -67,12 +67,27 @@ def test_cli_writes_reference_file_names(tmp_path, source_wav):
         assert sr == 16000 and wav.shape == (3200,) and np.all(np.isfinite(wav))
 
 
-def test_cli_refuses_what_is_not_ported(tmp_path, source_wav):
+def test_cli_refuses_what_is_not_ported(tmp_path, source_wav, monkeypatch):
+    """``--tensor-parallel`` above 1 is refused; a checkpoint's ``tokenizer/``
+    folder is loaded (``HFTokenizers``; the whole run is in
+    ``test_torch_tokenize.py``); the flag and audio-prompt checks hold."""
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tasks.main(["--tiny", "--device", "cpu", "--tensor-parallel", "2", "--output-dir", str(tmp_path)])
     (tmp_path / "ckpt" / "tokenizer").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    loaded = []
+
+    class Loaded(Exception):
+        pass
+
+    def load(checkpoint_dir):
+        loaded.append(checkpoint_dir)
+        raise Loaded
+
+    monkeypatch.setattr(tasks, "HFTokenizers", load)
+    with pytest.raises(Loaded):
         tasks.main(["--tiny", "--device", "cpu", "--checkpoint-dir", str(tmp_path / "ckpt")])
+    assert loaded == [str(tmp_path / "ckpt")]
     with pytest.raises(SystemExit):
         tasks.main(["--task", "timbre_transfer", "--sdedit", "--tiny", "--device", "cpu"])
     pipe = AudioLDM2Pipeline(tiny_pipeline_config(), PipelineModules(tiny_pipeline_config()).init_random(0, "cpu"))

@@ -65,6 +65,64 @@ def jax_tiny():
     return mods, params
 
 
+def jax_v1_unet_config(jax_config):
+    """The JAX v1 UNet config that ``AudioLDMv1Pipeline.from_random`` builds
+    from ``jax_config`` (its audioldm_v1.py:52-64)."""
+
+    from ap_adapter_tpu.configs import UNetConfig as JaxUNetConfig
+    from ap_adapter_tpu.pipeline.audioldm_v1 import audioldm_v1_unet_config
+
+    u = jax_config.unet
+    return audioldm_v1_unet_config(
+        JaxUNetConfig(block_out_channels=u.block_out_channels, down_block_has_attn=u.down_block_has_attn,
+                      up_block_has_attn=u.up_block_has_attn, layers_per_block=u.layers_per_block,
+                      transformer_layers_per_block=1, num_attention_heads=u.num_attention_heads,
+                      norm_num_groups=u.norm_num_groups),
+        clap_dim=jax_config.clap.projection_dim)
+
+
+@functools.lru_cache(maxsize=1)
+def jax_v1_tiny() -> dict:
+    """The JAX ``AudioLDMv1Pipeline.from_random(tiny_pipeline_config(), 0)``
+    params as numpy trees of dicts ({clap, unet, vae, vocoder}), cached on
+    disk as ``jax_tiny`` caches its own (the init takes about 7 s)."""
+
+    from flax.traverse_util import flatten_dict, unflatten_dict
+
+    from ap_adapter_tpu.pipeline.audioldm_v1 import AudioLDMv1Pipeline as JaxV1Pipeline
+
+    path = CACHE_DIR / f"jax_v1_tiny_params_{jax_source_digest()[:16]}_jax{jax.__version__}.npz"
+    if path.exists():
+        with np.load(path) as f:
+            return unflatten_dict({k: f[k] for k in f.files}, sep="/")
+    params = jax.tree_util.tree_map(np.asarray, JaxV1Pipeline.from_random(jax_tiny_config(), seed=0).params)
+    CACHE_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp.npz")
+    np.savez(tmp, **flatten_dict(params, sep="/"))
+    os.replace(tmp, path)
+    return params
+
+
+def cn_unet_tree(unet_tree) -> dict:
+    """A JAX UNet tree without the adapter's weights: the tree of the same
+    UNet under ``cn_text_only``."""
+
+    if not isinstance(unet_tree, dict):
+        return unet_tree
+    return {k: cn_unet_tree(v) for k, v in unet_tree.items() if k not in ("to_k_ip", "to_v_ip")}
+
+
+def stale_reference(stored, params, trees, script: str) -> None:
+    """Fail as "stale reference" unless ``stored`` (an npz a script wrote)
+    has the digest of the JAX sources and the fingerprints of ``params``'
+    ``trees`` that this run has."""
+
+    fp = param_fingerprints(params, trees)
+    if (str(stored["jax_source_sha256"]) != jax_source_digest() or list(stored["fp_names"]) != list(fp["fp_names"])
+            or not np.allclose(stored["fp_values"], fp["fp_values"], rtol=1e-9, atol=0)):
+        pytest.fail(f"stale reference: rerun {script}")
+
+
 @functools.lru_cache(maxsize=1)
 def port_tiny() -> PipelineModules:
     """The port's tiny PipelineModules on the CPU with the JAX tiny weights."""
@@ -180,6 +238,15 @@ def jax_train_loss(mods, params, inputs):
         return jnp.mean(jnp.square(pred - inputs["noise"]))
 
     return loss_fn, adapter
+
+
+def within(got, want, what):
+    """Within 1e-3 absolute and 1e-3 of max|want|: the waveform is
+    tanh-bounded and small with the random 0.02-std weights, the mel is not."""
+
+    assert got.shape == want.shape and np.all(np.isfinite(got)) and np.abs(want).max() > 0, what
+    err = np.abs(got - want).max()
+    assert err <= 1e-3 and err <= 1e-3 * np.abs(want).max(), (what, err, np.abs(want).max())
 
 
 def close(got, want, atol: float = ATOL, rtol: float = 0.0) -> None:
