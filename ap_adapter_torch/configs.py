@@ -284,6 +284,12 @@ class UNetConfig:
     # quantize_unet_int8_). Inference only: the int8 kernels have no
     # backward, so the trainer refuses this.
     use_int8: bool = False
+    # recompute each resnet and attention group in the backward pass
+    # (torch.utils.checkpoint, the JAX package's nn.remat over the same
+    # units): activation memory shrinks, and the forward kernels of every
+    # group from the first adapter site on launch again. No effect where no
+    # gradient is recorded (serving, validation).
+    remat: bool = False
 
     @property
     def time_embed_dim(self) -> int:

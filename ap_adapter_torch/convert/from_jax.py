@@ -244,21 +244,62 @@ def vocoder_state_dict(tree: Tree, config) -> StateDict:
 # ---------------------------------------------------------------------------
 
 
+def _vit_block(sd: StateDict, prefix: str, b: Tree) -> None:
+    _norm(sd, f"{prefix}.norm1", b["norm1"])
+    _linear(sd, f"{prefix}.attn.qkv", b["attn"]["qkv"])
+    _linear(sd, f"{prefix}.attn.proj", b["attn"]["proj"])
+    _norm(sd, f"{prefix}.norm2", b["norm2"])
+    _linear(sd, f"{prefix}.mlp.fc1", b["fc1"])
+    _linear(sd, f"{prefix}.mlp.fc2", b["fc2"])
+
+
+def _audiomae_encoder(sd: StateDict, prefix: str, p: Tree, depth: int) -> None:
+    """An AudioMAE encoder tree (also the classifier's shared part; ``norm``
+    where the tree has one) -> ``patch_embed.proj``, ``cls_token``,
+    ``blocks.{i}``, ``norm`` under ``prefix``."""
+
+    sd[f"{prefix}cls_token"] = _a(p["cls_token"])
+    _conv2d(sd, f"{prefix}patch_embed.proj", p["patch_embed"])
+    if "norm" in p:
+        _norm(sd, f"{prefix}norm", p["norm"])
+    for i in range(depth):
+        _vit_block(sd, f"{prefix}blocks.{i}", p[f"block_{i}"])
+
+
 def audiomae_condition_state_dict(tree: Tree, depth: int) -> StateDict:
     """AudioMAECondition tree ({"audiomae": encoder}) -> ``model.*`` keys."""
 
-    p = tree["audiomae"]
-    sd: StateDict = {"model.cls_token": _a(p["cls_token"])}
-    _conv2d(sd, "model.patch_embed.proj", p["patch_embed"])
-    _norm(sd, "model.norm", p["norm"])
-    for i in range(depth):
-        b, pre = p[f"block_{i}"], f"model.blocks.{i}"
-        _norm(sd, f"{pre}.norm1", b["norm1"])
-        _linear(sd, f"{pre}.attn.qkv", b["attn"]["qkv"])
-        _linear(sd, f"{pre}.attn.proj", b["attn"]["proj"])
-        _norm(sd, f"{pre}.norm2", b["norm2"])
-        _linear(sd, f"{pre}.mlp.fc1", b["fc1"])
-        _linear(sd, f"{pre}.mlp.fc2", b["fc2"])
+    sd: StateDict = {}
+    _audiomae_encoder(sd, "model.", tree["audiomae"], depth)
+    return sd
+
+
+def mae_pretrain_state_dict(tree: Tree, depth: int, decoder_depth: int) -> StateDict:
+    """MAEPretrain tree ({"audiomae": encoder, "decoder": ...}) -> the
+    reference checkpoint's flat keys (the inverse of ``torch_import.
+    audiomae_pretrain_params``)."""
+
+    sd: StateDict = {}
+    _audiomae_encoder(sd, "", tree["audiomae"], depth)
+    d = tree["decoder"]
+    _linear(sd, "decoder_embed", d["decoder_embed"])
+    sd["mask_token"] = _a(d["mask_token"])
+    _norm(sd, "decoder_norm", d["decoder_norm"])
+    _linear(sd, "decoder_pred", d["decoder_pred"])
+    for i in range(decoder_depth):
+        _vit_block(sd, f"decoder_blocks.{i}", d[f"block_{i}"])
+    return sd
+
+
+def vit_classifier_state_dict(tree: Tree, depth: int) -> StateDict:
+    """ViTClassifier tree -> ``models_vit`` keys: the encoder's, with
+    ``fc_norm`` (global pooling) or ``norm``, and ``head``."""
+
+    sd: StateDict = {}
+    _audiomae_encoder(sd, "", tree, depth)
+    if "fc_norm" in tree:
+        _norm(sd, "fc_norm", tree["fc_norm"])
+    _linear(sd, "head", tree["head"])
     return sd
 
 

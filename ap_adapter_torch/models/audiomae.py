@@ -1,9 +1,11 @@
-"""AudioMAE ViT-B/16 encoder and the pooled AudioMAE conditioner (inference).
+"""AudioMAE ViT-B/16 encoder and the pooled AudioMAE conditioner.
 
-Counterpart of ``ap_adapter_tpu/models/audiomae.py`` (``AudioMAEEncoder``,
+Counterpart of ``ap_adapter_tpu/models/audiomae.py`` (``AudioMAEEncoder``
+with its masked-pretraining and contextual-average paths,
 ``AudioMAECondition``). Parameter names follow the timm/MAE checkpoint
 (``patch_embed.proj``, ``blocks.{i}.attn.qkv``, ``blocks.{i}.mlp.fc1`` ...);
-the conditioner holds the encoder as ``model``.
+the conditioner holds the encoder as ``model``. The pretraining decoder and
+the finetuning classifier are in ``models/mae_pretrain.py``.
 """
 
 from __future__ import annotations
@@ -65,7 +67,8 @@ class PatchEmbed(nn.Module):
 
 class AudioMAEEncoder(nn.Module):
     """fbank [B, T, F] -> tokens [B, 1 + T/16*F/16, D]: patchify, + fixed
-    sin-cos positions, CLS, all blocks, final LayerNorm."""
+    sin-cos positions, CLS, all blocks, final LayerNorm (the reference's
+    ``forward_encoder_no_random_mask_no_average``)."""
 
     def __init__(self, config: AudioMAEConfig = AudioMAEConfig()):
         super().__init__()
@@ -76,19 +79,53 @@ class AudioMAEEncoder(nn.Module):
                                      for _ in range(c.depth)])
         self.norm = nn.LayerNorm(c.embed_dim, eps=c.layer_norm_eps)
 
-    def forward(self, fbank: torch.Tensor) -> torch.Tensor:
+    def patch_tokens(self, fbank: torch.Tensor) -> tuple:
+        """(patch tokens + their positions [B, N, D], the CLS row [B, 1, D])
+        in the compute dtype; tokens row-major over (time, freq)."""
+
         c = self.config
-        dtype = self.norm.weight.dtype
+        dtype = self.patch_embed.proj.weight.dtype
         x = self.patch_embed.proj(fbank[:, None].to(dtype))   # [B, D, T', F']
-        x = x.flatten(2).transpose(1, 2)                        # row-major (time, freq) tokens
+        x = x.flatten(2).transpose(1, 2)
         t, f = c.grid_size
         pos = torch.from_numpy(audiomae_pos_embed(c.embed_dim, (f, t)).copy()).to(x.device)
-        x = x + pos[None, 1:].to(dtype)
         cls = (self.cls_token + pos[None, :1]).to(dtype).expand(x.shape[0], -1, -1)
+        return x + pos[None, 1:].to(dtype), cls
+
+    def forward(self, fbank: torch.Tensor) -> torch.Tensor:
+        x, cls = self.patch_tokens(fbank)
         x = torch.cat([cls, x], dim=1)
         for blk in self.blocks:
             x = blk(x)
         return self.norm(x)
+
+    def masked(self, fbank: torch.Tensor, ids_keep: torch.Tensor) -> torch.Tensor:
+        """The masked-pretraining encode (the reference's ``forward_encoder``):
+        only the ``ids_keep`` [B, len_keep] tokens (a plan of
+        ``mae_pretrain.random_masking``) go through, behind CLS; final norm.
+        Returns [B, 1 + len_keep, D]."""
+
+        x, cls = self.patch_tokens(fbank)
+        x = torch.gather(x, 1, ids_keep[..., None].expand(-1, -1, x.shape[-1]))
+        x = torch.cat([cls, x], dim=1)
+        for blk in self.blocks:
+            x = blk(x)
+        return self.norm(x)
+
+    def contextual(self, fbank: torch.Tensor) -> torch.Tensor:
+        """The contextual-average path (the reference's
+        ``forward_encoder_no_mask``): the mean of the normed activations after
+        every block whose index exceeds ``contextual_depth``."""
+
+        x, cls = self.patch_tokens(fbank)
+        x = torch.cat([cls, x], dim=1)
+        acc, count = torch.zeros_like(x), 0
+        for i, blk in enumerate(self.blocks):
+            x = blk(x)
+            if i > self.config.contextual_depth:
+                acc = acc + self.norm(x)
+                count += 1
+        return acc / max(count, 1)
 
 
 class AudioMAECondition(nn.Module):

@@ -24,6 +24,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ap_adapter_torch.configs import UNetConfig
 from ap_adapter_torch.models.layers import get_timestep_embedding
@@ -211,16 +212,30 @@ class AudioLDM2UNet(nn.Module):
         def trow(name):
             return temb_rows.get(name) if temb_rows is not None else None
 
+        # under remat each resnet and attention group is one checkpointed
+        # segment (the JAX nn.remat units); the non-reentrant form keeps the
+        # gradients of the adapter weights inside a segment whose tensor
+        # inputs need none (the first adapter site's group)
+        remat = c.remat and torch.is_grad_enabled()
+
+        def segment(fn, *args):
+            if remat:
+                return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+            return fn(*args)
+
+        def resnet(res, x, name):
+            return segment(res, x, temb, trow(name))
+
         def group(blk, li, name, x):
             kv = ctx_kv.get(name) if ctx_kv is not None else None
-            return attention_group(blk.group(li, n), c.cross_attention_dims, x, ehs0, ehs1,
-                                   bias1, ip_scale, kv)
+            return segment(attention_group, blk.group(li, n), c.cross_attention_dims, x, ehs0, ehs1,
+                           bias1, ip_scale, kv)
 
         x = self.conv_in(sample.permute(0, 3, 1, 2).to(dtype))
         skips = [x]
         for bi, blk in enumerate(self.down_blocks):
             for li, res in enumerate(blk.resnets):
-                x = res(x, temb, trow(f"down_{bi}_resnet_{li}"))
+                x = resnet(res, x, f"down_{bi}_resnet_{li}")
                 if len(blk.attentions):
                     x = group(blk, li, f"down_{bi}_attn_{li}", x)
                 skips.append(x)
@@ -229,14 +244,14 @@ class AudioLDM2UNet(nn.Module):
                 skips.append(x)
 
         mid = self.mid_block
-        x = mid.resnets[0](x, temb, trow("mid_resnet_0"))
+        x = resnet(mid.resnets[0], x, "mid_resnet_0")
         x = group(mid, 0, "mid_attn_0", x)
-        x = mid.resnets[1](x, temb, trow("mid_resnet_1"))
+        x = resnet(mid.resnets[1], x, "mid_resnet_1")
 
         for bi, blk in enumerate(self.up_blocks):
             for li, res in enumerate(blk.resnets):
                 x = torch.cat([x, skips.pop()], dim=1)
-                x = res(x, temb, trow(f"up_{bi}_resnet_{li}"))
+                x = resnet(res, x, f"up_{bi}_resnet_{li}")
                 if len(blk.attentions):
                     x = group(blk, li, f"up_{bi}_attn_{li}", x)
             if hasattr(blk, "upsamplers"):

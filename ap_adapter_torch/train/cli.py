@@ -2,7 +2,7 @@
 
     python -m ap_adapter_torch.train.cli \\
         --train-manifest $DATA_DIR/manifest.json \\
-        --random-weights --no-validation \\
+        --random-weights \\
         --output-dir $OUTPUT_DIR \\
         --train-batch-size 8 --gradient-accumulation-steps 4 \\
         --learning-rate 1e-4 --max-train-steps 35000
@@ -12,10 +12,14 @@
 vae, vocoder); ``--random-weights`` draws random weights from ``--seed``
 instead. Resume from a flat adapter checkpoint with
 ``--resume-from-checkpoint``; without it the adapter starts as each site's
-copy of its frozen to_k/to_v. Runs on the card (``--device``, default
-``cuda``). Not ported yet, and refused: ``--remat``, ``--use-8bit-adam``,
-validation sampling (pass ``--no-validation``) and the tensorboard/wandb
-backends.
+copy of its frozen to_k/to_v. ``--remat`` recomputes each resnet and
+attention group in the backward pass; ``--use-8bit-adam`` keeps AdamW's
+first moment in bf16; every ``--validation-steps`` optimizer steps
+``--num-validation-audio-files`` clips are generated under
+``<output-dir>/validation/`` (``--no-validation`` turns that off);
+``--report-to tensorboard`` (``<output-dir>/tb``) or ``wandb`` adds a
+metrics backend beside ``metrics.jsonl``, skipped where its package does not
+import. Runs on the card (``--device``, default ``cuda``).
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--adam-beta2", type=float, default=0.999)
     p.add_argument("--adam-weight-decay", type=float, default=1e-2)
     p.add_argument("--adam-epsilon", type=float, default=1e-8)
-    p.add_argument("--use-8bit-adam", action="store_true", help="not ported: refused")
+    p.add_argument("--use-8bit-adam", action="store_true", help="AdamW with a bf16 first moment")
     p.add_argument("--max-grad-norm", type=float, default=1.0)
     p.add_argument("--max-train-steps", type=int, default=35_000)
     p.add_argument("--checkpointing-steps", type=int, default=3000)
@@ -53,9 +57,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--snr-gamma", type=float, default=None)
     p.add_argument("--resume-from-checkpoint", default=None, help="flat adapter dict (.npz)")
     p.add_argument("--random-weights", action="store_true", help="random base weights from --seed")
-    p.add_argument("--remat", action="store_true", help="not ported: refused")
-    p.add_argument("--num-validation-audio-files", type=int, default=3)
-    p.add_argument("--report-to", default="jsonl", choices=["jsonl", "tensorboard", "wandb"])
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each resnet and attention group in the backward pass")
+    p.add_argument("--num-validation-audio-files", type=int, default=3,
+                   help="validation wavs generated per round (one batched generate)")
+    p.add_argument("--report-to", default="jsonl", choices=["jsonl", "tensorboard", "wandb"],
+                   help="extra metrics backend (JSONL is always written)")
     p.add_argument("--no-validation", action="store_true", help="disable validation sampling")
     p.add_argument("--device", default="cuda")
     return p
@@ -66,11 +73,8 @@ def main(argv=None):
     final ``TrainState`` and the modules."""
 
     args = build_parser().parse_args(argv)
-    for flag, on in (("--remat", args.remat), ("--use-8bit-adam", args.use_8bit_adam),
-                     ("validation sampling (pass --no-validation)", not args.no_validation),
-                     (f"--report-to {args.report_to}", args.report_to != "jsonl")):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported to ap_adapter_torch yet")
+
+    import dataclasses
 
     import numpy as np
 
@@ -82,7 +86,9 @@ def main(argv=None):
     from ap_adapter_torch.train.trainer import TrainConfig
     from ap_adapter_torch.utils.checkpoint import load_flat_adapter
 
-    modules = PipelineModules(PipelineConfig())
+    config = PipelineConfig()
+    config = config.replace(unet=dataclasses.replace(config.unet, remat=args.remat))
+    modules = PipelineModules(config)
     if args.checkpoint_dir:
         sds = {}
         for name in PipelineModules.NAMES:
@@ -104,16 +110,27 @@ def main(argv=None):
     tc = TrainConfig(
         learning_rate=lr, lr_scheduler=args.lr_scheduler, lr_warmup_steps=args.lr_warmup_steps,
         adam_beta1=args.adam_beta1, adam_beta2=args.adam_beta2, adam_weight_decay=args.adam_weight_decay,
-        adam_epsilon=args.adam_epsilon, max_grad_norm=args.max_grad_norm,
+        adam_epsilon=args.adam_epsilon, use_8bit_adam=args.use_8bit_adam, max_grad_norm=args.max_grad_norm,
         gradient_accumulation_steps=args.gradient_accumulation_steps, max_train_steps=args.max_train_steps,
-        checkpointing_steps=args.checkpointing_steps, seed=args.seed, snr_gamma=args.snr_gamma)
+        checkpointing_steps=args.checkpointing_steps, validation_steps=args.validation_steps, seed=args.seed,
+        snr_gamma=args.snr_gamma)
 
     dataset = AudioSetDataset(args.train_manifest, args.data_root, duration_s=args.duration, seed=args.seed)
     collate = DeviceCollate(modules, duration_s=args.duration, seed=args.seed)
     batches = data_loader(dataset, args.train_batch_size, collate, seed=args.seed)
     if args.dataloader_prefetch > 0:
         batches = prefetch(batches, depth=args.dataloader_prefetch)
-    return train(modules, batches, tc, args.output_dir), modules
+    validation_fn = None
+    if not args.no_validation:
+        from ap_adapter_torch.train.validation import make_validation_fn
+
+        # a dataset of its own: its caption draws leave the training stream's as they are
+        val_dataset = AudioSetDataset(args.train_manifest, args.data_root, duration_s=args.duration,
+                                      seed=args.seed)
+        validation_fn = make_validation_fn(modules, val_dataset, args.output_dir, audio_length_in_s=args.duration,
+                                           seed=args.seed, num_files=args.num_validation_audio_files)
+    return train(modules, batches, tc, args.output_dir, validation_fn=validation_fn,
+                 report_to=args.report_to), modules
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Training data: the AudioSet manifest dataset and the on-device collate.
 
-Counterpart of ``ap_adapter_tpu/train/data.py``. The host decodes (scipy)
-and resamples wavs; the device computes the VAE mel, the AudioMAE fbank,
+Counterpart of ``ap_adapter_tpu/train/data.py``. The host decodes wavs (a
+batch in one call of the C++ thread pool, ``audio/io.py::load_wav_batch``)
+and resamples them; the device computes the VAE mel, the AudioMAE fbank,
 the frozen text encoders and the pooled AudioMAE tokens, with the
 reference's CFG dropout and random pooling rate.
 """
@@ -18,7 +19,7 @@ import torch
 
 from ap_adapter_torch.audio.dsp import resample
 from ap_adapter_torch.audio.fbank import audiomae_fbank
-from ap_adapter_torch.audio.io import load_wav
+from ap_adapter_torch.audio.io import load_wav, load_wav_batch
 from ap_adapter_torch.audio.mel import wav_to_vae_mel
 from ap_adapter_torch.pipeline.tokenize import make_text_batch
 
@@ -65,11 +66,28 @@ class AudioSetDataset:
     def __getitem__(self, idx: int) -> Tuple[str, np.ndarray]:
         item = self.items[idx]
         wav, sr = load_wav(os.path.join(self.data_root, item["wav"]))
-        if sr != self.sample_rate:
-            wav = resample(torch.from_numpy(wav), sr, self.sample_rate).numpy()
+        return self._caption(item), self._fit(wav, sr)
+
+    def get_batch(self, idxs: Sequence[int]) -> list:
+        """``[self[i] for i in idxs]`` with the wavs decoded in one call of the
+        C++ thread pool, each capped at ``duration_s`` x 48 kHz frames (enough
+        material for the clip from any rate up to 48 kHz), then resampled and
+        padded or cut one by one."""
+
+        items = [self.items[i] for i in idxs]
+        wavs, frames, srs = load_wav_batch([os.path.join(self.data_root, it["wav"]) for it in items],
+                                           int(self.duration_s * 48_000))
+        return [(self._caption(item), self._fit(wavs[i, : frames[i]], int(srs[i])))
+                for i, item in enumerate(items)]
+
+    def _fit(self, wav: np.ndarray, sr: int) -> np.ndarray:
+        """Resample to ``sample_rate`` and pad or cut to ``duration_s``."""
+
+        if sr != self.sample_rate and sr > 0:
+            wav = resample(torch.from_numpy(np.ascontiguousarray(wav)), sr, self.sample_rate).numpy()
         target = int(self.duration_s * self.sample_rate)
         wav = np.pad(wav, (0, target - wav.shape[-1])) if wav.shape[-1] < target else wav[:target]
-        return self._caption(item), wav.astype(np.float32)
+        return wav.astype(np.float32)
 
     def _caption(self, item) -> str:
         labels = item.get("labels") or item.get("caption") or ""
@@ -125,39 +143,55 @@ class DeviceCollate:
 
 
 def data_loader(dataset: AudioSetDataset, batch_size: int, collate: DeviceCollate, seed: int = 0):
-    """Endless shuffled epochs of collated batches (incomplete last batches dropped)."""
+    """Endless shuffled epochs of collated batches (incomplete last batches
+    dropped), each batch decoded by ``dataset.get_batch``."""
 
     order_rng = random.Random(seed)
     while True:
         idxs = list(range(len(dataset)))
         order_rng.shuffle(idxs)
         for i in range(0, len(idxs) - batch_size + 1, batch_size):
-            yield collate([dataset[j] for j in idxs[i: i + batch_size]])
+            yield collate(dataset.get_batch(idxs[i: i + batch_size]))
 
 
 def prefetch(batches, depth: int = 2):
     """Runs the loader in a background thread with a bounded queue, so host
-    decoding overlaps the train step; errors reach the consumer."""
+    decoding overlaps the train step; errors reach the consumer. Closing the
+    returned generator (or dropping it) stops the thread after the batch in
+    hand, so the batches it holds, and the modules that the loader's collate
+    holds, are released."""
 
     import queue
     import threading
 
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     done = object()
+    stop = threading.Event()
 
     def run():
         try:
             for b in batches:
+                if stop.is_set():
+                    return
                 q.put(b)
             q.put(done)
         except BaseException as e:  # propagate into the consumer
             q.put(e)
 
-    threading.Thread(target=run, daemon=True, name="ap-data-prefetch").start()
-    while True:
-        item = q.get()
-        if item is done:
-            return
-        if isinstance(item, BaseException):
-            raise item
-        yield item
+    thread = threading.Thread(target=run, daemon=True, name="ap-data-prefetch")
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        while thread.is_alive():     # unblock its put; it stops before the next batch
+            try:
+                q.get(timeout=0.05)
+            except queue.Empty:
+                pass

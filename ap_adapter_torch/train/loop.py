@@ -1,5 +1,6 @@
 """Training loop: optimizer steps, rotating checkpoints, resume, the flat
-adapter export and JSONL metrics.
+adapter export, validation rounds, and metrics (JSONL, and tensorboard or
+wandb where asked for).
 
 Counterpart of ``ap_adapter_tpu/train/loop.py`` on one device. ``step``
 counts optimizer steps (the reference's global_step); each takes
@@ -11,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
@@ -37,13 +38,18 @@ def step_generator(tc: TrainConfig, step: int, device) -> torch.Generator:
 
 
 def train(modules, batches: Iterable, tc: TrainConfig, output_dir: str, max_steps: Optional[int] = None,
-          log_every: int = 50) -> TrainState:
+          log_every: int = 50, validation_fn: Optional[Callable[[int], object]] = None,
+          report_to: str = "jsonl") -> TrainState:
     """Finetune the adapter of ``modules`` on ``batches`` (collated batches on
     the modules' device). Writes ``checkpoints/step_*.pt`` (rotating) and
     the flat adapter ``pytorch_model.npz`` every ``checkpointing_steps`` and
-    at the last step, and ``metrics.jsonl``. A run restarted in the same
-    ``output_dir`` restores the newest checkpoint (adapter, optimizer, step)
-    and continues; the data order restarts, as the reference's does."""
+    at the last step, and ``metrics.jsonl`` (with ``report_to``
+    "tensorboard" also ``tb/``, with "wandb" a wandb run, each where its
+    package imports). ``validation_fn(step)`` runs after every optimizer
+    step that ``validation_steps`` divides (``train/validation.py``). A run
+    restarted in the same ``output_dir`` restores the newest checkpoint
+    (adapter, optimizer, step) and continues; the data order restarts, as
+    the reference's does."""
 
     os.makedirs(output_dir, exist_ok=True)
     max_steps = max_steps or tc.max_train_steps
@@ -61,7 +67,10 @@ def train(modules, batches: Iterable, tc: TrainConfig, output_dir: str, max_step
 
     dev = modules.device
     cuda = dev.type == "cuda"
-    logger = MetricsLogger(os.path.join(output_dir, "metrics.jsonl"))
+    logger = MetricsLogger(os.path.join(output_dir, "metrics.jsonl"),
+                           tensorboard_dir=os.path.join(output_dir, "tb") if report_to == "tensorboard" else None,
+                           wandb_project="ap_adapter_torch" if report_to == "wandb" else None,
+                           wandb_config={"max_steps": max_steps, **dataclasses.asdict(tc)})
     history = []
     it = iter(batches)
     start = step
@@ -84,5 +93,13 @@ def train(modules, batches: Iterable, tc: TrainConfig, output_dir: str, max_step
             ckpt.save(step, {"step": step, "adapter": {k: p.detach().cpu() for k, p in adapter.items()},
                              "optimizer": optimizer.state_dict()})
             save_flat_adapter(os.path.join(output_dir, "pytorch_model.npz"), export_flat_adapter(modules.unet))
+        if validation_fn is not None and step % tc.validation_steps == 0:
+            if cuda:
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            validation_fn(step)
+            if cuda:
+                torch.cuda.synchronize(dev)
+            m["validation_seconds"] = time.perf_counter() - t0
     logger.close()
     return TrainState(step, adapter, optimizer, history)

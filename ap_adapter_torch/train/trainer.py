@@ -9,7 +9,8 @@ a clip of the global gradient norm at 1.0.
 Every UNet weight is frozen (``requires_grad`` False, the compute dtype)
 except the ``to_k_ip``/``to_v_ip`` matrices, which are fp32 like the Flax
 params and are cast to the compute dtype where the kernels use them; their
-AdamW moments are fp32 too. The backward runs through the fused ops'
+AdamW moments are fp32 too, or with ``use_8bit_adam`` a bf16 first moment
+(``BF16MomentAdamW``, the JAX package's ``mu_dtype=bfloat16``). The backward runs through the fused ops'
 autograd Functions, whose backwards are the K7/K8/K9 kernels on the card.
 """
 
@@ -19,6 +20,7 @@ import dataclasses
 import math
 from typing import Callable, Dict, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ap_adapter_torch.adapter.params import adapter_parameters
@@ -40,9 +42,13 @@ class TrainConfig:
     adam_weight_decay: float = 1e-2
     adam_epsilon: float = 1e-8
     max_grad_norm: float = 1.0
+    # the reference's bitsandbytes --use_8bit_adam: here, as in the JAX
+    # package, AdamW with its first moment stored in bf16 (BF16MomentAdamW)
+    use_8bit_adam: bool = False
     gradient_accumulation_steps: int = 4
     max_train_steps: int = 35_000
     checkpointing_steps: int = 3000
+    validation_steps: int = 3000
     seed: int = 42
     snr_gamma: Optional[float] = None  # min-SNR weighting (off by default)
 
@@ -85,11 +91,74 @@ def split_unet_params(unet) -> Dict[str, torch.nn.Parameter]:
     return adapter
 
 
-def make_optimizer(tc: TrainConfig, params) -> torch.optim.AdamW:
-    """AdamW over the adapter; ``optimizer_step`` sets the lr of each step."""
+class BF16MomentAdamW(torch.optim.Optimizer):
+    """AdamW whose first moment is stored in bf16 and second in fp32, in the
+    order of optax's ``scale_by_adam(mu_dtype=bfloat16)`` under ``jax.jit``:
+    the new moment is ``(1 - b1) g + bf16(b1) mu`` in fp32 from the stored
+    bf16 moment and the fp32 gradient, its bias-corrected fp32 value makes
+    this step's update, and only then is it rounded to bf16 for the state.
+    The weight decay is decoupled, as in ``torch.optim.AdamW``. State per
+    parameter: ``step``, ``exp_avg`` (bf16), ``exp_avg_sq`` (fp32)."""
 
-    return torch.optim.AdamW(list(params), lr=tc.learning_rate, betas=(tc.adam_beta1, tc.adam_beta2),
-                             eps=tc.adam_epsilon, weight_decay=tc.adam_weight_decay)
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 1e-2):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("BF16MomentAdamW takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            lr, (b1, b2), eps, wd = group["lr"], group["betas"], group["eps"], group["weight_decay"]
+            states = []
+            for p in params:
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.tensor(0.0)
+                    st["exp_avg"] = torch.zeros_like(p, dtype=torch.bfloat16)
+                    st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+                st["step"] += 1
+                states.append(st)
+            grads = [p.grad.float() for p in params]
+            # optax decays the bf16 moment by b1 in the moment's dtype: bf16(0.9) = 0.8984375
+            b1_bf16 = torch.tensor(b1, dtype=torch.bfloat16).item()
+            mu = torch._foreach_mul(grads, float(np.float32(1.0 - b1)))
+            torch._foreach_add_(mu, [st["exp_avg"] for st in states], alpha=b1_bf16)
+            nu = [st["exp_avg_sq"] for st in states]
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+            # optax's bias corrections, 1 - b**count, in fp32, per parameter
+            counts = [np.float32(st["step"].item()) for st in states]
+            bc1, bc2 = ([float(np.float32(1) - np.float32(b) ** n) for n in counts] for b in (b1, b2))
+            denom = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, eps)
+            update = torch._foreach_div(mu, bc1)
+            torch._foreach_div_(update, denom)
+            torch._foreach_mul_(params, 1.0 - lr * wd)
+            torch._foreach_add_(params, update, alpha=-lr)
+            torch._foreach_copy_([st["exp_avg"] for st in states], mu)
+        return None
+
+    def load_state_dict(self, state_dict) -> None:
+        # torch casts every restored state tensor but ``step`` to its
+        # parameter's dtype; the first moment goes back to bf16 (exactly)
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            if "exp_avg" in st:
+                st["exp_avg"] = st["exp_avg"].to(torch.bfloat16)
+
+
+def make_optimizer(tc: TrainConfig, params) -> torch.optim.Optimizer:
+    """AdamW over the adapter (``BF16MomentAdamW`` under ``use_8bit_adam``);
+    ``optimizer_step`` sets the lr of each step."""
+
+    cls = BF16MomentAdamW if tc.use_8bit_adam else torch.optim.AdamW
+    return cls(list(params), lr=tc.learning_rate, betas=(tc.adam_beta1, tc.adam_beta2), eps=tc.adam_epsilon,
+               weight_decay=tc.adam_weight_decay)
 
 
 def sample_noise(modules, batch: Mapping[str, torch.Tensor], generator: torch.Generator) -> Dict:

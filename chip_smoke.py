@@ -117,12 +117,32 @@ prints its seconds:
    under ``cn_text_only`` with hoisting off: a generate with hoisting on
    must refuse; one request with exact counts (9600 K1, 6400 K3, 3200 K4,
    no K2), then the same seed with a different audio prompt, whose waveform
-   must be bit-equal.
+   must be bit-equal;
+20. training slice II: the training CLI on phase 8's data and seed with
+   ``--remat --use-8bit-adam --report-to tensorboard --validation-steps 2
+   --num-validation-audio-files 2``, 3 steps: launch counts exactly the
+   forward, the remat recompute (every attention group from the one holding
+   the first adapter site on, derived from the config) and the backward per
+   micro-step, plus one validation round (one 50-step edit request's
+   launches); step 1's loss and gradient norm within 1e-3 relative of phase
+   8's; every first moment bf16; the validation files, each generated wav
+   [160000], finite and not constant; a ``tb/`` events file where
+   tensorboard imports; each step's seconds and peak memory beside phase
+   8's, and the validation round's seconds;
+21. batched wav loader: a fresh build of ``native/wavio.cpp`` into
+   ``build/``, then ``load_wav_batch`` over the 16 wavs bit-equal, file by
+   file, to ``load_wav``; files/s of both;
+22. MAE pretraining: ``MAEPretrain`` at ``AudioMAEConfig()`` (ViT-B/16, a
+   512-wide 8-block decoder, 1024 x 128 fbanks of the training wavs, 512
+   patches, mask 0.8), random weights (seed 0): one forward in bf16 on the
+   card against fp32 on the CPU (loss within 1e-2 relative), then 3
+   ``make_mae_pretrain_step`` steps at batch 8 in fp32 on the card (finite
+   losses, every weight moved), with seconds and peak memory a step.
 
-Phases 6, 8, 10, 12, 15-19 also count one self-attention launch per
+Phases 6, 8, 10, 12, 15-20 also count one self-attention launch per
 request and per training micro-step (the VAE mid block at 4000 and 4096
 positions). Phases run in the order 1-4, 9, 11, 14, 5, 6, 10, 12, 15, 18,
-19, 16, 17, 13, 7, 8. Two lines before the last is a JSON object with one entry per
+19, 16, 17, 13, 7, 8, 20-22. Two lines before the last is a JSON object with one entry per
 kernel (``launches``: the count over its path's run, the edit requests for
 K1-K3 and the self-attention, the int8 requests for K11a-c, the training
 steps for K4 and K7-K9, the resnet-kernel requests for K12 and K13, the
@@ -792,7 +812,11 @@ def expected_train_launches(unet_config) -> dict:
     """Kernel calls per training micro-step (one UNet forward and backward,
     no hoisting): the forward routes cross sites to K4 instead of K2; the
     backward reaches every sub-layer from the first adapter site on (the
-    frozen layers before it get no gradient), and runs K7, K8 or K9 there."""
+    frozen layers before it get no gradient), and runs K7, K8 or K9 there.
+    Under ``remat`` the backward first runs the forward again of every
+    checkpointed segment whose output needs a gradient: whole attention
+    groups, from the one holding the first adapter site on (the resnets run
+    no kernel)."""
 
     c = unet_config
     groups = (sum(c.down_block_has_attn) * c.layers_per_block + 1
@@ -809,6 +833,12 @@ def expected_train_launches(unet_config) -> dict:
     bwd = {"fused_ln_self_attention_bwd_dx": reached.count("self"),
            "fused_ln_cross_attention_bwd": len(reached) - reached.count("self") - reached.count("ff"),
            "fused_ln_geglu_ff_bwd_dx": reached.count("ff")}
+    if c.remat:
+        again = order[order.index("adapter") // len(group) * len(group):]
+        fwd = {"fused_ln_self_attention": fwd["fused_ln_self_attention"] + again.count("self"),
+               "fused_ln_cross_attention": fwd["fused_ln_cross_attention"] + len(again) - again.count("self")
+               - again.count("ff"),
+               "fused_ln_geglu_ff": fwd["fused_ln_geglu_ff"] + again.count("ff")}
     return {**fwd, **bwd}
 
 
@@ -1511,6 +1541,193 @@ def train_slice_phase(device, steps: int = 3, accum: int = 2) -> dict:
     return {"launches": moved, "per_micro_step": per_micro, "steps": history}
 
 
+def train_slice_ii_phase(device, first: dict, steps: int = 3, accum: int = 2) -> dict:
+    """The training CLI again on phase 8's data and seed, with ``--remat
+    --use-8bit-adam --report-to tensorboard`` and one validation round of 2
+    clips after step 2: exact launch counts (forward, recompute and backward
+    per micro-step, plus one request's worth for the round), step 1 equal
+    to phase 8's, bf16 first moments, the validation wavs, the tensorboard
+    events where tensorboard imports."""
+
+    import dataclasses
+    import glob
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ap_adapter_torch.audio.io import load_wav
+    from ap_adapter_torch.configs import PipelineConfig
+    from ap_adapter_torch.ops import cuda_kernels
+    from ap_adapter_torch.train import cli
+
+    work_dir = os.path.join(ROOT, "build", "train_smoke_ii")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    manifest = write_wavs(os.path.join(work_dir, "data"))
+    out = os.path.join(work_dir, "out")
+    config = PipelineConfig()
+    per_micro = {**expected_train_launches(dataclasses.replace(config.unet, remat=True)), "self_attention": 1}
+    validation = expected_request_launches(config.unet, 50)
+    want = {k: 0 for k in cuda_kernels.LAUNCHES}
+    for k, v in per_micro.items():
+        want[k] += v * steps * accum
+    for k, v in validation.items():
+        want[k] += v
+
+    cuda_kernels.reset_launch_counts()
+    state, trained = cli.main(["--train-manifest", manifest, "--random-weights", "--remat", "--use-8bit-adam",
+                               "--report-to", "tensorboard", "--validation-steps", "2",
+                               "--num-validation-audio-files", "2", "--train-batch-size", str(TRAIN_B),
+                               "--gradient-accumulation-steps", str(accum), "--max-train-steps", str(steps),
+                               "--output-dir", out])
+    torch.cuda.synchronize()
+    moved = dict(cuda_kernels.LAUNCHES)
+    for m, m8 in zip(state.history, first["steps"]):
+        log(f"train II step {m['step']}: {m['seconds']:.3f} s (phase 8: {m8['seconds']:.3f}), "
+            f"max_memory_allocated={m.get('max_memory_allocated', 0) / 2**30:.3f} GiB "
+            f"(phase 8: {m8.get('max_memory_allocated', 0) / 2**30:.3f}), loss {m['loss']:.6g} "
+            f"(phase 8: {m8['loss']:.6g}), grad_norm {m['grad_norm']:.6g} (phase 8: {m8['grad_norm']:.6g})"
+            + (f", validation round {m['validation_seconds']:.3f} s" if "validation_seconds" in m else ""))
+    log(f"training II launches over {steps} steps x {accum} micro-steps and one validation round: {moved} "
+        f"(per micro-step {per_micro}; the round {validation})")
+    if state.step != steps or not all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in state.history):
+        raise RuntimeError(f"training II: {state.history}")
+    if moved != want:
+        raise RuntimeError(f"training II launch counts {moved} != expected {want}")
+    rel = {k: abs(state.history[0][k] - first["steps"][0][k]) / abs(first["steps"][0][k])
+           for k in ("loss", "grad_norm")}
+    log(f"training II step 1 against phase 8's: relative differences {rel} (limit 1e-3)")
+    if max(rel.values()) > 1e-3:
+        raise RuntimeError(f"training II step 1 differs from phase 8's: {rel}")
+    moments = {str(v["exp_avg"].dtype) for v in state.optimizer.state.values()}
+    if moments != {"torch.bfloat16"} or len(state.optimizer.state) != len(state.adapter):
+        raise RuntimeError(f"first moments not all bf16: {moments}")
+    val_dir = os.path.join(out, "validation")
+    generated = sorted(glob.glob(os.path.join(val_dir, "step2_pool*.wav")))
+    originals = sorted(glob.glob(os.path.join(val_dir, "step2_original*.wav")))
+    if len(generated) != 2 or len(originals) != 2 or not os.path.exists(os.path.join(val_dir, "step2_caption.txt")):
+        raise RuntimeError(f"validation files: {sorted(os.listdir(val_dir))}")
+    for path in generated:
+        check_waveform(os.path.basename(path), load_wav(path)[0][None], 160_000)
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+        events = glob.glob(os.path.join(out, "tb", "events.out.tfevents.*"))
+        if not events:
+            raise RuntimeError("tensorboard imports, but no events file under tb/")
+        log(f"tensorboard: {[os.path.basename(e) for e in events]}")
+    except ImportError as e:
+        events = None
+        log(f"tensorboard does not import here ({e}); the JSONL metrics only")
+    history = state.history
+    del trained, state
+    torch.cuda.empty_cache()
+    return {"launches": moved, "per_micro_step": per_micro, "validation_round": validation, "steps": history,
+            "step1_rel_diff": rel, "validation_files": [os.path.basename(p) for p in generated + originals],
+            "tensorboard_events": None if events is None else len(events), "data": os.path.join(work_dir, "data")}
+
+
+def wav_batch_phase(data_dir: str, reps: int = 5) -> dict:
+    """The batched wav decoder over the 16 training wavs: a fresh build of
+    the C++ library, then every row bit-equal to ``load_wav``'s waveform;
+    files/s of ``load_wav_batch`` at the loader's capacity (10 s x 48 kHz)
+    beside ``load_wav`` one file at a time."""
+
+    import glob
+
+    import numpy as np
+
+    from ap_adapter_torch.audio import io
+
+    io.wavio_library_path().unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    io.build_wavio()
+    build_s = time.perf_counter() - t0
+    paths = sorted(glob.glob(os.path.join(data_dir, "clip_*.wav")))
+    cap = 10 * 48_000
+    times, scipy_times = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        wavs, frames, srs = io.load_wav_batch(paths, cap)
+        times.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ref = [io.load_wav(p) for p in paths]
+        scipy_times.append(time.perf_counter() - t0)
+    for i, (wav, sr) in enumerate(ref):
+        m = min(wav.shape[0], cap)
+        if frames[i] != m or srs[i] != sr or not np.array_equal(wavs[i, :m], wav[:m]) or wavs[i, m:].any():
+            raise RuntimeError(f"load_wav_batch differs from load_wav at {paths[i]}")
+    rate, scipy_rate = len(paths) / statistics.median(times), len(paths) / statistics.median(scipy_times)
+    log(f"batched wav loader: build {build_s:.2f} s (g++ -O3), {len(paths)} files bit-equal to load_wav; "
+        f"{rate:.1f} files/s (median of {reps}) against load_wav's {scipy_rate:.1f}")
+    return {"build_seconds": build_s, "files": len(paths), "files_per_s": rate, "load_wav_files_per_s": scipy_rate}
+
+
+def mae_phase(device, data_dir: str, steps: int = 3, batch: int = 8) -> dict:
+    """AudioMAE pretraining at ``AudioMAEConfig()`` (ViT-B/16 encoder, 512
+    wide 8-block decoder, 1024 x 128 fbank, 512 patches, mask 0.8), random
+    weights (seed 0): one forward in bf16 on the card against fp32 on the
+    CPU (loss within 1e-2 relative), then ``steps`` pretraining steps at
+    ``batch`` in fp32 on the card (finite losses, weights moved)."""
+
+    import copy
+    import glob
+
+    import numpy as np
+    import torch
+
+    from ap_adapter_torch.audio.fbank import audiomae_fbank
+    from ap_adapter_torch.audio.io import load_wav
+    from ap_adapter_torch.configs import AudioMAEConfig, FbankConfig
+    from ap_adapter_torch.models.mae_pretrain import (MAEPretrain, make_mae_pretrain_step, random_masking,
+                                                      reconstruction_loss)
+
+    cfg = AudioMAEConfig()
+    paths = sorted(glob.glob(os.path.join(data_dir, "clip_*.wav")))[:batch]
+    fbank = audiomae_fbank(torch.as_tensor(np.stack([load_wav(p)[0] for p in paths])), FbankConfig())
+    torch.manual_seed(0)
+    model = MAEPretrain(cfg)
+    ids_keep, mask, ids_restore = random_masking(torch.Generator().manual_seed(3), 2, cfg.num_patches,
+                                                 cfg.mask_ratio)
+
+    def loss_of(m, dev):
+        args = [a.to(dev) for a in (fbank[:2], ids_keep, ids_restore)]
+        with torch.no_grad():
+            pred = m(*args)
+        return reconstruction_loss(args[0], pred, mask.to(dev), cfg.patch_size).item(), pred
+
+    want, _ = loss_of(model, "cpu")
+    got, pred = loss_of(copy.deepcopy(model).to(device, torch.bfloat16), device)
+    rel = abs(got - want) / abs(want)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"MAE pretrain: {n_params / 1e6:.1f}M parameters, {ids_keep.shape[1]} of {cfg.num_patches} patches kept; "
+        f"loss {got:.6g} (card, bf16) vs {want:.6g} (cpu, fp32), rel {rel:.4g} (limit 1e-2); pred {tuple(pred.shape)}")
+    if not (np.isfinite(got) and rel <= 1e-2):
+        raise RuntimeError("MAE forward check failed")
+
+    model = model.to(device)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    step = make_mae_pretrain_step(model, torch.optim.AdamW(model.parameters(), lr=1e-4))
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = fbank.to(device)
+    runs = []
+    for i in range(steps):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(x, gen).item()
+        torch.cuda.synchronize()
+        runs.append({"loss": loss, "seconds": time.perf_counter() - t0,
+                     "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        log(f"MAE pretrain step {i + 1} (batch {x.shape[0]}, fp32): {runs[-1]['seconds']:.3f} s, "
+            f"max_memory_allocated={runs[-1]['max_memory_allocated'] / 2**30:.3f} GiB, loss {loss:.6g}")
+    unmoved = [k for k, v in model.state_dict().items() if torch.equal(v, before[k])]
+    if not all(np.isfinite(r["loss"]) for r in runs) or unmoved:
+        raise RuntimeError(f"MAE pretraining: losses {[r['loss'] for r in runs]}, unmoved {unmoved}")
+    del model, before
+    torch.cuda.empty_cache()
+    return {"forward_rel_err": rel, "loss_card": got, "loss_cpu": want, "steps": runs}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "ap_adapter_torch")):
         print("chip_smoke: no ap_adapter_torch/ beside this script; run it from a checkout", file=sys.stderr)
@@ -1578,6 +1795,9 @@ def main() -> int:
     del pipe
     torch.cuda.empty_cache()
     training = phase("training slice", train_slice_phase, device)
+    training_ii = phase("training slice II", train_slice_ii_phase, device, training)
+    wav_batch = phase("batched wav loader", wav_batch_phase, training_ii["data"])
+    mae = phase("MAE pretraining", mae_phase, device, training_ii["data"])
 
     total = {k: sum(r["launches"][k] for r in runs) for k in EDIT_KERNELS + ("self_attention",)}
     total.update({k: training["launches"][k] for k in TRAIN_KERNELS})
@@ -1610,7 +1830,10 @@ def main() -> int:
                         for r in cn["requests"]],
         "cn_bit_equal": cn["bit_equal_under_a_changed_audio_prompt"], "generate_ranked": ranked, "eval": evaluation,
         "training_launches": {k: training["launches"][k] for k in KERNELS},
-        "training_steps": training["steps"], "training_reference": train_ref, "phase_seconds": phases}
+        "training_steps": training["steps"], "training_reference": train_ref,
+        "training_ii": {k: training_ii[k] for k in ("launches", "per_micro_step", "validation_round", "steps",
+                                                     "step1_rel_diff", "validation_files", "tensorboard_events")},
+        "wav_batch": wav_batch, "mae_pretrain": mae, "phase_seconds": phases}
     if min(total.values()) <= 0 or set(cuda_kernels.LAUNCHES) != set(KERNELS):
         raise RuntimeError(f"a kernel of the path was not launched: {total}")
     print(json.dumps(report), flush=True)

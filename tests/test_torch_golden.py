@@ -11,8 +11,7 @@ on the CPU in fp32. Every check passes two bounds: the JAX test's own
 max-abs error within 1e-4 of max|want| (1e-3 for gradients), which bounds
 the port also where a fixture's values are below the atol.
 
-Not here: ``audiomae.npz``'s ``want_ctx`` (AudioMAE's contextual path is not
-ported; ROADMAP.md, Queue 1 item 9), ``mae_pretrain.npz`` (the same item),
+Not here: ``mae_pretrain.npz`` (held in ``test_torch_mae_pretrain.py``),
 ``tiny_e2e.npz`` (the JAX package's own regression, with the JAX vocoder's
 slope), and ``vocoder.npz`` and ``vggish.npz`` (held in
 ``test_torch_models.py`` and ``test_torch_eval.py``).
@@ -230,14 +229,16 @@ def test_golden_projection():
 
 @torch.no_grad()
 def test_golden_audiomae_encoder_and_pooling():
-    """The reference's models_mae.py encoder (final-norm path) and the
-    AudioMAE.py (avg + max) / 2 pooling at three pool sizes."""
+    """The reference's models_mae.py encoder (final-norm path and the
+    contextual average) and the AudioMAE.py (avg + max) / 2 pooling at three
+    pool sizes."""
 
     tree, d = load("audiomae")
     cfg = configs.AudioMAEConfig(**d["config"])
     cond = build(AudioMAECondition(cfg), from_jax.audiomae_condition_state_dict(tree, cfg.depth))
     fbank = t(d["fbank"])
     check(cond.model(fbank), d["want_tokens"], ENCODER_TOL, what="tokens")
+    check(cond.model.contextual(fbank), d["want_ctx"], ENCODER_TOL, what="ctx")
     for tp, fp in ((1, 1), (2, 2), (4, 2)):
         check(cond(fbank, tp, fp), d[f"want_pool_{tp}x{fp}"], ENCODER_TOL, what=f"pool {tp}x{fp}")
 
