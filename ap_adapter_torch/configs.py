@@ -290,6 +290,13 @@ class UNetConfig:
     # group from the first adapter site on launch again. No effect where no
     # gradient is recorded (serving, validation).
     remat: bool = False
+    # the JAX package's GSPMD-partitionable core, which its TP serving
+    # forces. Here it routes every transformer site outside the kernels:
+    # LN, plain projections, ops/attention.py's sdpa (never K5/K6, K10) and
+    # the GEGLU, with the out projection's bias added after the sum over
+    # the tensor-parallel ranks (parallel/tp.py). It comes before use_int8
+    # and use_pallas_attention.
+    force_xla_core: bool = False
 
     @property
     def time_embed_dim(self) -> int:

@@ -30,6 +30,7 @@ import torch.nn as nn
 from ap_adapter_torch.configs import AudioMAEConfig
 from ap_adapter_torch.models.audiomae import AudioMAEEncoder, ViTBlock
 from ap_adapter_torch.models.layers import audiomae_pos_embed
+from ap_adapter_torch.parallel.mesh import all_reduce_mean_
 
 # -- masking plans ---------------------------------------------------------------
 
@@ -188,35 +189,49 @@ def reconstruction_loss(fbank: torch.Tensor, pred: torch.Tensor, mask: torch.Ten
 
 
 def mae_pretrain_loss(model: MAEPretrain, fbank: torch.Tensor, generator: torch.Generator, *,
-                      mask_2d: bool = False, norm_pix_loss: bool = False) -> torch.Tensor:
+                      mask_2d: bool = False, norm_pix_loss: bool = False,
+                      rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """One pretraining loss: a masking plan drawn from ``generator`` (1-D at
     ``mask_ratio``, or 2-D at ``mask_t_prob``/``mask_f_prob``, the
-    reference's defaults), encode and decode, and the reconstruction loss."""
+    reference's defaults), encode and decode, and the reconstruction loss.
+    ``rows`` (first row, global batch): ``fbank`` holds those rows of a
+    global batch, whose plan is drawn whole and sliced."""
 
     c = model.config
     t, f = c.grid_size
     dev = fbank.device
+    b = fbank.shape[0]
+    first, total = (0, b) if rows is None else rows
     if mask_2d:
-        ids_keep, mask, ids_restore = random_masking_2d(generator, fbank.shape[0], (t, f), c.mask_t_prob,
-                                                        c.mask_f_prob, device=dev)
+        plan = random_masking_2d(generator, total, (t, f), c.mask_t_prob, c.mask_f_prob, device=dev)
     else:
-        ids_keep, mask, ids_restore = random_masking(generator, fbank.shape[0], t * f, c.mask_ratio, device=dev)
+        plan = random_masking(generator, total, t * f, c.mask_ratio, device=dev)
+    ids_keep, mask, ids_restore = (x[first: first + b] for x in plan)
     pred = model(fbank, ids_keep, ids_restore)
     return reconstruction_loss(fbank, pred, mask, c.patch_size, norm_pix_loss)
 
 
 def make_mae_pretrain_step(model: MAEPretrain, optimizer: torch.optim.Optimizer, mask_2d: bool = False,
-                           norm_pix_loss: bool = False):
-    """The single-device pretraining step: ``step(fbank, generator) -> loss``
-    (a detached fp32 scalar) takes the gradient of :func:`mae_pretrain_loss`
-    and one ``optimizer`` step over ``model``."""
+                           norm_pix_loss: bool = False, mesh=None):
+    """The pretraining step: ``step(fbank, generator) -> loss`` (a detached
+    fp32 scalar) takes the gradient of :func:`mae_pretrain_loss` and one
+    ``optimizer`` step over ``model``. With ``mesh`` (``parallel/mesh.py``;
+    JAX mae_pretrain.py:247-290) ``fbank`` is this rank's rows of the global
+    batch: the masking plan is drawn for the global batch and sliced, and
+    every gradient and the loss are averaged over the ``data`` axis before
+    the step. Every row masks the same number of tokens, so the mean of the
+    ranks' losses is the global batch's loss."""
 
     def step(fbank: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
-        loss = mae_pretrain_loss(model, fbank, generator, mask_2d=mask_2d, norm_pix_loss=norm_pix_loss)
+        rows = None if mesh is None else mesh.rows(fbank.shape[0])
+        loss = mae_pretrain_loss(model, fbank, generator, mask_2d=mask_2d, norm_pix_loss=norm_pix_loss, rows=rows)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            all_reduce_mean_(mesh, [p.grad for p in model.parameters() if p.grad is not None] + [loss])
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return step
 

@@ -86,7 +86,7 @@ class AudioLDM2UNet(nn.Module):
                 channels, c.num_attention_heads, c.transformer_layers_per_block, dim,
                 use_adapter=dim is not None and dim == c.adapter_cross_attention_dim and not c.cn_text_only,
                 num_ip_tokens=c.adapter_num_tokens, groups=groups, use_int8=c.use_int8,
-                use_dual_kv=c.use_pallas_attention)
+                use_dual_kv=c.use_pallas_attention, force_xla=c.force_xla_core)
                 for dim in c.cross_attention_dims]
 
         self.conv_in = nn.Conv2d(c.in_channels, ch[0], c.conv_in_kernel,

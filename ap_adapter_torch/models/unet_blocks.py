@@ -31,6 +31,16 @@ sites, a site without audio tokens (text-only conditioning) and every site
 under ``use_int8`` (whose int8 route also comes first in JAX) keep their
 routes.
 
+With ``UNetConfig.force_xla_core`` every transformer site takes the JAX
+package's route outside any kernel (unet_blocks.py:519-580, 636-645), which
+its TP serving forces: ``h = LN(x)``, the projections as plain products,
+``ops/attention.py::sdpa`` (self-attention too, never K5/K6) or
+``dual_kv_attention`` (never K10), the out projection without its bias;
+the feed-forward's GEGLU likewise. It comes before every other route.
+Under tensor parallelism (``parallel/tp.py``) each site holds its own heads
+and feed-forward columns, and one ``all_reduce`` over ``tp_group`` sums the
+partial outputs before the bias and the residual are added, once.
+
 The resnets route to K12 (``use_pallas_groupnorm``) or K13
 (``use_pallas_resnet``), as ``ResnetBlock2D`` describes.
 """
@@ -40,6 +50,7 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -57,6 +68,17 @@ from ap_adapter_torch.ops.resnet import fused_resnet_block_vjp
 # (k, v, k_ip, v_ip) for one cross-attention site; k_ip/v_ip are None where
 # the site has no adapter tokens
 KV = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
+
+
+def _bias_residual(x: torch.Tensor, partial: torch.Tensor, bias: torch.Tensor, tp_group) -> torch.Tensor:
+    """``x + (sum of the ranks' partial out projections) + bias``: the
+    partials summed in fp32 by one ``all_reduce`` over ``tp_group`` (none
+    without one), then the bias and the residual, once."""
+
+    y = partial.float()
+    if tp_group is not None:
+        dist.all_reduce(y, group=tp_group)
+    return x + (y + bias.float()).to(x.dtype)
 
 
 class ResnetBlock2D(nn.Module):
@@ -199,12 +221,15 @@ class CrossAttention(nn.Module):
     With the adapter, the context splits at ``num_ip_tokens``: the first
     tokens (GPT-2) give the text K/V, the rest (AudioMAE) the adapter K/V, and
     the outputs combine as text + ip_scale * audio with the audio branch
-    unmasked. ``use_dual_kv`` sends a site with audio tokens to K10, as the
-    module docstring describes."""
+    unmasked. ``use_dual_kv`` sends a site with audio tokens to K10, and
+    ``force_xla`` every site to the route outside the kernels, as the module
+    docstring describes; ``heads`` is the site's local head count under
+    tensor parallelism, whose partial outputs ``tp_group`` sums."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None, use_adapter: bool = False,
-                 num_ip_tokens: int = 8, use_int8: bool = False, use_dual_kv: bool = False):
+                 num_ip_tokens: int = 8, use_int8: bool = False, use_dual_kv: bool = False,
+                 force_xla: bool = False):
         super().__init__()
         inner = heads * dim_head
         kv_dim = cross_attention_dim or query_dim
@@ -213,6 +238,8 @@ class CrossAttention(nn.Module):
         self.num_ip_tokens = num_ip_tokens
         self.use_int8 = use_int8
         self.use_dual_kv = use_dual_kv
+        self.force_xla = force_xla
+        self.tp_group = None
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(kv_dim, inner, bias=False)
         self.to_v = nn.Linear(kv_dim, inner, bias=False)
@@ -259,26 +286,45 @@ class CrossAttention(nn.Module):
         out = fused_dual_kv_attention(q.reshape(b, s, self.heads, d), k, v, ki, vi, ip_scale, bias=bias)
         return x + F.linear(out.reshape(b, s, c), self.to_out[0].weight, self.to_out[0].bias)
 
-    def _forward_bare(self, x, context, bias, ip_scale) -> torch.Tensor:
-        """The JAX route without ``pre_ln`` (unet_blocks.py:521-582), which
-        the JAX package computes outside any kernel: q/k/v projections,
-        ``sdpa`` with the additive mask (``self_attention`` without a
-        context), both K/V sets through ``dual_kv_attention`` where the
-        adapter is live and the context is longer than ``num_ip_tokens``,
-        the out projection; no residual. ``bias``: [B, Sk], or a mask that
-        broadcasts to [B, heads, Sq, Sk]."""
+    def _attend(self, x, context, bias, ip_scale, kv, self_attn) -> torch.Tensor:
+        """The JAX route's attention outside any kernel (unet_blocks.py:
+        521-580): q/k/v projections of ``x`` (K/V of the context, or the
+        hoisted ``kv``), ``self_attn`` without a context, ``sdpa`` with the
+        additive mask, both K/V sets through ``dual_kv_attention`` where
+        the adapter's are there; [B, S, heads * d] before the out
+        projection. The head width is the weights' inner width over
+        ``heads``. ``bias``: [B, Sk], or a mask that broadcasts to [B,
+        heads, Sq, Sk]."""
 
         b, s, _ = x.shape
         inner = self.to_q.weight.shape[0]
         split = lambda t: t.reshape(b, -1, self.heads, inner // self.heads)
         q = split(F.linear(x, self.to_q.weight))
         if not self.is_cross:
-            out = self_attention(q, split(F.linear(x, self.to_k.weight)), split(F.linear(x, self.to_v.weight)))
+            out = self_attn(q, split(F.linear(x, self.to_k.weight)), split(F.linear(x, self.to_v.weight)))
         else:
-            k, v, ki, vi = (None if t is None else split(t) for t in self.project_kv(context))
+            k, v, ki, vi = (None if t is None else split(t) for t in (kv if kv is not None else
+                                                                      self.project_kv(context)))
             mask = bias[:, None, None, :] if bias is not None and bias.dim() == 2 else bias
             out = sdpa(q, k, v, mask) if ki is None else dual_kv_attention(q, k, v, ki, vi, ip_scale, mask)
-        return F.linear(out.reshape(b, s, inner), self.to_out[0].weight, self.to_out[0].bias)
+        return out.reshape(b, s, inner)
+
+    def _forward_bare(self, x, context, bias, ip_scale) -> torch.Tensor:
+        """The JAX route without ``pre_ln`` (unet_blocks.py:521-582):
+        ``_attend`` (``self_attention`` without a context) and the out
+        projection with its bias; no residual."""
+
+        return F.linear(self._attend(x, context, bias, ip_scale, None, self_attention),
+                        self.to_out[0].weight, self.to_out[0].bias)
+
+    def _forward_xla(self, x, norm, context, bias, ip_scale, kv) -> torch.Tensor:
+        """The JAX ``force_xla`` route with ``pre_ln``: LN, ``_attend`` with
+        ``sdpa`` everywhere, the out projection without its bias, then the
+        ranks' sum, the bias and the residual."""
+
+        h = layer_norm_f32(x, norm.weight, norm.bias, norm.eps)
+        partial = F.linear(self._attend(h, context, bias, ip_scale, kv, sdpa), self.to_out[0].weight)
+        return _bias_residual(x, partial, self.to_out[0].bias, self.tp_group)
 
     def forward(self, x: torch.Tensor, norm: Optional[nn.LayerNorm],
                 context: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
@@ -286,6 +332,8 @@ class CrossAttention(nn.Module):
         out = self.to_out[0]
         if norm is None:
             return self._forward_bare(x, context, bias, ip_scale)
+        if self.force_xla:
+            return self._forward_xla(x, norm, context, bias, ip_scale, kv)
         if self.use_int8:      # the UNet refuses hoisted K/V under use_int8
             return self._forward_int8(x, norm, context, bias, ip_scale)
         if not self.is_cross:
@@ -317,18 +365,27 @@ class GEGLU(nn.Module):
 
 class FeedForward(nn.Module):
     """GEGLU feed-forward (diffusers keys ``ff.net.0.proj`` and ``ff.net.2``),
-    called with its preceding LayerNorm (``x + ff(LN(x))``)."""
+    called with its preceding LayerNorm (``x + ff(LN(x))``). ``force_xla``
+    takes the JAX route outside the kernels (unet_blocks.py:636-645); under
+    tensor parallelism the site holds its own columns of both GEGLU halves
+    and ``tp_group`` sums the partial outputs."""
 
-    def __init__(self, dim: int, mult: int = 4, use_int8: bool = False):
+    def __init__(self, dim: int, mult: int = 4, use_int8: bool = False, force_xla: bool = False):
         super().__init__()
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(), nn.Linear(dim * mult, dim)])
         self.use_int8 = use_int8
+        self.force_xla = force_xla
+        self.tp_group = None
 
     def quantize_int8_(self) -> None:
         _register_quantized(self, w1=self.net[0].proj, w2=self.net[2])
 
     def forward(self, x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
         proj, out = self.net[0].proj, self.net[2]
+        if self.force_xla:
+            y, gate = F.linear(layer_norm_f32(x, norm.weight, norm.bias, norm.eps), proj.weight,
+                               proj.bias).chunk(2, dim=-1)
+            return _bias_residual(x, F.linear(y * F.gelu(gate), out.weight), out.bias, self.tp_group)
         if self.use_int8:
             w1q, s1, w2q, s2 = _int8_buffers(self, ("w1_int8", "w1_scale", "w2_int8", "w2_scale"))
             return fused_ln_geglu_ff_int8(x, norm.weight, norm.bias, w1q, s1, proj.bias, w2q, s2, out.bias,
@@ -342,15 +399,16 @@ class BasicTransformerBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None, use_adapter: bool = False,
-                 num_ip_tokens: int = 8, use_int8: bool = False, use_dual_kv: bool = False):
+                 num_ip_tokens: int = 8, use_int8: bool = False, use_dual_kv: bool = False,
+                 force_xla: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim)
-        self.attn1 = CrossAttention(dim, heads, dim_head, use_int8=use_int8)
+        self.attn1 = CrossAttention(dim, heads, dim_head, use_int8=use_int8, force_xla=force_xla)
         self.norm2 = nn.LayerNorm(dim)
         self.attn2 = CrossAttention(dim, heads, dim_head, cross_attention_dim,
-                                    use_adapter, num_ip_tokens, use_int8, use_dual_kv)
+                                    use_adapter, num_ip_tokens, use_int8, use_dual_kv, force_xla)
         self.norm3 = nn.LayerNorm(dim)
-        self.ff = FeedForward(dim, use_int8=use_int8)
+        self.ff = FeedForward(dim, use_int8=use_int8, force_xla=force_xla)
 
     def forward(self, x, context=None, bias=None, ip_scale: float = 0.0,
                 kv: Optional[KV] = None) -> torch.Tensor:
@@ -369,14 +427,14 @@ class Transformer2DModel(nn.Module):
     def __init__(self, channels: int, heads: int, num_layers: int,
                  cross_attention_dim: Optional[int] = None, use_adapter: bool = False,
                  num_ip_tokens: int = 8, groups: int = 32, use_int8: bool = False,
-                 use_dual_kv: bool = False):
+                 use_dual_kv: bool = False, force_xla: bool = False):
         super().__init__()
         dim_head = channels // heads
         self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
         self.proj_in = nn.Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(channels, heads, dim_head, cross_attention_dim,
-                                  use_adapter, num_ip_tokens, use_int8, use_dual_kv)
+                                  use_adapter, num_ip_tokens, use_int8, use_dual_kv, force_xla)
             for _ in range(num_layers)])
         self.proj_out = nn.Conv2d(channels, channels, 1)
 

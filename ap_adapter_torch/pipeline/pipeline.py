@@ -32,6 +32,7 @@ from ap_adapter_torch.models.t5 import T5Encoder
 from ap_adapter_torch.models.unet import AudioLDM2UNet, prepare_resnet_kernel_weights_, quantize_unet_int8_
 from ap_adapter_torch.models.vae import AutoencoderKL
 from ap_adapter_torch.models.vocoder import HiFiGAN
+from ap_adapter_torch.parallel.tp import tp_shard_unet_
 
 _ONES = ("scale", "sos_embed", "eos_embed", "sos_embed_1", "eos_embed_1")
 
@@ -176,16 +177,21 @@ class PipelineModules(Submodels):
         latent_time: int,
         init_latents: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        rows: Optional[Tuple[int, int]] = None,
     ) -> torch.Tensor:
         """Text + audio (fbank [B, T, F], or None for text only) -> waveforms
-        [B, latent_time * vae_scale * vocoder_upsample], fp32."""
+        [B, latent_time * vae_scale * vocoder_upsample], fp32. ``rows``
+        (first row, global batch): the B rows are those rows of a global
+        batch, whose initial latents are drawn whole and sliced, so a data
+        rank's clips are the single process's clips of those rows."""
 
         c = self.config
         b = text_pos.clap_ids.shape[0]
         latent_freq = c.vocoder.model_in_dim // c.vae.scale_factor
         if init_latents is None:
-            latents = torch.randn(b, latent_time, latent_freq, c.unet.in_channels,
-                                  generator=generator, device=self.device, dtype=torch.float32)
+            first, total = (0, b) if rows is None else rows
+            latents = torch.randn(total, latent_time, latent_freq, c.unet.in_channels,
+                                  generator=generator, device=self.device, dtype=torch.float32)[first: first + b]
         else:
             latents = torch.as_tensor(init_latents, dtype=torch.float32, device=self.device)
         return self.denoise_to_waveform(latents, fbank, text_pos, text_neg,
@@ -247,9 +253,27 @@ class AudioLDM2Pipeline:
     """User-facing pipeline: owns the modules on one device. With
     ``config.unet.use_int8`` it quantizes the UNet's int8 serving weights
     once, here (JAX pipeline.py:374-380); with ``use_pallas_resnet`` it
-    prepares K13's HWIO conv weights once."""
+    prepares K13's HWIO conv weights once.
 
-    def __init__(self, config: PipelineConfig, modules: PipelineModules):
+    ``mesh`` (``parallel/mesh.py``): data-parallel serving over its ``data``
+    axis, each rank generating its own rows of a global batch (JAX
+    pipeline.py:545-552); no collective. ``tensor_parallel``: the UNet's
+    transformer stacks split by heads over the ``model`` axis, which must
+    be larger than 1 (``parallel/tp.py``), and ``force_xla_core`` on with
+    ``use_int8`` off, as JAX's pipeline.py:318-338 sets them: the modules'
+    configs are replaced and their UNet is sharded in place, so load the
+    weights and the adapter before."""
+
+    def __init__(self, config: PipelineConfig, modules: PipelineModules, mesh=None, tensor_parallel: bool = False):
+        if tensor_parallel and (mesh is None or mesh.shape["model"] <= 1):
+            raise ValueError("tensor_parallel=True needs a mesh with a 'model' axis of size > 1 (got mesh="
+                             f"{None if mesh is None else mesh.shape})")
+        self.mesh = mesh
+        if tensor_parallel:
+            config = config.replace(unet=dataclasses.replace(config.unet, force_xla_core=True, use_int8=False))
+            if modules is not None:
+                modules.config, modules.unet.config = config, config.unet
+                tp_shard_unet_(modules.unet, mesh)
         self.config = config
         self.modules = modules
         if config.unet.use_int8 and modules is not None:
@@ -304,15 +328,19 @@ class AudioLDM2Pipeline:
         """Waveforms [B, samples] trimmed to ``audio_length_in_s``, as numpy
         (``fbank`` None: text only). ``materialize=False`` returns the fp32
         tensor on the pipeline's device without waiting for it, so that host
-        work can overlap the device's (the eval runner's sweep)."""
+        work can overlap the device's (the eval runner's sweep). With a
+        mesh, the B rows are this rank's rows of the global batch (B x the
+        ``data`` axis): its latents are those rows of the global draw from
+        ``seed``."""
 
         dev = self.modules.device
         gen = torch.Generator(device=dev).manual_seed(seed)
+        b = np.shape(text_pos.clap_ids)[0]
         wav = self.modules.generate_waveform(
             fbank, text_pos, text_neg, num_inference_steps=num_inference_steps,
             guidance_scale=guidance_scale, ap_scale=ap_scale, time_pool=time_pool,
             freq_pool=freq_pool, latent_time=self.latent_time_for_seconds(audio_length_in_s),
-            generator=gen)
+            generator=gen, rows=None if self.mesh is None else self.mesh.rows(b))
         samples = int(audio_length_in_s * self.config.vocoder.sampling_rate)
         return wav[:, :samples].cpu().numpy() if materialize else wav[:, :samples]
 

@@ -16,8 +16,11 @@ under the reference's file names. Runs on the card (``--device``, default
 state dicts, as ``train/cli.py`` reads them; where it holds ``tokenizer/``
 and ``tokenizer_2/``, prompts go through those transformers tokenizers
 (``pipeline/tokenize.py::HFTokenizers``), else through the hash tokenizer.
-Not ported yet, and refused (ROADMAP.md, Queue 1 item 8):
-``--tensor-parallel`` above 1.
+``--tensor-parallel N`` serves each request on N ranks, the UNet's
+transformer stacks split by heads over them (``parallel/tp.py``); start one
+process per rank, e.g. ``torchrun --nproc-per-node N -m
+ap_adapter_torch.pipeline.tasks --tensor-parallel N ...``. Rank 0 alone
+writes the wavs.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ import torch
 from ap_adapter_torch.adapter.params import import_flat_adapter
 from ap_adapter_torch.audio.io import load_wav, save_wav
 from ap_adapter_torch.configs import PipelineConfig, TaskConfig, get_task_config, tiny_pipeline_config
+from ap_adapter_torch.parallel.distributed import maybe_initialize, process_count, process_index
+from ap_adapter_torch.parallel.mesh import create_mesh
 from ap_adapter_torch.pipeline.pipeline import AudioLDM2Pipeline, PipelineModules
 from ap_adapter_torch.pipeline.tokenize import HFTokenizers, make_text_batch
 
@@ -46,22 +51,33 @@ def load_pipeline(
     """The pipeline from a directory of ``<submodel>.npz`` state dicts, or
     with random weights from ``seed`` when none is given. The flat adapter
     (``.npz`` or the reference ``.bin``) is copied into the UNet's own
-    tensors, so it lands on the UNet's device and dtype."""
+    tensors, so it lands on the UNet's device and dtype.
 
+    ``tensor_parallel`` N > 1 joins the N ranks' process group
+    (``parallel/distributed.py::maybe_initialize``), whose world must be N,
+    and serves each request over a (1, N) mesh (JAX tasks.py:20-76); the
+    weights and the adapter are loaded whole, then sharded."""
+
+    mesh = None
     if tensor_parallel > 1:
-        raise NotImplementedError("--tensor-parallel > 1 is not ported to ap_adapter_torch yet "
-                                  "(ROADMAP.md, Queue 1 item 8)")
+        maybe_initialize(device)
+        if process_count() != tensor_parallel:
+            raise ValueError(f"--tensor-parallel {tensor_parallel} needs a world of {tensor_parallel} ranks, "
+                             f"this one has {process_count()}")
+        mesh = create_mesh(data=1, model=tensor_parallel, device=device)
+        device = mesh.device
+    modules = PipelineModules(config)
     if checkpoint_dir:
         sds = {}
         for name in PipelineModules.NAMES:
             with np.load(os.path.join(checkpoint_dir, f"{name}.npz")) as f:
                 sds[name] = {k: f[k] for k in f.files}
-        pipe = AudioLDM2Pipeline(config, PipelineModules(config).load_state_dicts(sds, device=device))
+        modules.load_state_dicts(sds, device=device)
     else:
-        pipe = AudioLDM2Pipeline.from_random(config, seed, device=device)
+        modules.init_random(seed, device=device)
     if adapter_ckpt:
-        import_flat_adapter(pipe.modules.unet, _load_flat_adapter(adapter_ckpt))
-    return pipe
+        import_flat_adapter(modules.unet, _load_flat_adapter(adapter_ckpt))
+    return AudioLDM2Pipeline(config, modules, mesh=mesh, tensor_parallel=mesh is not None)
 
 
 def _load_flat_adapter(path: str) -> Dict[str, np.ndarray]:
@@ -85,12 +101,20 @@ def _text_batches(task: TaskConfig, cfg: PipelineConfig, prompt: str, tokenizers
             make_text_batch(cfg, [neg_prompt] * task.num_files, tokenizers))
 
 
-def run_task(task: TaskConfig, pipe: AudioLDM2Pipeline, tokenizers: Optional[HFTokenizers] = None) -> List[str]:
-    """Execute one task template; returns the written wav paths (the
-    reference's file naming). ``tokenizers``: a checkpoint's, else the hash
-    tokenizer."""
+def _writer() -> bool:
+    """Whether this process writes the outputs: rank 0, or the only process."""
 
-    os.makedirs(task.output_dir, exist_ok=True)
+    return process_index() == 0
+
+
+def run_task(task: TaskConfig, pipe: AudioLDM2Pipeline, tokenizers: Optional[HFTokenizers] = None) -> List[str]:
+    """Execute one task template; returns the wav paths (the reference's
+    file naming), which rank 0 alone writes. ``tokenizers``: a
+    checkpoint's, else the hash tokenizer."""
+
+    write = _writer()
+    if write:
+        os.makedirs(task.output_dir, exist_ok=True)
     cfg = pipe.config
     fbank = None
     if task.audio_prompt_file:
@@ -105,7 +129,8 @@ def run_task(task: TaskConfig, pipe: AudioLDM2Pipeline, tokenizers: Optional[HFT
                              ap_scale=task.ap_scale, time_pool=task.time_pooling, freq_pool=task.freq_pooling)
         for j in range(task.num_files):
             path = os.path.join(task.output_dir, _output_name(task, prompt, j))
-            save_wav(path, wavs[j], cfg.vocoder.sampling_rate)
+            if write:
+                save_wav(path, wavs[j], cfg.vocoder.sampling_rate)
             written.append(path)
     return written
 
@@ -121,7 +146,9 @@ def run_sdedit_task(task: TaskConfig, pipe: AudioLDM2Pipeline,
     if not task.audio_prompt_file:
         raise ValueError("--sdedit requires --audio-prompt (the source clip whose latent seeds the "
                          "truncated schedule)")
-    os.makedirs(task.output_dir, exist_ok=True)
+    write = _writer()
+    if write:
+        os.makedirs(task.output_dir, exist_ok=True)
     cfg = pipe.config
     wav, sr = load_wav(task.audio_prompt_file)
     written = []
@@ -133,7 +160,8 @@ def run_sdedit_task(task: TaskConfig, pipe: AudioLDM2Pipeline,
             ap_scale=task.ap_scale, time_pool=task.time_pooling, freq_pool=task.freq_pooling)
         for j in range(task.num_files):
             path = os.path.join(task.output_dir, _output_name(task, prompt, j, "_sdedit"))
-            save_wav(path, wavs[j], cfg.vocoder.sampling_rate)
+            if write:
+                save_wav(path, wavs[j], cfg.vocoder.sampling_rate)
             written.append(path)
     return written
 
@@ -166,7 +194,9 @@ def main(argv=None) -> List[str]:
                         help="override the task template's prompt list with this single positive prompt")
     parser.add_argument("--time-pool", type=int, default=None, help="override the task template's time pooling")
     parser.add_argument("--freq-pool", type=int, default=None, help="override the task template's freq pooling")
-    parser.add_argument("--tensor-parallel", type=int, default=1, help="not ported: values above 1 are refused")
+    parser.add_argument("--tensor-parallel", type=int, default=1,
+                        help="serve each request on N ranks, the UNet split by heads over them (one process a "
+                        "rank; N must divide the heads and equal the world size)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 

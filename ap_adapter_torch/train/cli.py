@@ -20,6 +20,12 @@ first moment in bf16; every ``--validation-steps`` optimizer steps
 ``--report-to tensorboard`` (``<output-dir>/tb``) or ``wandb`` adds a
 metrics backend beside ``metrics.jsonl``, skipped where its package does not
 import. Runs on the card (``--device``, default ``cuda``).
+
+Data-parallel on N cards: start one process per rank, e.g. ``torchrun
+--nproc-per-node N -m ap_adapter_torch.train.cli ...`` (or the JAX
+package's ``APX_*`` variables). ``--train-batch-size`` is each rank's
+batch; each optimizer step then averages the gradients of N x that batch,
+and rank 0 alone writes under ``--output-dir``.
 """
 
 from __future__ import annotations
@@ -74,18 +80,25 @@ def main(argv=None):
 
     args = build_parser().parse_args(argv)
 
+    from ap_adapter_torch.parallel.distributed import maybe_initialize, process_count, process_index
+
+    distributed = maybe_initialize(args.device)     # join the ranks before anything is built
+
     import dataclasses
 
     import numpy as np
 
     from ap_adapter_torch.adapter.params import import_flat_adapter, init_adapter_from_text_kv
     from ap_adapter_torch.configs import PipelineConfig
+    from ap_adapter_torch.parallel.mesh import create_mesh
     from ap_adapter_torch.pipeline.pipeline import PipelineModules
     from ap_adapter_torch.train.data import AudioSetDataset, DeviceCollate, data_loader, prefetch
     from ap_adapter_torch.train.loop import train
     from ap_adapter_torch.train.trainer import TrainConfig
     from ap_adapter_torch.utils.checkpoint import load_flat_adapter
 
+    mesh = create_mesh(device=args.device) if distributed else None
+    device = mesh.device if mesh is not None else args.device
     config = PipelineConfig()
     config = config.replace(unet=dataclasses.replace(config.unet, remat=args.remat))
     modules = PipelineModules(config)
@@ -94,9 +107,9 @@ def main(argv=None):
         for name in PipelineModules.NAMES:
             with np.load(os.path.join(args.checkpoint_dir, f"{name}.npz")) as f:
                 sds[name] = {k: f[k] for k in f.files}
-        modules.load_state_dicts(sds, device=args.device)
+        modules.load_state_dicts(sds, device=device)
     elif args.random_weights:
-        modules.init_random(args.seed, device=args.device)
+        modules.init_random(args.seed, device=device)
     else:
         raise SystemExit("give --checkpoint-dir or --random-weights")
     if args.resume_from_checkpoint:
@@ -105,8 +118,8 @@ def main(argv=None):
         init_adapter_from_text_kv(modules.unet)
 
     lr = args.learning_rate
-    if args.scale_lr:  # the reference multiplies by world size (1 here) and accumulation
-        lr *= args.gradient_accumulation_steps * args.train_batch_size
+    if args.scale_lr:  # the reference multiplies by accumulation, the per-rank batch and the world size
+        lr *= args.gradient_accumulation_steps * args.train_batch_size * process_count()
     tc = TrainConfig(
         learning_rate=lr, lr_scheduler=args.lr_scheduler, lr_warmup_steps=args.lr_warmup_steps,
         adam_beta1=args.adam_beta1, adam_beta2=args.adam_beta2, adam_weight_decay=args.adam_weight_decay,
@@ -116,12 +129,13 @@ def main(argv=None):
         snr_gamma=args.snr_gamma)
 
     dataset = AudioSetDataset(args.train_manifest, args.data_root, duration_s=args.duration, seed=args.seed)
-    collate = DeviceCollate(modules, duration_s=args.duration, seed=args.seed)
-    batches = data_loader(dataset, args.train_batch_size, collate, seed=args.seed)
+    rank, world = process_index(), process_count()
+    collate = DeviceCollate(modules, duration_s=args.duration, seed=args.seed, rank=rank, world=world)
+    batches = data_loader(dataset, args.train_batch_size, collate, seed=args.seed, rank=rank, world=world)
     if args.dataloader_prefetch > 0:
         batches = prefetch(batches, depth=args.dataloader_prefetch)
     validation_fn = None
-    if not args.no_validation:
+    if not args.no_validation and rank == 0:
         from ap_adapter_torch.train.validation import make_validation_fn
 
         # a dataset of its own: its caption draws leave the training stream's as they are
@@ -130,7 +144,7 @@ def main(argv=None):
         validation_fn = make_validation_fn(modules, val_dataset, args.output_dir, audio_length_in_s=args.duration,
                                            seed=args.seed, num_files=args.num_validation_audio_files)
     return train(modules, batches, tc, args.output_dir, validation_fn=validation_fn,
-                 report_to=args.report_to), modules
+                 report_to=args.report_to, mesh=mesh), modules
 
 
 if __name__ == "__main__":

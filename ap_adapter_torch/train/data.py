@@ -5,6 +5,13 @@ batch in one call of the C++ thread pool, ``audio/io.py::load_wav_batch``)
 and resamples them; the device computes the VAE mel, the AudioMAE fbank,
 the frozen text encoders and the pooled AudioMAE tokens, with the
 reference's CFG dropout and random pooling rate.
+
+Data-parallel: rank r of ``world`` takes rows ``[r * B, (r + 1) * B)`` of
+each global batch of ``B * world`` items in the shared shuffled order, and
+the caption, dropout and pooling draws are made for the whole global batch
+and kept for the rank's rows, so the ranks together see exactly what one
+process at the global batch sees. (The JAX loader, data.py:192-204, has no
+rank: every host feeds the same batch.)
 """
 
 from __future__ import annotations
@@ -68,17 +75,19 @@ class AudioSetDataset:
         wav, sr = load_wav(os.path.join(self.data_root, item["wav"]))
         return self._caption(item), self._fit(wav, sr)
 
-    def get_batch(self, idxs: Sequence[int]) -> list:
-        """``[self[i] for i in idxs]`` with the wavs decoded in one call of the
-        C++ thread pool, each capped at ``duration_s`` x 48 kHz frames (enough
-        material for the clip from any rate up to 48 kHz), then resampled and
-        padded or cut one by one."""
+    def get_batch(self, idxs: Sequence[int], keep: slice = slice(None)) -> list:
+        """``[self[i] for i in idxs[keep]]`` with the wavs decoded in one call
+        of the C++ thread pool, each capped at ``duration_s`` x 48 kHz frames
+        (enough material for the clip from any rate up to 48 kHz), then
+        resampled and padded or cut one by one. A caption is drawn for every
+        item of ``idxs`` in order, those outside ``keep`` dropped (a data
+        rank's share of a global batch)."""
 
-        items = [self.items[i] for i in idxs]
+        captions = [self._caption(self.items[i]) for i in idxs][keep]
+        items = [self.items[i] for i in idxs][keep]
         wavs, frames, srs = load_wav_batch([os.path.join(self.data_root, it["wav"]) for it in items],
                                            int(self.duration_s * 48_000))
-        return [(self._caption(item), self._fit(wavs[i, : frames[i]], int(srs[i])))
-                for i, item in enumerate(items)]
+        return [(captions[i], self._fit(wavs[i, : frames[i]], int(srs[i]))) for i in range(len(items))]
 
     def _fit(self, wav: np.ndarray, sr: int) -> np.ndarray:
         """Resample to ``sample_rate`` and pad or cut to ``duration_s``."""
@@ -101,23 +110,27 @@ class DeviceCollate:
     batch from ``pool_choices``, and per sample 5% text dropped, 5% audio
     (fbank zeroed), 5% both; then the frozen text encoders (no CFG) and the
     pooled AudioMAE tokens, concatenated as [GPT-2 ‖ AudioMAE]. The draws
-    come from a ``random.Random`` seeded with ``seed``."""
+    come from a ``random.Random`` seeded with ``seed``; with ``world`` > 1
+    the per-sample draws are made for the global batch of ``world`` x the
+    examples and rank ``rank`` keeps its rows."""
 
     def __init__(self, modules, duration_s: float = 10.0, seed: int = 0,
-                 pool_choices: Tuple[int, ...] = POOL_CHOICES):
+                 pool_choices: Tuple[int, ...] = POOL_CHOICES, rank: int = 0, world: int = 1):
         self.modules = modules
         self.config = modules.config
         self.target_frames = int(duration_s * self.config.mel.frames_per_second)
         self.rng = random.Random(seed)
         self.pool_choices = pool_choices
+        self.rank, self.world = rank, world
 
     @torch.no_grad()
     def __call__(self, examples: Sequence[Tuple[str, np.ndarray]]) -> Dict[str, torch.Tensor]:
         texts = [t for t, _ in examples]
         pool = self.rng.choice(self.pool_choices)
         audio_drop = np.zeros(len(examples), dtype=bool)
+        draws = [self.rng.random() for _ in range(len(texts) * self.world)]
         for i in range(len(texts)):
-            r = self.rng.random()
+            r = draws[self.rank * len(texts) + i]
             if r < 0.05:
                 texts[i] = ""
             elif r < 0.10:
@@ -142,16 +155,21 @@ class DeviceCollate:
         }
 
 
-def data_loader(dataset: AudioSetDataset, batch_size: int, collate: DeviceCollate, seed: int = 0):
-    """Endless shuffled epochs of collated batches (incomplete last batches
-    dropped), each batch decoded by ``dataset.get_batch``."""
+def data_loader(dataset: AudioSetDataset, batch_size: int, collate: DeviceCollate, seed: int = 0,
+                rank: int = 0, world: int = 1):
+    """Endless shuffled epochs of collated batches (incomplete last global
+    batches dropped), each batch decoded by ``dataset.get_batch``: rank
+    ``rank``'s ``batch_size`` rows of each global batch of ``batch_size *
+    world`` items, in an order shuffled from ``seed`` alike on every rank."""
 
     order_rng = random.Random(seed)
+    step = batch_size * world
+    keep = slice(rank * batch_size, (rank + 1) * batch_size)
     while True:
         idxs = list(range(len(dataset)))
         order_rng.shuffle(idxs)
-        for i in range(0, len(idxs) - batch_size + 1, batch_size):
-            yield collate(dataset.get_batch(idxs[i: i + batch_size]))
+        for i in range(0, len(idxs) - step + 1, step):
+            yield collate(dataset.get_batch(idxs[i: i + step], keep))
 
 
 def prefetch(batches, depth: int = 2):

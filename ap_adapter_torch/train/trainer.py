@@ -12,6 +12,14 @@ params and are cast to the compute dtype where the kernels use them; their
 AdamW moments are fp32 too, or with ``use_8bit_adam`` a bf16 first moment
 (``BF16MomentAdamW``, the JAX package's ``mu_dtype=bfloat16``). The backward runs through the fused ops'
 autograd Functions, whose backwards are the K7/K8/K9 kernels on the card.
+
+Data-parallel (``train_step(..., mesh=)``, the counterpart of JAX's
+GSPMD step, trainer.py:239-371): each rank holds its rows of the global
+micro-batch, draws the loss's noise and timesteps for the global batch and
+keeps its rows, and one ``all_reduce`` over ``data`` averages the adapter
+gradients before the clip, so the clip sees the global norm; the reported
+loss is averaged too. Two ranks at B then equal one process at 2B, up to
+the order of the fp32 sums.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch
 
 from ap_adapter_torch.adapter.params import adapter_parameters
 from ap_adapter_torch.diffusion.ddim import add_noise, make_tables, velocity_target
+from ap_adapter_torch.parallel.mesh import all_reduce_mean_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,18 +170,24 @@ def make_optimizer(tc: TrainConfig, params) -> torch.optim.Optimizer:
                weight_decay=tc.adam_weight_decay)
 
 
-def sample_noise(modules, batch: Mapping[str, torch.Tensor], generator: torch.Generator) -> Dict:
+def sample_noise(modules, batch: Mapping[str, torch.Tensor], generator: torch.Generator,
+                 rows: Optional[tuple] = None) -> Dict:
     """The loss's random inputs for one micro-batch, drawn from ``generator``
     on the batch's device: the VAE posterior noise, the DDPM noise (both
-    latent-shaped, fp32) and the timesteps in [0, num_train_timesteps)."""
+    latent-shaped, fp32) and the timesteps in [0, num_train_timesteps).
+    ``rows`` (first row, global batch): the batch is those rows of a global
+    micro-batch; the draws are made for the global batch and sliced."""
 
     cfg = modules.config
     mel = batch["mel"]
+    b = mel.shape[0]
+    first, total = (0, b) if rows is None else rows
     sf = cfg.vae.scale_factor
-    shape = (mel.shape[0], mel.shape[1] // sf, mel.shape[2] // sf, cfg.vae.latent_channels)
+    shape = (total, mel.shape[1] // sf, mel.shape[2] // sf, cfg.vae.latent_channels)
     kw = dict(generator=generator, device=mel.device)
-    return {"vae_noise": torch.randn(shape, **kw), "noise": torch.randn(shape, **kw),
-            "timesteps": torch.randint(0, cfg.scheduler.num_train_timesteps, (mel.shape[0],), **kw)}
+    draws = {"vae_noise": torch.randn(shape, **kw), "noise": torch.randn(shape, **kw),
+             "timesteps": torch.randint(0, cfg.scheduler.num_train_timesteps, (total,), **kw)}
+    return {k: v[first: first + b] for k, v in draws.items()}
 
 
 def compute_loss(modules, tc: TrainConfig, batch: Mapping[str, torch.Tensor], *, vae_noise: torch.Tensor,
@@ -230,17 +245,21 @@ def optimizer_step(tc: TrainConfig, adapter: Mapping[str, torch.nn.Parameter], o
 
 def train_step(modules, tc: TrainConfig, adapter: Mapping[str, torch.nn.Parameter],
                optimizer: torch.optim.Optimizer, count: int, micro_batches: Sequence[Mapping],
-               generator: torch.Generator) -> Dict:
+               generator: torch.Generator, mesh=None) -> Dict:
     """One optimizer step over K micro-batches: the gradient is the mean of
     the K micro-batch gradients, the reported loss the mean of their losses.
     The random inputs come from ``generator`` (``compute_loss`` also takes
-    them as tensors, as the tests pass them)."""
+    them as tensors, as the tests pass them). With ``mesh``
+    (``parallel/mesh.py``) the micro-batches are this rank's rows, and the
+    gradients and the loss are averaged over its ``data`` axis, as the
+    module docstring describes."""
 
     for p in adapter.values():
         p.grad = None
     losses = []
     for mb in micro_batches:
-        loss = compute_loss(modules, tc, mb, **sample_noise(modules, mb, generator))
+        rows = {} if mesh is None else {"rows": mesh.rows(mb["mel"].shape[0])}
+        loss = compute_loss(modules, tc, mb, **sample_noise(modules, mb, generator, **rows))
         loss.backward()
         losses.append(loss.detach())
     k = len(micro_batches)
@@ -249,6 +268,9 @@ def train_step(modules, tc: TrainConfig, adapter: Mapping[str, torch.nn.Paramete
             raise RuntimeError(f"adapter weight {key} got no gradient: the backward did not reach its site")
         if k > 1:
             p.grad.div_(k)
+    loss = torch.stack(losses).mean()
+    if mesh is not None:
+        all_reduce_mean_(mesh, [p.grad for p in adapter.values()] + [loss])
     metrics = optimizer_step(tc, adapter, optimizer, count)
-    metrics["loss"] = torch.stack(losses).mean()
+    metrics["loss"] = loss
     return metrics

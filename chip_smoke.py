@@ -137,12 +137,31 @@ prints its seconds:
    patches, mask 0.8), random weights (seed 0): one forward in bf16 on the
    card against fp32 on the CPU (loss within 1e-2 relative), then 3
    ``make_mae_pretrain_step`` steps at batch 8 in fp32 on the card (finite
-   losses, every weight moved), with seconds and peak memory a step.
+   losses, every weight moved), with seconds and peak memory a step;
+23. distributed (``ap_adapter_torch/parallel/``): (a) one full-width
+   data-parallel ``train_step`` (2 micro-batches of 4) in a world of one
+   NCCL rank, bit-equal (loss, gradient norm, updated adapter) to the same
+   step without a process group; (b) two ranks sharing the one card over
+   gloo (this script, ``--dist-rank r <dir>``; ``PipelineConfig()`` in bf16,
+   random weights from the same seeds): 2 data-parallel optimizer steps
+   through ``train(..., mesh=)`` at 4 rows a rank (accumulation 2; each
+   rank's launches exactly ``expected_train_launches`` per micro-step, one
+   self-attention each; rank 0 alone writes ``metrics.jsonl``), a
+   data-parallel 10 s edit request (rank r's clip is row r of a batch of
+   2), a ``--tensor-parallel 2`` request through ``tasks.load_pipeline`` (4
+   heads a rank on the ``force_xla_core`` route: no K1-K4 or K10, one
+   self-attention) and 2 data-parallel MAE steps in fp32; then, in this
+   process, one process at the global batch: the training (loss and
+   gradient norm within 1e-2 relative), the batch-2 request (each rank's
+   clip within the log-mel limits of phase 10 of its row), one request on
+   the ``force_xla_core`` route (the TP clips within the same limits; phase
+   6's request 0 on the kernels beside it as information) and the MAE steps
+   (loss within 1e-4 relative); seconds and peak memory of every run.
 
 Phases 6, 8, 10, 12, 15-20 also count one self-attention launch per
 request and per training micro-step (the VAE mid block at 4000 and 4096
 positions). Phases run in the order 1-4, 9, 11, 14, 5, 6, 10, 12, 15, 18,
-19, 16, 17, 13, 7, 8, 20-22. Two lines before the last is a JSON object with one entry per
+19, 16, 17, 13, 7, 8, 20-23. Two lines before the last is a JSON object with one entry per
 kernel (``launches``: the count over its path's run, the edit requests for
 K1-K3 and the self-attention, the int8 requests for K11a-c, the training
 steps for K4 and K7-K9, the resnet-kernel requests for K12 and K13, the
@@ -157,6 +176,7 @@ the int8 peak), then the card's ``nvidia-smi`` line; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -221,6 +241,10 @@ ATTN_SHAPES = [(1, 4000, 1, 512), (8, 4096, 1, 512), (2, 1000, 8, 32), (2, 1000,
 DUAL_KV_LEVELS = [(1000, 32), (252, 48), (64, 80)]   # (S, d) of the UNet levels, 8 heads
 DUAL_KV_AUDIO_KEYS = (32, 128, 512)                   # pooled AudioMAE tokens at pool 4/4, 2/2, 1/1
 EDIT_LATENT = (250, 16)   # the UNet latent of a 10 s clip (H x W)
+DIST_B = 4                # phase 23: each of two ranks' training rows; one process trains on 2 x DIST_B
+DIST_ACCUM = 2            # phase 23: micro-batches an optimizer step
+DIST_STEPS = 2            # phase 23: optimizer steps of each training run and MAE steps
+DIST_TIMEOUT = 600        # phase 23: seconds the two ranks may take together
 
 
 def log(msg: str) -> None:
@@ -780,9 +804,12 @@ def expected_launches(unet_config, hoisted: bool = True) -> dict:
     """Kernel calls per UNet forward: every transformer block runs K1 at attn1,
     K1 or K2 at attn2 (double-self or cross; K4 where the K/V are not
     ``hoisted``) and K3 at its feed-forward; under use_pallas_attention the
-    adapter sites (the audio-token stream) run K10 in place of K2."""
+    adapter sites (the audio-token stream) run K10 in place of K2; under
+    force_xla_core no transformer site runs a kernel."""
 
     c = unet_config
+    if c.force_xla_core:          # every transformer site outside the kernels (tensor-parallel serving)
+        return {}
     groups = (sum(c.down_block_has_attn) * c.layers_per_block + 1
               + sum(c.up_block_has_attn) * (c.layers_per_block + 1))
     blocks = c.transformer_layers_per_block
@@ -962,7 +989,8 @@ def slice_phase(pipe, device, requests: int = 2, seeds=None, audio_seeds=None) -
 
 
 def config_name(unet_config) -> str:
-    return ("int8" if unet_config.use_int8 else "K13" if unet_config.use_pallas_resnet
+    return ("xla" if unet_config.force_xla_core else "int8" if unet_config.use_int8
+            else "K13" if unet_config.use_pallas_resnet
             else "K12" if unet_config.use_pallas_groupnorm else "K10" if unet_config.use_pallas_attention
             else "cn" if unet_config.cn_text_only else "bf16")
 
@@ -990,16 +1018,16 @@ def int8_slice_phase(modules, bf16_runs, device) -> tuple:
     for i, (r8, r16) in enumerate(zip(runs, bf16_runs)):
         log(f"request {i}: int8 {r8['seconds']:.3f} s, {r8['max_memory_allocated'] / 2**30:.3f} GiB; "
             f"bf16 {r16['seconds']:.3f} s, {r16['max_memory_allocated'] / 2**30:.3f} GiB")
-    quality = check_quality("int8", runs[0]["wav"], bf16_runs[0]["wav"], config.mel)
+    quality = check_quality("int8 request 0 vs bf16 request 0", runs[0]["wav"], bf16_runs[0]["wav"],
+                            config.mel)
     del pipe, mods
     torch.cuda.empty_cache()
     return runs, quality
 
 
-def check_quality(name, got, want, mel_config) -> dict:
-    """Request 0's waveform against the bf16 request 0's in log-mel
-    (``audio/mel.py``): cosine > LOGMEL_COS and mean abs difference <
-    LOGMEL_MAD, with the waveform's relative error."""
+def quality_figures(got, want, mel_config) -> dict:
+    """Log-mel (``audio/mel.py``) cosine and mean abs difference of two
+    waveforms, and the waveform's relative error."""
 
     import numpy as np
     import torch
@@ -1007,9 +1035,21 @@ def check_quality(name, got, want, mel_config) -> dict:
     from ap_adapter_torch.audio.mel import tacotron_mel
 
     a, b = (tacotron_mel(torch.from_numpy(w), mel_config).double().flatten() for w in (got, want))
-    q = {"logmel_cosine": (a @ b / (a.norm() * b.norm())).item(), "logmel_mean_abs_diff": (a - b).abs().mean().item(),
-         "wav_rel_err": float(np.linalg.norm(got - want) / np.linalg.norm(want))}
-    log(f"{name} quality, request 0 vs bf16 request 0: log-mel cosine {q['logmel_cosine']:.6f} (limit > "
+    return {"logmel_cosine": (a @ b / (a.norm() * b.norm())).item(),
+            "logmel_mean_abs_diff": (a - b).abs().mean().item(),
+            "wav_rel_err": float(np.linalg.norm(got - want) / np.linalg.norm(want))}
+
+
+def check_quality(name, got, want, mel_config) -> dict:
+    """The waveform ``got`` against ``want`` (a request against the bf16
+    request 0, or a rank's clip against one process's) in log-mel:
+    cosine > LOGMEL_COS and mean abs difference < LOGMEL_MAD, with the
+    waveform's relative error (``quality_figures``)."""
+
+    import numpy as np
+
+    q = quality_figures(got, want, mel_config)
+    log(f"{name} quality: log-mel cosine {q['logmel_cosine']:.6f} (limit > "
         f"{LOGMEL_COS}), mean abs diff {q['logmel_mean_abs_diff']:.6g} (limit < {LOGMEL_MAD}); waveform "
         f"relative error {q['wav_rel_err']:.6g} (max|wav| {np.abs(want).max():.4g}: random weights give a "
         f"near-silent clip)")
@@ -1040,7 +1080,8 @@ def switch_slice_phase(modules, bf16_runs, device) -> dict:
         name = config_name(config.unet)
         log(f"request 0: {name} {run['seconds']:.3f} s, {run['max_memory_allocated'] / 2**30:.3f} GiB; bf16 "
             f"{bf16_runs[0]['seconds']:.3f} s, {bf16_runs[0]['max_memory_allocated'] / 2**30:.3f} GiB")
-        out[switch] = {**run, **check_quality(name, run["wav"], bf16_runs[0]["wav"], config.mel)}
+        out[switch] = {**run, **check_quality(f"{name} request vs bf16 request 0", run["wav"], bf16_runs[0]["wav"],
+                                              config.mel)}
         del pipe, mods
         torch.cuda.empty_cache()
     return out
@@ -1064,7 +1105,8 @@ def k10_slice_phase(modules, bf16_runs, device):
     run = slice_phase(pipe, device, requests=1)[0]
     log(f"request 0: K10 {run['seconds']:.3f} s, {run['max_memory_allocated'] / 2**30:.3f} GiB; bf16 "
         f"{bf16_runs[0]['seconds']:.3f} s, {bf16_runs[0]['max_memory_allocated'] / 2**30:.3f} GiB")
-    return pipe, {**run, **check_quality("K10", run["wav"], bf16_runs[0]["wav"], config.mel)}
+    return pipe, {**run, **check_quality("K10 request vs bf16 request 0", run["wav"], bf16_runs[0]["wav"],
+                                          config.mel)}
 
 
 def check_waveform(name, wav, samples) -> None:
@@ -1728,7 +1770,337 @@ def mae_phase(device, data_dir: str, steps: int = 3, batch: int = 8) -> dict:
     return {"forward_rel_err": rel, "loss_card": got, "loss_cpu": want, "steps": runs}
 
 
+def dist_train_batches(config, accum: int, steps: int, b: int) -> list:
+    """Seeded synthetic global micro-batches at the 10 s training shapes (B =
+    ``b``, 8 + 128 adapter tokens, 64 T5 tokens with padding), on the CPU."""
+
+    import torch
+
+    g = torch.Generator().manual_seed(9)
+    mask = torch.ones(b, 64, dtype=torch.long)
+    mask[0, 12:] = 0
+    frames = int(10.0 * config.mel.frames_per_second)
+    return [{"mel": torch.randn(b, frames, config.mel.num_mel_bins, 1, generator=g) - 4.0,
+             "generated_prompt_embeds": torch.randn(b, 8 + 128, config.unet.adapter_cross_attention_dim, generator=g),
+             "prompt_embeds": torch.randn(b, 64, config.t5.d_model, generator=g), "attention_mask": mask}
+            for _ in range(accum * steps)]
+
+
+def dist_train_config():
+    from ap_adapter_torch.train.trainer import TrainConfig
+
+    return TrainConfig(gradient_accumulation_steps=DIST_ACCUM, max_train_steps=DIST_STEPS,
+                       checkpointing_steps=DIST_STEPS)
+
+
+def mae_fbanks():
+    """Seeded synthetic fbank batches [2 x DIST_B, 1024, 128], one a step, on the CPU."""
+
+    import torch
+
+    from ap_adapter_torch.configs import AudioMAEConfig
+
+    return torch.randn(DIST_STEPS, 2 * DIST_B, *AudioMAEConfig().img_size,
+                       generator=torch.Generator().manual_seed(12))
+
+
+def mae_run(device, fbanks, mesh=None) -> list:
+    """fp32 MAE pretraining steps at ``AudioMAEConfig()`` from seed 0 (AdamW,
+    lr 1e-4): each step's loss, seconds and peak memory."""
+
+    import torch
+
+    from ap_adapter_torch.configs import AudioMAEConfig
+    from ap_adapter_torch.models.mae_pretrain import MAEPretrain, make_mae_pretrain_step
+    from ap_adapter_torch.parallel.mesh import shard_batch
+
+    torch.manual_seed(0)
+    model = MAEPretrain(AudioMAEConfig()).to(device)
+    step = make_mae_pretrain_step(model, torch.optim.AdamW(model.parameters(), lr=1e-4), mesh=mesh)
+    gen = torch.Generator(device=device).manual_seed(0)
+    runs = []
+    for fb in fbanks:
+        x = fb.to(device) if mesh is None else shard_batch(mesh, fb)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(x, gen).item()
+        torch.cuda.synchronize()
+        runs.append({"loss": loss, "seconds": time.perf_counter() - t0,
+                     "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    del model
+    torch.cuda.empty_cache()
+    return runs
+
+
+def dist_worker(rank: int, dist_dir: str) -> int:
+    """One of the two ranks of phase 23, both on ``cuda:0`` over gloo (one
+    card): data-parallel training through ``train(..., mesh=)`` at B =
+    DIST_B a rank with exact launch counts, a data-parallel edit request (its
+    row of a batch of 2), a ``--tensor-parallel 2`` request through
+    ``tasks.load_pipeline`` (no transformer kernel launched), and two
+    data-parallel MAE steps; writes ``rank<r>.json`` and ``rank<r>.npz``
+    (the waveforms) under ``dist_dir``."""
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ap_adapter_torch.adapter.params import init_adapter_from_text_kv
+    from ap_adapter_torch.configs import PipelineConfig
+    from ap_adapter_torch.ops import cuda_kernels
+    from ap_adapter_torch.parallel.distributed import maybe_initialize
+    from ap_adapter_torch.parallel.mesh import create_mesh, shard_batch
+    from ap_adapter_torch.parallel.tp import count_sharded_leaves
+    from ap_adapter_torch.pipeline import tasks
+    from ap_adapter_torch.pipeline.pipeline import AudioLDM2Pipeline, PipelineModules
+    from ap_adapter_torch.train.loop import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(APX_NUM_PROCESSES="2", APX_PROCESS_ID=str(rank))
+    device = torch.device("cuda", 0)
+    if not maybe_initialize(device, backend="gloo", init_method=f"file://{os.path.join(dist_dir, 'rendezvous')}"):
+        raise RuntimeError("rank without a process group")
+    if dist.get_backend() != "gloo" or dist.get_world_size() != 2:
+        raise RuntimeError(f"process group {dist.get_backend()} x {dist.get_world_size()}, not gloo x 2")
+    mesh = create_mesh(device=device)
+    config = PipelineConfig()
+    out = {"rank": rank, "mesh": mesh.shape}
+
+    # data-parallel training: this rank's DIST_B rows of each global micro-batch
+    modules = PipelineModules(config).init_random(42, device=device)
+    init_adapter_from_text_kv(modules.unet)
+    local = [shard_batch(mesh, mb) for mb in dist_train_batches(config, DIST_ACCUM, DIST_STEPS, 2 * DIST_B)]
+    per_micro = {**expected_train_launches(config.unet), "self_attention": 1}
+    want = {k: per_micro.get(k, 0) * DIST_ACCUM * DIST_STEPS for k in cuda_kernels.LAUNCHES}
+    cuda_kernels.reset_launch_counts()
+    state = train(modules, iter(local), dist_train_config(), os.path.join(dist_dir, "train"), log_every=1, mesh=mesh)
+    torch.cuda.synchronize()
+    moved = dict(cuda_kernels.LAUNCHES)
+    if moved != want:
+        raise RuntimeError(f"rank {rank} training launches {moved} != expected {want}")
+    out["train"] = {"steps": state.history, "launches": moved, "per_micro_step": per_micro}
+    for m in state.history:
+        log(f"rank {rank} training step {m['step']}: {m['seconds']:.3f} s, max_memory_allocated="
+            f"{m['max_memory_allocated'] / 2**30:.3f} GiB, loss {m['loss']:.8g}, grad_norm {m['grad_norm']:.8g}")
+    log(f"rank {rank} training launches over {DIST_STEPS} steps x {DIST_ACCUM} micro-steps, exactly as expected: "
+        f"{ {k: n for k, n in moved.items() if n} }")
+    del modules, state, local
+    torch.cuda.empty_cache()
+
+    # data-parallel serving: rank r edits with the audio prompt of seed r, its row of a batch of 2
+    pipe = AudioLDM2Pipeline(config, PipelineModules(config).init_random(0, device=device), mesh=mesh)
+    serve_run = slice_phase(pipe, device, requests=1, seeds=(0,), audio_seeds=(rank,))[0]
+    del pipe
+    torch.cuda.empty_cache()
+
+    # tensor-parallel serving over a (1, 2) mesh through the task CLI's loader, phase 6's request 0
+    pipe = tasks.load_pipeline(config, seed=0, tensor_parallel=2, device=device)
+    sharded = count_sharded_leaves(pipe.modules.unet)
+    tp_run = slice_phase(pipe, device, requests=1)[0]
+    del pipe
+    torch.cuda.empty_cache()
+    log(f"rank {rank}: {sharded} UNet parameters split over 'model'")
+
+    out["serve"] = {k: serve_run[k] for k in ("seconds", "max_memory_allocated", "launches")}
+    out["tp"] = {**{k: tp_run[k] for k in ("seconds", "max_memory_allocated", "launches")}, "sharded": sharded}
+    out["mae"] = mae_run(device, mae_fbanks(), mesh)
+    for i, m in enumerate(out["mae"]):
+        log(f"rank {rank} MAE step {i + 1} (B={DIST_B}, fp32): {m['seconds']:.3f} s, max_memory_allocated="
+            f"{m['max_memory_allocated'] / 2**30:.3f} GiB, loss {m['loss']:.8g}")
+    np.savez(os.path.join(dist_dir, f"rank{rank}.npz"), serve=serve_run["wav"], tp=tp_run["wav"])
+    with open(os.path.join(dist_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def nccl_one_rank(device) -> dict:
+    """(a) of phase 23: one full-width data-parallel ``train_step`` (2
+    micro-batches of DIST_B) in a world of one NCCL rank against the same
+    step without a process group, from the same weights, optimizer state
+    and noise: loss, gradient norm and updated adapter weights bit-equal (a
+    one-rank all_reduce is the identity)."""
+
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from ap_adapter_torch.adapter.params import init_adapter_from_text_kv
+    from ap_adapter_torch.configs import PipelineConfig
+    from ap_adapter_torch.parallel.mesh import create_mesh
+    from ap_adapter_torch.pipeline.pipeline import PipelineModules
+    from ap_adapter_torch.train.loop import step_generator
+    from ap_adapter_torch.train.trainer import make_optimizer, split_unet_params, train_step
+
+    config = PipelineConfig()
+    tc = dist_train_config()
+    modules = PipelineModules(config).init_random(42, device=device)
+    init_adapter_from_text_kv(modules.unet)
+    adapter = split_unet_params(modules.unet)
+    start = {k: p.detach().clone() for k, p in adapter.items()}
+    micro = [{k: v.to(device) for k, v in mb.items()} for mb in dist_train_batches(config, DIST_ACCUM, 1, DIST_B)]
+
+    def step(mesh):
+        with torch.no_grad():
+            for k, p in adapter.items():
+                p.copy_(start[k])
+        m = train_step(modules, tc, adapter, make_optimizer(tc, adapter.values()), 0, micro,
+                       step_generator(tc, 1, device), mesh)
+        return m, {k: p.detach().clone() for k, p in adapter.items()}
+
+    plain, plain_w = step(None)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'rendezvous')}", world_size=1,
+                                rank=0)
+        try:
+            mesh = create_mesh(device=device)
+            backend = dist.get_backend(mesh.groups["data"])
+            ranked, ranked_w = step(mesh)
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    equal = (torch.equal(plain["loss"], ranked["loss"]) and torch.equal(plain["grad_norm"], ranked["grad_norm"])
+             and all(torch.equal(plain_w[k], ranked_w[k]) for k in plain_w))
+    log(f"NCCL one rank ({backend} group over {mesh.shape}): loss {ranked['loss'].item():.8g} vs "
+        f"{plain['loss'].item():.8g} without a process group, grad_norm {ranked['grad_norm'].item():.8g} vs "
+        f"{plain['grad_norm'].item():.8g}; {len(plain_w)} adapter matrices; bit-equal: {equal}")
+    if backend != "nccl" or not equal:
+        raise RuntimeError("the one-rank NCCL step differs from the step without a process group")
+    del modules, adapter, start, micro
+    torch.cuda.empty_cache()
+    return {"backend": backend, "loss": ranked["loss"].item(), "grad_norm": ranked["grad_norm"].item(),
+            "bit_equal": equal}
+
+
+def distributed_phase(device, bf16_runs) -> dict:
+    """Phase 23: (a) ``nccl_one_rank``; (b) two ranks on the one card over
+    gloo (``dist_worker``, this script with ``--dist-rank``), then the
+    one-process references here: the training at B = 2 x DIST_B (loss and
+    gradient norm within 1e-2 relative), the batch-2 edit request whose row
+    r each rank's clip must meet by ``check_quality``, one request on the
+    ``force_xla_core`` route (the same limits for the tensor-parallel clip;
+    against phase 6's request 0 on the kernels as information), and the MAE
+    steps at B = 2 x DIST_B (loss within 1e-4 relative)."""
+
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ap_adapter_torch.adapter.params import init_adapter_from_text_kv
+    from ap_adapter_torch.configs import PipelineConfig, get_task_config
+    from ap_adapter_torch.pipeline.pipeline import AudioLDM2Pipeline, PipelineModules
+    from ap_adapter_torch.pipeline.tokenize import make_text_batch
+    from ap_adapter_torch.train.loop import train
+
+    one_rank = nccl_one_rank(device)
+
+    dist_dir = os.path.join(ROOT, "build", "dist_smoke")
+    shutil.rmtree(dist_dir, ignore_errors=True)
+    os.makedirs(dist_dir)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-rank", str(r), dist_dir],
+                              stdout=open(os.path.join(dist_dir, f"rank{r}.log"), "w"), stderr=subprocess.STDOUT)
+             for r in range(2)]
+    try:
+        codes = [p.wait(timeout=DIST_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r in range(2):
+        for line in open(os.path.join(dist_dir, f"rank{r}.log")).read().splitlines()[-40:]:
+            log(f"  rank {r}: {line[:400]}")
+    if codes != [0, 0]:
+        raise RuntimeError(f"phase 23 ranks exited {codes}")
+    ranks = [json.load(open(os.path.join(dist_dir, f"rank{r}.json"))) for r in range(2)]
+    wavs = [np.load(os.path.join(dist_dir, f"rank{r}.npz")) for r in range(2)]
+    metrics = [json.loads(line) for line in open(os.path.join(dist_dir, "train", "metrics.jsonl"))]
+    if [m["step"] for m in metrics] != list(range(1, DIST_STEPS + 1)):
+        raise RuntimeError(f"rank 0's metrics.jsonl holds steps {[m['step'] for m in metrics]}")
+
+    config = PipelineConfig()
+    result = {"nccl_one_rank": one_rank, "ranks": ranks}
+
+    # one process at the global batch: training
+    modules = PipelineModules(config).init_random(42, device=device)
+    init_adapter_from_text_kv(modules.unet)
+    batches = [{k: v.to(device) for k, v in mb.items()}
+               for mb in dist_train_batches(config, DIST_ACCUM, DIST_STEPS, 2 * DIST_B)]
+    state = train(modules, iter(batches), dist_train_config(), os.path.join(dist_dir, "train_one"), log_every=1)
+    del modules, batches
+    torch.cuda.empty_cache()
+    rel = []
+    for i, m in enumerate(state.history):
+        for r in ranks:
+            got = r["train"]["steps"][i]
+            rel += [abs(got[k] - m[k]) / abs(m[k]) for k in ("loss", "grad_norm")]
+        log(f"DP training step {i + 1}: ranks {[r['train']['steps'][i]['seconds'] for r in ranks]} s, peak "
+            f"{[r['train']['steps'][i]['max_memory_allocated'] / 2**30 for r in ranks]} GiB, loss "
+            f"{ranks[0]['train']['steps'][i]['loss']:.8g}, grad_norm {ranks[0]['train']['steps'][i]['grad_norm']:.8g}; "
+            f"one process at B={2 * DIST_B}: {m['seconds']:.3f} s, {m['max_memory_allocated'] / 2**30:.3f} GiB, "
+            f"loss {m['loss']:.8g}, grad_norm {m['grad_norm']:.8g}")
+    log(f"DP training against one process: largest relative difference {max(rel):.4g} (limit 1e-2)")
+    if max(rel) > 1e-2:
+        raise RuntimeError("data-parallel training differs from one process at the global batch")
+    result["train_one_process"] = state.history
+    result["train_max_rel_diff"] = max(rel)
+
+    # one process: the batch-2 edit request of the ranks' rows
+    task = get_task_config("timbre_transfer")
+    pipe = AudioLDM2Pipeline(config, PipelineModules(config).init_random(0, device=device))
+    fbank = np.concatenate([np.random.default_rng(r).standard_normal((1, *config.audiomae.img_size))
+                            for r in range(2)]).astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref = pipe.generate(make_text_batch(config, [task.positive_text_prompts[0]] * 2),
+                        make_text_batch(config, [task.negative_text_prompts[0]] * 2), fbank,
+                        audio_length_in_s=task.audio_length_in_s, num_inference_steps=task.num_inference_steps,
+                        guidance_scale=task.guidance_scale, ap_scale=task.ap_scale, time_pool=task.time_pooling,
+                        freq_pool=task.freq_pooling, seed=0)
+    result["serve_one_process"] = {"seconds": time.perf_counter() - t0,
+                                   "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del pipe
+    torch.cuda.empty_cache()
+    result["serve_quality"] = [check_quality(f"DP rank {r}'s clip vs row {r} of one process's batch of 2",
+                                             wavs[r]["serve"], ref[r: r + 1], config.mel) for r in range(2)]
+
+    # one process on the route the tensor-parallel ranks take
+    xla = config.replace(unet=dataclasses.replace(config.unet, force_xla_core=True))
+    pipe = AudioLDM2Pipeline(xla, PipelineModules(xla).init_random(0, device=device))
+    xla_run = slice_phase(pipe, device, requests=1)[0]
+    del pipe
+    torch.cuda.empty_cache()
+    result["tp_one_process"] = {k: xla_run[k] for k in ("seconds", "max_memory_allocated")}
+    result["tp_quality"] = [check_quality(f"TP rank {r}'s clip vs one process on force_xla_core", wavs[r]["tp"],
+                                          xla_run["wav"], config.mel) for r in range(2)]
+    result["tp_vs_kernel_route"] = quality_figures(wavs[0]["tp"], bf16_runs[0]["wav"], config.mel)
+    log(f"TP request: ranks {[r['tp']['seconds'] for r in ranks]} s, peak "
+        f"{[r['tp']['max_memory_allocated'] / 2**30 for r in ranks]} GiB, {ranks[0]['tp']['sharded']} parameters "
+        f"split; one process on the same route {xla_run['seconds']:.3f} s, "
+        f"{xla_run['max_memory_allocated'] / 2**30:.3f} GiB; against phase 6's request 0 on the kernels "
+        f"(information): {result['tp_vs_kernel_route']}")
+
+    # one process: MAE pretraining at the global batch
+    mae_one = mae_run(device, mae_fbanks())
+    mae_rel = max(abs(r["mae"][i]["loss"] - m["loss"]) / abs(m["loss"]) for r in ranks for i, m in enumerate(mae_one))
+    log(f"MAE DP: losses {[m['loss'] for m in ranks[0]['mae']]} (ranks) vs {[m['loss'] for m in mae_one]} (one "
+        f"process at B={2 * DIST_B}), largest relative difference {mae_rel:.4g} (limit 1e-4); steps "
+        f"{[m['seconds'] for m in ranks[0]['mae']]} s vs {[m['seconds'] for m in mae_one]} s")
+    if mae_rel > 1e-4:
+        raise RuntimeError("data-parallel MAE pretraining differs from one process")
+    result["mae_one_process"] = mae_one
+    result["mae_max_rel_diff"] = mae_rel
+    return result
+
+
 def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--dist-rank":      # a rank of phase 23, started by the phase
+        sys.path.insert(0, ROOT)
+        return dist_worker(int(sys.argv[2]), sys.argv[3])
     if not os.path.isdir(os.path.join(ROOT, "ap_adapter_torch")):
         print("chip_smoke: no ap_adapter_torch/ beside this script; run it from a checkout", file=sys.stderr)
         return 1
@@ -1798,6 +2170,7 @@ def main() -> int:
     training_ii = phase("training slice II", train_slice_ii_phase, device, training)
     wav_batch = phase("batched wav loader", wav_batch_phase, training_ii["data"])
     mae = phase("MAE pretraining", mae_phase, device, training_ii["data"])
+    distributed = phase("distributed", distributed_phase, device, runs)
 
     total = {k: sum(r["launches"][k] for r in runs) for k in EDIT_KERNELS + ("self_attention",)}
     total.update({k: training["launches"][k] for k in TRAIN_KERNELS})
@@ -1833,7 +2206,7 @@ def main() -> int:
         "training_steps": training["steps"], "training_reference": train_ref,
         "training_ii": {k: training_ii[k] for k in ("launches", "per_micro_step", "validation_round", "steps",
                                                      "step1_rel_diff", "validation_files", "tensorboard_events")},
-        "wav_batch": wav_batch, "mae_pretrain": mae, "phase_seconds": phases}
+        "wav_batch": wav_batch, "mae_pretrain": mae, "distributed": distributed, "phase_seconds": phases}
     if min(total.values()) <= 0 or set(cuda_kernels.LAUNCHES) != set(KERNELS):
         raise RuntimeError(f"a kernel of the path was not launched: {total}")
     print(json.dumps(report), flush=True)

@@ -24,7 +24,7 @@ from tests.torch_port_common import (  # noqa: F401 (autouse fixture)
     close, hf_vocoder, jax_tiny, one_torch_thread, port_tiny)
 
 # UNet switches that exist only for the TPU build and are not ported
-TPU_ONLY = {"use_weight_prep", "force_xla_core", "scan_unroll"}
+TPU_ONLY = {"use_weight_prep", "scan_unroll"}
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 

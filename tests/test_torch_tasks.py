@@ -68,11 +68,12 @@ def test_cli_writes_reference_file_names(tmp_path, source_wav):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, source_wav, monkeypatch):
-    """``--tensor-parallel`` above 1 is refused; a checkpoint's ``tokenizer/``
-    folder is loaded (``HFTokenizers``; the whole run is in
+    """``--tensor-parallel 2`` in a world of one process is refused (the
+    served case is in ``test_torch_parallel.py``); a checkpoint's
+    ``tokenizer/`` folder is loaded (``HFTokenizers``; the whole run is in
     ``test_torch_tokenize.py``); the flag and audio-prompt checks hold."""
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="world of 2 ranks"):
         tasks.main(["--tiny", "--device", "cpu", "--tensor-parallel", "2", "--output-dir", str(tmp_path)])
     (tmp_path / "ckpt" / "tokenizer").mkdir(parents=True)
     loaded = []
