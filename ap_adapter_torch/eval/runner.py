@@ -18,6 +18,8 @@ card unless asked (``--device``)::
     python -m ap_adapter_torch.eval.runner --in-domain-dirs eval_audio_in_domain \\
         --out-of-domain-dirs eval_audio_out_of_domain --vggish-ckpt vggish.pt
 
+``--checkpoint-dir`` is a directory that ``python -m
+ap_adapter_torch.convert.cli`` writes from the public AudioLDM2 directory.
 The functions take a checkpoint's ``HFTokenizers`` (``tokenizers=``), as
 JAX's do; without them, and from the CLI (JAX's builds none either),
 prompts go through the hash tokenizer.
@@ -189,7 +191,8 @@ def build_parser():
     p.add_argument("--out-of-domain-dirs", nargs="+", default=None,
                    help="protocol mode: out-of-domain source set; its reference set is --in-domain-dirs")
     p.add_argument("--task", default="timbre_transfer")
-    p.add_argument("--checkpoint-dir", default="", help="directory of <submodel>.npz state dicts")
+    p.add_argument("--checkpoint-dir", default="", help="directory of <submodel>.npz state dicts, as python -m "
+                   "ap_adapter_torch.convert.cli writes it (clap_audio.npz, where present, scores in the CLAP space)")
     p.add_argument("--adapter-ckpt", default="")
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--steps", type=int, default=50)

@@ -11,7 +11,8 @@ Token ids come from the host (``pipeline/tokenize.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional, Tuple
+import os
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -247,6 +248,22 @@ class PipelineModules(Submodels):
                                    timesteps=ts)
         mel = self.vae.decode((latents / c.vae.scaling_factor).to(dtype))   # [B, T, F, 1]
         return self.vocoder(mel[..., 0].float()).float()
+
+
+def read_checkpoint_dir(directory: str) -> Dict[str, Dict[str, np.ndarray]]:
+    """The ``<submodel>.npz`` state dicts of a ``--checkpoint-dir``, one per
+    ``PipelineModules.NAMES``, as ``python -m ap_adapter_torch.convert.cli``
+    writes them from the public AudioLDM2 directory."""
+
+    sds = {}
+    for name in PipelineModules.NAMES:
+        path = os.path.join(directory, f"{name}.npz")
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"{path} is missing: write the directory with python -m "
+                                    f"ap_adapter_torch.convert.cli (audiomae.npz needs its --audiomae-ckpt)")
+        with np.load(path) as f:
+            sds[name] = {k: f[k] for k in f.files}
+    return sds
 
 
 class AudioLDM2Pipeline:

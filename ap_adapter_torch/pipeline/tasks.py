@@ -13,7 +13,9 @@ under the reference's file names. Runs on the card (``--device``, default
         --audio-prompt clip.wav --random-weights --output-dir out
 
 ``--checkpoint-dir`` names a directory of ``<submodel>.npz`` HF/diffusers
-state dicts, as ``train/cli.py`` reads them; where it holds ``tokenizer/``
+state dicts, as ``train/cli.py`` reads them, which ``python -m
+ap_adapter_torch.convert.cli`` writes from the public AudioLDM2 directory
+(with ``--audiomae-ckpt``); where it holds ``tokenizer/``
 and ``tokenizer_2/``, prompts go through those transformers tokenizers
 (``pipeline/tokenize.py::HFTokenizers``), else through the hash tokenizer.
 ``--tensor-parallel N`` serves each request on N ranks, the UNet's
@@ -29,14 +31,14 @@ import os
 from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
 from ap_adapter_torch.adapter.params import import_flat_adapter
 from ap_adapter_torch.audio.io import load_wav, save_wav
 from ap_adapter_torch.configs import PipelineConfig, TaskConfig, get_task_config, tiny_pipeline_config
+from ap_adapter_torch.convert.cli import load_torch_weights
 from ap_adapter_torch.parallel.distributed import maybe_initialize, process_count, process_index
 from ap_adapter_torch.parallel.mesh import create_mesh
-from ap_adapter_torch.pipeline.pipeline import AudioLDM2Pipeline, PipelineModules
+from ap_adapter_torch.pipeline.pipeline import AudioLDM2Pipeline, PipelineModules, read_checkpoint_dir
 from ap_adapter_torch.pipeline.tokenize import HFTokenizers, make_text_batch
 
 
@@ -48,8 +50,9 @@ def load_pipeline(
     tensor_parallel: int = 1,
     device="cuda",
 ) -> AudioLDM2Pipeline:
-    """The pipeline from a directory of ``<submodel>.npz`` state dicts, or
-    with random weights from ``seed`` when none is given. The flat adapter
+    """The pipeline from a directory of ``<submodel>.npz`` state dicts (as
+    ``convert/cli.py`` writes them), or with random weights from ``seed``
+    when none is given. The flat adapter
     (``.npz`` or the reference ``.bin``) is copied into the UNet's own
     tensors, so it lands on the UNet's device and dtype.
 
@@ -68,11 +71,7 @@ def load_pipeline(
         device = mesh.device
     modules = PipelineModules(config)
     if checkpoint_dir:
-        sds = {}
-        for name in PipelineModules.NAMES:
-            with np.load(os.path.join(checkpoint_dir, f"{name}.npz")) as f:
-                sds[name] = {k: f[k] for k in f.files}
-        modules.load_state_dicts(sds, device=device)
+        modules.load_state_dicts(read_checkpoint_dir(checkpoint_dir), device=device)
     else:
         modules.init_random(seed, device=device)
     if adapter_ckpt:
@@ -86,8 +85,7 @@ def _load_flat_adapter(path: str) -> Dict[str, np.ndarray]:
     if path.endswith(".npz"):
         with np.load(path) as z:
             return {k: z[k] for k in z.files}
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    return {k: v.float().numpy() for k, v in sd.items()}
+    return load_torch_weights(path)
 
 
 def _output_name(task: TaskConfig, prompt: str, j: int, suffix: str = "") -> str:
@@ -176,7 +174,8 @@ def main(argv=None) -> List[str]:
     parser.add_argument("--task", default="timbre_transfer",
                         choices=["timbre_transfer", "style_transfer", "accompaniment_generation", "test"])
     parser.add_argument("--audio-prompt", default="", help="reference wav file")
-    parser.add_argument("--checkpoint-dir", default="", help="directory of <submodel>.npz state dicts")
+    parser.add_argument("--checkpoint-dir", default="", help="directory of <submodel>.npz state dicts, as python -m "
+                        "ap_adapter_torch.convert.cli writes it")
     parser.add_argument("--adapter-ckpt", default="", help="flat adapter ckpt (.npz or .bin)")
     parser.add_argument("--output-dir", default="output")
     parser.add_argument("--num-files", type=int, default=1)

@@ -9,7 +9,8 @@
 
 ``--checkpoint-dir`` names a directory of HF/diffusers state dicts, one
 ``<submodel>.npz`` per submodel (clap, t5, gpt2, projection, audiomae, unet,
-vae, vocoder); ``--random-weights`` draws random weights from ``--seed``
+vae, vocoder), which ``python -m ap_adapter_torch.convert.cli`` writes from
+the public AudioLDM2 directory and AudioMAE's ``pretrained.pth``; ``--random-weights`` draws random weights from ``--seed``
 instead. Resume from a flat adapter checkpoint with
 ``--resume-from-checkpoint``; without it the adapter starts as each site's
 copy of its frozen to_k/to_v. ``--remat`` recomputes each resnet and
@@ -31,14 +32,14 @@ and rank 0 alone writes under ``--output-dir``.
 from __future__ import annotations
 
 import argparse
-import os
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="AP-adapter finetuning (PyTorch)")
     p.add_argument("--train-manifest", required=True, help="AudioSet-style JSON manifest")
     p.add_argument("--data-root", default="")
-    p.add_argument("--checkpoint-dir", default="", help="directory of <submodel>.npz state dicts")
+    p.add_argument("--checkpoint-dir", default="", help="directory of <submodel>.npz state dicts, as python -m "
+                   "ap_adapter_torch.convert.cli writes it")
     p.add_argument("--output-dir", default="ap_adapter_output")
     p.add_argument("--train-batch-size", type=int, default=8)
     p.add_argument("--dataloader-prefetch", type=int, default=2,
@@ -86,12 +87,10 @@ def main(argv=None):
 
     import dataclasses
 
-    import numpy as np
-
     from ap_adapter_torch.adapter.params import import_flat_adapter, init_adapter_from_text_kv
     from ap_adapter_torch.configs import PipelineConfig
     from ap_adapter_torch.parallel.mesh import create_mesh
-    from ap_adapter_torch.pipeline.pipeline import PipelineModules
+    from ap_adapter_torch.pipeline.pipeline import PipelineModules, read_checkpoint_dir
     from ap_adapter_torch.train.data import AudioSetDataset, DeviceCollate, data_loader, prefetch
     from ap_adapter_torch.train.loop import train
     from ap_adapter_torch.train.trainer import TrainConfig
@@ -103,11 +102,7 @@ def main(argv=None):
     config = config.replace(unet=dataclasses.replace(config.unet, remat=args.remat))
     modules = PipelineModules(config)
     if args.checkpoint_dir:
-        sds = {}
-        for name in PipelineModules.NAMES:
-            with np.load(os.path.join(args.checkpoint_dir, f"{name}.npz")) as f:
-                sds[name] = {k: f[k] for k in f.files}
-        modules.load_state_dicts(sds, device=device)
+        modules.load_state_dicts(read_checkpoint_dir(args.checkpoint_dir), device=device)
     elif args.random_weights:
         modules.init_random(args.seed, device=device)
     else:

@@ -157,11 +157,25 @@ prints its seconds:
    the ``force_xla_core`` route (the TP clips within the same limits; phase
    6's request 0 on the kernels beside it as information) and the MAE steps
    (loss within 1e-4 relative); seconds and peak memory of every run.
+24. checkpoint conversion (``ap_adapter_torch/convert/cli.py``): phase 6's
+   weights written in the public layout under ``build/convert_smoke/``, in
+   bf16: a diffusers ``cvssp/audioldm2-large`` directory (each submodel's
+   config.json, from which ``build_config`` must give back
+   ``PipelineConfig()``; the ``ClapModel`` buffers, an HTSAT audio branch
+   and logit scales; T5's tied embedding; GPT-2's ``wte``; the vocoder's
+   ``mean``/``scale``; the UNet without adapter keys as a BF16
+   ``.safetensors``), the adapter as the reference's ``.bin`` and AudioMAE's
+   ``pretrained.pth`` with a random MAE decoder; ``python -m
+   ap_adapter_torch.convert.cli`` in a subprocess (``unet.npz`` must hold the
+   adapter); then the task CLI (``--checkpoint-dir``, ``--adapter-ckpt``)
+   serves phase 13's timbre_transfer request: its wav bit-equal to phase
+   13's ``run_task`` wav on the phase-6 pipeline, launches exactly one
+   request's; the seconds and bytes of each step; the directory is deleted.
 
-Phases 6, 8, 10, 12, 15-20 also count one self-attention launch per
+Phases 6, 8, 10, 12, 15-20, 24 also count one self-attention launch per
 request and per training micro-step (the VAE mid block at 4000 and 4096
 positions). Phases run in the order 1-4, 9, 11, 14, 5, 6, 10, 12, 15, 18,
-19, 16, 17, 13, 7, 8, 20-23. Two lines before the last is a JSON object with one entry per
+19, 16, 17, 13, 24, 7, 8, 20-23. Two lines before the last is a JSON object with one entry per
 kernel (``launches``: the count over its path's run, the edit requests for
 K1-K3 and the self-attention, the int8 requests for K11a-c, the training
 steps for K4 and K7-K9, the resnet-kernel requests for K12 and K13, the
@@ -1428,6 +1442,240 @@ def tasks_phase(pipe, device) -> dict:
     return result
 
 
+def write_safetensors(path: str, tensors: dict) -> None:
+    """A ``.safetensors`` file of bf16 tensors (u64 header length, JSON
+    header, raw bytes), as the ``safetensors`` package writes it."""
+
+    import struct
+
+    import torch
+
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: {t.dtype}, not bf16")
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": "BF16", "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)) + raw)
+        for t in tensors.values():
+            f.write(t.contiguous().reshape(-1).view(torch.uint8).numpy().data)
+
+
+def audioldm2_configs(c) -> dict:
+    """``{(subdirectory, file): json}`` of a diffusers AudioLDM2 directory for
+    the PipelineConfig ``c``: the inverse of ``convert/cli.py::build_config``."""
+
+    u, v, o, cl, t5, g, p = c.unet, c.vae, c.vocoder, c.clap, c.t5, c.gpt2, c.projection
+    return {
+        ("unet", "config.json"): {
+            "in_channels": u.in_channels, "out_channels": u.out_channels,
+            "block_out_channels": list(u.block_out_channels),
+            "down_block_types": ["CrossAttnDownBlock2D" if a else "DownBlock2D" for a in u.down_block_has_attn],
+            "up_block_types": ["CrossAttnUpBlock2D" if a else "UpBlock2D" for a in u.up_block_has_attn],
+            "layers_per_block": u.layers_per_block, "transformer_layers_per_block": u.transformer_layers_per_block,
+            "cross_attention_dim": list(u.cross_attention_dims), "num_attention_heads": u.num_attention_heads,
+            "norm_num_groups": u.norm_num_groups, "norm_eps": u.norm_eps, "flip_sin_to_cos": u.flip_sin_to_cos,
+            "freq_shift": u.freq_shift},
+        ("vae", "config.json"): {
+            "in_channels": v.in_channels, "out_channels": v.out_channels, "latent_channels": v.latent_channels,
+            "block_out_channels": list(v.block_out_channels), "layers_per_block": v.layers_per_block,
+            "norm_num_groups": v.norm_num_groups, "scaling_factor": v.scaling_factor,
+            "mid_block_add_attention": v.mid_block_attention},
+        ("vocoder", "config.json"): {
+            "model_in_dim": o.model_in_dim, "sampling_rate": o.sampling_rate,
+            "upsample_initial_channel": o.upsample_initial_channel, "upsample_rates": list(o.upsample_rates),
+            "upsample_kernel_sizes": list(o.upsample_kernel_sizes),
+            "resblock_kernel_sizes": list(o.resblock_kernel_sizes),
+            "resblock_dilation_sizes": [list(d) for d in o.resblock_dilation_sizes],
+            "leaky_relu_slope": o.leaky_relu_slope, "normalize_before": o.normalize_before},
+        ("scheduler", "scheduler_config.json"): dataclasses.asdict(c.scheduler),
+        ("text_encoder", "config.json"): {
+            "projection_dim": cl.projection_dim,
+            "text_config": {"vocab_size": cl.vocab_size, "hidden_size": cl.hidden_size,
+                            "num_hidden_layers": cl.num_layers, "num_attention_heads": cl.num_heads,
+                            "intermediate_size": cl.intermediate_size,
+                            "max_position_embeddings": cl.max_position_embeddings, "pad_token_id": cl.pad_token_id}},
+        ("text_encoder_2", "config.json"): {
+            "vocab_size": t5.vocab_size, "d_model": t5.d_model, "d_kv": t5.d_kv, "d_ff": t5.d_ff,
+            "num_layers": t5.num_layers, "num_heads": t5.num_heads,
+            "relative_attention_num_buckets": t5.relative_attention_num_buckets,
+            "relative_attention_max_distance": t5.relative_attention_max_distance,
+            "feed_forward_proj": t5.feed_forward_proj, "is_gated_act": t5.feed_forward_proj.startswith("gated")},
+        ("language_model", "config.json"): {
+            "vocab_size": g.vocab_size, "n_embd": g.n_embd, "n_layer": g.n_layer, "n_head": g.n_head,
+            "n_positions": g.n_positions, "max_new_tokens": g.max_new_tokens},
+        ("projection_model", "config.json"): {
+            "text_encoder_dim": p.text_encoder_dim, "text_encoder_1_dim": p.text_encoder_1_dim,
+            "langauge_model_dim": p.language_model_dim},     # [sic], as diffusers writes it
+    }
+
+
+def write_audioldm2_dir(root: str, modules, seed: int = 12) -> dict:
+    """The public layout around ``modules``' weights, every tensor in bf16
+    (exact for bf16 weights): a diffusers ``cvssp/audioldm2-large`` directory
+    (per-submodel config.json; ``ClapModel`` with its position/token-type
+    buffers, an HTSAT audio branch and the logit scales; T5 with its tied
+    ``encoder.embed_tokens``; GPT-2 with ``wte``; the vocoder's
+    ``mean``/``scale``; the UNet without adapter keys as a BF16
+    ``.safetensors``), the adapter as the reference's flat ``.bin``, and
+    AudioMAE's ``pretrained.pth`` (``{'model': ...}``, bare names, a random
+    MAE decoder, ``pos_embed``/``decoder_pos_embed`` as the fp32 sin-cos
+    tables the reference stores). Returns the paths."""
+
+    import numpy as np
+    import torch
+
+    from ap_adapter_torch.adapter.params import export_flat_adapter
+    from ap_adapter_torch.configs import ClapAudioConfig
+    from ap_adapter_torch.models.clap_audio import ClapAudioTower
+    from ap_adapter_torch.models.layers import audiomae_pos_embed
+    from ap_adapter_torch.models.mae_pretrain import MAEDecoder
+    from ap_adapter_torch.pipeline.pipeline import fill_random_
+
+    c = modules.config
+    for (sub, name), obj in audioldm2_configs(c).items():
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        with open(os.path.join(root, sub, name), "w") as f:
+            json.dump(obj, f)
+    gen = torch.Generator().manual_seed(seed)
+
+    def weights(module):
+        return {k: v.detach().to("cpu", torch.bfloat16) for k, v in module.state_dict().items()}
+
+    def random(*shape):
+        return (torch.randn(*shape, generator=gen) * 0.02).to(torch.bfloat16)
+
+    def save(sd, sub, name):
+        torch.save(sd, os.path.join(root, sub, name))
+
+    clap = weights(modules.clap)
+    n_pos = c.clap.max_position_embeddings
+    clap["text_model.embeddings.position_ids"] = torch.arange(n_pos)[None]
+    clap["text_model.embeddings.token_type_ids"] = torch.zeros(1, n_pos, dtype=torch.int64)
+    clap.update(weights(fill_random_(ClapAudioTower(ClapAudioConfig()), seed)))
+    clap["logit_scale_a"] = clap["logit_scale_t"] = torch.tensor(np.log(1 / 0.07), dtype=torch.bfloat16)
+    save(clap, "text_encoder", "pytorch_model.bin")
+    t5 = weights(modules.t5)
+    t5["encoder.embed_tokens.weight"] = t5["shared.weight"].clone()
+    save(t5, "text_encoder_2", "pytorch_model.bin")
+    save({**weights(modules.gpt2), "wte.weight": random(c.gpt2.vocab_size, c.gpt2.n_embd)},
+         "language_model", "pytorch_model.bin")
+    save(weights(modules.projection), "projection_model", "diffusion_pytorch_model.bin")
+    save(weights(modules.vae), "vae", "diffusion_pytorch_model.bin")
+    save({**weights(modules.vocoder), "mean": torch.zeros(c.vocoder.model_in_dim, dtype=torch.bfloat16),
+          "scale": torch.ones(c.vocoder.model_in_dim, dtype=torch.bfloat16)}, "vocoder", "pytorch_model.bin")
+    write_safetensors(os.path.join(root, "unet", "diffusion_pytorch_model.safetensors"),
+                      {k: v for k, v in weights(modules.unet).items() if ".processor." not in k})
+
+    adapter = os.path.join(root, "ap_adapter", "pytorch_model.bin")
+    os.makedirs(os.path.dirname(adapter))
+    torch.save({k: torch.from_numpy(v) for k, v in export_flat_adapter(modules.unet).items()}, adapter)
+    mae = {k[len("model."):]: v for k, v in weights(modules.audiomae).items()}
+    mae.update(weights(fill_random_(MAEDecoder(c.audiomae), seed)))
+    t, f = c.audiomae.grid_size
+    mae["pos_embed"] = torch.from_numpy(audiomae_pos_embed(c.audiomae.embed_dim, (f, t))[None].copy())
+    mae["decoder_pos_embed"] = torch.from_numpy(audiomae_pos_embed(c.audiomae.decoder_embed_dim, (f, t))[None].copy())
+    audiomae = os.path.join(root, "audiomae", "pretrained.pth")
+    os.makedirs(os.path.dirname(audiomae))
+    torch.save({"model": mae}, audiomae)
+    return {"audioldm2_dir": os.path.join(root), "adapter": adapter, "audiomae": audiomae}
+
+
+def dir_bytes(directory: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(directory) for f in fs)
+
+
+def convert_phase(pipe, device) -> dict:
+    """Phase 24: the phase-6 weights written in the public layout
+    (``write_audioldm2_dir``), converted by ``python -m
+    ap_adapter_torch.convert.cli`` in a subprocess, then the task CLI's
+    timbre_transfer request served from the converted directory with the
+    reference adapter ``.bin``: the wav bit-equal to the task CLI phase's
+    ``run_task`` on the phase-6 pipeline (same weights, seed and inputs) and
+    exact launch counts. Prints the seconds and bytes; deletes the
+    directory."""
+
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ap_adapter_torch.adapter.params import export_flat_adapter
+    from ap_adapter_torch.audio.io import load_wav
+    from ap_adapter_torch.convert.cli import build_config
+    from ap_adapter_torch.ops import cuda_kernels
+    from ap_adapter_torch.pipeline import tasks
+    from ap_adapter_torch.pipeline.pipeline import PipelineModules
+
+    work = os.path.join(ROOT, "build", "convert_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    c = pipe.config
+    t0 = time.perf_counter()
+    paths = write_audioldm2_dir(os.path.join(work, "audioldm2-large"), pipe.modules)
+    write_seconds = time.perf_counter() - t0
+    if build_config(paths["audioldm2_dir"]) != c:
+        raise RuntimeError("convert: build_config of the written directory differs from PipelineConfig()")
+    source_bytes = dir_bytes(work)
+    out = os.path.join(work, "converted")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ap_adapter_torch.convert.cli", "--audioldm2-dir",
+                           paths["audioldm2_dir"], "--audiomae-ckpt", paths["audiomae"], "--adapter-ckpt",
+                           paths["adapter"], "--out", out], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    convert_seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"convert: the CLI exited {proc.returncode}: {proc.stderr[-4000:]}")
+    written = sorted(os.listdir(out))
+    written_bytes = dir_bytes(out)
+    log(f"convert: wrote the public layout in {write_seconds:.3f} s ({source_bytes} bytes, bf16), converted in "
+        f"{convert_seconds:.3f} s (its process start included): {written}, {written_bytes} bytes (fp32)")
+    if written != sorted([f"{n}.npz" for n in PipelineModules.NAMES] + ["config.json"]):
+        raise RuntimeError(f"convert: wrote {written}")
+    adapter = export_flat_adapter(pipe.modules.unet)
+    with np.load(os.path.join(out, "unet.npz")) as f:      # the merge, before the task CLI imports it again
+        merged = all(np.array_equal(f[k], v) for k, v in adapter.items())
+    if not merged:
+        raise RuntimeError("convert: unet.npz does not hold the adapter .bin's to_k_ip/to_v_ip")
+
+    data_dir = os.path.join(ROOT, "build", "tasks_smoke")
+    wav = os.path.join(data_dir, "data", "clip_00.wav")
+    want_path = os.path.join(data_dir, "out", "a_0_ip0.5_t2_f2.wav")
+    cuda_kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got_paths = tasks.main(["--task", "timbre_transfer", "--audio-prompt", wav, "--prompt",
+                            "a recording of a violin solo", "--checkpoint-dir", out, "--adapter-ckpt",
+                            paths["adapter"], "--output-dir", os.path.join(work, "out")])
+    torch.cuda.synchronize()
+    request_seconds = time.perf_counter() - t0
+    moved = dict(cuda_kernels.LAUNCHES)
+    want = expected_request_launches(c.unet, 50)
+    want = {k: want.get(k, 0) for k in moved}
+    mem = torch.cuda.max_memory_allocated()
+    got, sr = load_wav(got_paths[0])
+    ref, _ = load_wav(want_path)
+    equal = got.dtype == ref.dtype and got.shape == ref.shape and np.array_equal(got, ref)
+    log(f"convert: served {[os.path.basename(p) for p in got_paths]} from the converted directory in "
+        f"{request_seconds:.3f} s (the model load included), max_memory_allocated={mem / 2**30:.3f} GiB, "
+        f"launches {moved}; bit-equal to the task CLI phase's run_task: {equal}")
+    if [os.path.basename(p) for p in got_paths] != [os.path.basename(want_path)]:
+        raise RuntimeError(f"convert: the task CLI wrote {got_paths}")
+    if moved != want:
+        raise RuntimeError(f"convert: launch counts {moved} != expected {want}")
+    if not equal:
+        raise RuntimeError(f"convert: the wav differs from the phase-6 pipeline's (max abs diff "
+                           f"{np.abs(got.astype(np.float64) - ref).max()})")
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+    return {"write_seconds": write_seconds, "source_bytes": source_bytes, "convert_seconds": convert_seconds,
+            "written_bytes": written_bytes, "request_seconds": request_seconds, "max_memory_allocated": mem,
+            "launches": {k: n for k, n in moved.items() if n}, "bit_equal": equal, "adapter_merged": merged}
+
+
 def train_reference_phase(modules, device) -> dict:
     """The training loss and its adapter gradient at full width (16x16
     latent, B=2, ip_scale 1.0, no hoisting): bf16 kernels on the card against
@@ -2163,6 +2411,7 @@ def main() -> int:
     evaluation = phase("eval runner", eval_phase, pipe, scorer, device)
     del scorer
     task_runs = phase("task CLI", tasks_phase, pipe, device)
+    converted = phase("checkpoint conversion", convert_phase, pipe, device)
     train_ref = phase("training reference", train_reference_phase, pipe.modules, device)
     del pipe
     torch.cuda.empty_cache()
@@ -2195,7 +2444,7 @@ def main() -> int:
         "requests": [brief(r) for r in runs],
         "int8_requests": [brief(r) for r in int8_runs], "int8_quality": int8_quality,
         "resnet_kernel_requests": {k: brief(r) for k, r in switch_runs.items()},
-        "task_cli": {k: brief(r) for k, r in task_runs.items()},
+        "task_cli": {k: brief(r) for k, r in task_runs.items()}, "convert": converted,
         "k10_request": brief(k10_run), "v1_reference_rel_err": v1["reference_rel_err"],
         "v1_requests": [{**brief(r), "v1_memory": r["v1_memory"],
                          "launches": {k: n for k, n in r["launches"].items() if n}} for r in v1["requests"]],

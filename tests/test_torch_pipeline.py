@@ -172,8 +172,9 @@ def test_entry_points_default_to_cuda():
 
 def test_port_imports_no_jax():
     """In a fresh interpreter, importing every module of the port loads no
-    jax, flax or ap_adapter_tpu, nor transformers (which the machine with
-    the card lacks; ``HFTokenizers`` imports it when built), and builds no
+    jax, flax or ap_adapter_tpu, nor transformers or safetensors (which the
+    machine with the card lacks; ``HFTokenizers`` imports transformers when
+    built, ``convert/cli.py`` reads ``.safetensors`` itself), and builds no
     kernel."""
 
     code = """
@@ -181,7 +182,8 @@ import importlib, pkgutil, sys
 import ap_adapter_torch
 for m in pkgutil.walk_packages(ap_adapter_torch.__path__, "ap_adapter_torch."):
     importlib.import_module(m.name)
-bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "ap_adapter_tpu", "transformers"))
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "ap_adapter_tpu", "transformers",
+                                                          "safetensors"))
 assert not bad, bad
 from ap_adapter_torch.ops import cuda_kernels
 assert cuda_kernels._lib is None
