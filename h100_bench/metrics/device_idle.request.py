@@ -1,0 +1,3 @@
+"""``device_idle.request``: ``metrics.common.device_idle``."""
+
+from h100_bench.metrics.common import device_idle as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""``unet_roofline.request``: ``metrics.common.unet_roofline``."""
+
+from h100_bench.metrics.common import unet_roofline as read  # noqa: F401
