@@ -9,6 +9,7 @@ import torch
 
 from ap_adapter_torch.configs import SchedulerConfig
 from ap_adapter_torch.diffusion.ddim import ddim_step, inference_timesteps, make_tables
+from ap_adapter_torch.utils import trace
 
 
 def ddim_sample_loop(
@@ -28,8 +29,10 @@ def ddim_sample_loop(
     tables = make_tables(scheduler_config)
     ts = inference_timesteps(scheduler_config, num_inference_steps) if timesteps is None else timesteps
     step_ratio = scheduler_config.num_train_timesteps // num_inference_steps
-    for i, t in enumerate(int(t) for t in ts):
-        uncond, cond = unet_fn(torch.cat([latents, latents]), t, i).chunk(2)
-        noise_pred = uncond + torch.as_tensor(guidance_scale, dtype=uncond.dtype) * (cond - uncond)
-        latents = ddim_step(tables, noise_pred, t, t - step_ratio, latents).to(latents.dtype)
+    with trace.span("ap.denoise"):
+        for i, t in enumerate(int(t) for t in ts):
+            with trace.span("ap.step"):
+                uncond, cond = unet_fn(torch.cat([latents, latents]), t, i).chunk(2)
+                noise_pred = uncond + torch.as_tensor(guidance_scale, dtype=uncond.dtype) * (cond - uncond)
+                latents = ddim_step(tables, noise_pred, t, t - step_ratio, latents).to(latents.dtype)
     return latents

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from ap_adapter_torch.configs import GPT2Config
 from ap_adapter_torch.ops.attention import sdpa
+from ap_adapter_torch.utils import trace
 
 Cache = Tuple[torch.Tensor, torch.Tensor]  # k, v: [B, L, H, dk]
 
@@ -107,14 +108,15 @@ def generate_hidden_states(model: GPT2Model, inputs_embeds: torch.Tensor,
     steps = max_new_tokens or c.max_new_tokens
     b, s0, d = inputs_embeds.shape
     dev = inputs_embeds.device
-    caches = [tuple(torch.zeros(b, s0 + steps, c.n_head, d // c.n_head, dtype=inputs_embeds.dtype,
-                                device=dev) for _ in range(2)) for _ in range(c.n_layer)]
-    mask0 = attention_mask if attention_mask is not None else torch.ones(b, s0, dtype=torch.int32, device=dev)
-    mask = torch.cat([mask0.int(), torch.zeros(b, steps, dtype=torch.int32, device=dev)], dim=1)
-    last = model(inputs_embeds, mask, 0, caches, 0)[:, -1:]
-    outs = [last[:, 0]]
-    for i in range(steps - 1):
-        mask[:, s0 + i] = 1
-        last = model(last, mask, s0 + i, caches, s0 + i)
-        outs.append(last[:, 0])
-    return torch.stack(outs, dim=1)
+    with trace.span("ap.gpt2"):
+        caches = [tuple(torch.zeros(b, s0 + steps, c.n_head, d // c.n_head, dtype=inputs_embeds.dtype,
+                                    device=dev) for _ in range(2)) for _ in range(c.n_layer)]
+        mask0 = attention_mask if attention_mask is not None else torch.ones(b, s0, dtype=torch.int32, device=dev)
+        mask = torch.cat([mask0.int(), torch.zeros(b, steps, dtype=torch.int32, device=dev)], dim=1)
+        last = model(inputs_embeds, mask, 0, caches, 0)[:, -1:]
+        outs = [last[:, 0]]
+        for i in range(steps - 1):
+            mask[:, s0 + i] = 1
+            last = model(last, mask, s0 + i, caches, s0 + i)
+            outs.append(last[:, 0])
+        return torch.stack(outs, dim=1)

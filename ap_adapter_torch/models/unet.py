@@ -37,6 +37,7 @@ from ap_adapter_torch.models.unet_blocks import (
     Upsample2D,
     attention_group,
 )
+from ap_adapter_torch.utils import trace
 
 
 class TimestepEmbedding(nn.Module):
@@ -166,100 +167,103 @@ class AudioLDM2UNet(nn.Module):
         ctx_kv: Optional[Dict] = None,         # hoisted cross K/V (models/hoist.py)
         temb_rows: Optional[Dict[str, torch.Tensor]] = None,  # {resnet: [C]} this step's rows
     ) -> torch.Tensor:
-        c = self.config
-        dtype = self.conv_in.weight.dtype
-        n = self._n_dims
+        with trace.span("ap.unet"):
+            c = self.config
+            dtype = self.conv_in.weight.dtype
+            n = self._n_dims
 
-        if c.use_int8 and ctx_kv is not None:
-            # the int8 sites project K/V in the step; a hoisted bias would
-            # drop the T5 mask there (the JAX pipeline.py:272-277)
-            raise ValueError("a use_int8 UNet takes no hoisted K/V (ctx_kv)")
-        if c.cn_text_only and ctx_kv is not None:
-            # the rows would hold the audio tokens that this UNet strips (the JAX hoist.py:150-153)
-            raise ValueError("K/V hoisting is not supported for cn_text_only (ControlNet-branch) UNets; "
-                             "pass ctx_kv=None")
-        # the T5 stream's padding bias [B, S1]; the GPT-2+AudioMAE stream is never masked
-        if ctx_kv is not None:
-            bias1 = ctx_kv["__bias1__"]
-        elif encoder_attention_mask_1 is not None:
-            bias1 = (1.0 - encoder_attention_mask_1.float()) * -10000.0
-        else:
-            bias1 = None
+            if c.use_int8 and ctx_kv is not None:
+                # the int8 sites project K/V in the step; a hoisted bias would
+                # drop the T5 mask there (the JAX pipeline.py:272-277)
+                raise ValueError("a use_int8 UNet takes no hoisted K/V (ctx_kv)")
+            if c.cn_text_only and ctx_kv is not None:
+                # the rows would hold the audio tokens that this UNet strips (the JAX hoist.py:150-153)
+                raise ValueError("K/V hoisting is not supported for cn_text_only (ControlNet-branch) UNets; "
+                                 "pass ctx_kv=None")
+            # the T5 stream's padding bias [B, S1]; the GPT-2+AudioMAE stream is never masked
+            if ctx_kv is not None:
+                bias1 = ctx_kv["__bias1__"]
+            elif encoder_attention_mask_1 is not None:
+                bias1 = (1.0 - encoder_attention_mask_1.float()) * -10000.0
+            else:
+                bias1 = None
 
-        temb = None
-        if temb_rows is None:
-            ts = torch.as_tensor(timesteps, device=sample.device).reshape(-1)
-            ts = ts.expand(sample.shape[0]) if ts.numel() == 1 else ts
-            t_emb = get_timestep_embedding(ts, c.block_out_channels[0], c.flip_sin_to_cos,
-                                           c.freq_shift).to(dtype)
-            temb = self.time_embedding(t_emb)
+            temb = None
+            if temb_rows is None:
+                ts = torch.as_tensor(timesteps, device=sample.device).reshape(-1)
+                ts = ts.expand(sample.shape[0]) if ts.numel() == 1 else ts
+                t_emb = get_timestep_embedding(ts, c.block_out_channels[0], c.flip_sin_to_cos,
+                                               c.freq_shift).to(dtype)
+                temb = self.time_embedding(t_emb)
 
-        if c.class_embed_dim is not None and class_labels is not None:
-            if temb is None:
-                raise ValueError(
-                    "class_labels conditioning is incompatible with hoisted temb_rows: the precomputed rows do "
-                    "not include the class embedding. Pass temb_rows=None for class-conditioned runs.")
-            cemb = self.class_embedding(class_labels.to(dtype))
-            temb = torch.cat([temb, cemb], dim=-1) if c.class_embeddings_concat else temb + cemb
+            if c.class_embed_dim is not None and class_labels is not None:
+                if temb is None:
+                    raise ValueError(
+                        "class_labels conditioning is incompatible with hoisted temb_rows: the precomputed rows do "
+                        "not include the class embedding. Pass temb_rows=None for class-conditioned runs.")
+                cemb = self.class_embedding(class_labels.to(dtype))
+                temb = torch.cat([temb, cemb], dim=-1) if c.class_embeddings_concat else temb + cemb
 
-        ehs0 = None if encoder_hidden_states is None else encoder_hidden_states.to(dtype)
-        ehs1 = None if encoder_hidden_states_1 is None else encoder_hidden_states_1.to(dtype)
-        if c.cn_text_only and ehs0 is not None and ehs0.shape[1] > c.adapter_num_tokens:
-            # the ControlNet branch attends the leading text tokens only (the reference's
-            # CNAttnProcessor2_0, attention_processor.py:585-586)
-            ehs0 = ehs0[:, : c.adapter_num_tokens].contiguous()
+            ehs0 = None if encoder_hidden_states is None else encoder_hidden_states.to(dtype)
+            ehs1 = None if encoder_hidden_states_1 is None else encoder_hidden_states_1.to(dtype)
+            if c.cn_text_only and ehs0 is not None and ehs0.shape[1] > c.adapter_num_tokens:
+                # the ControlNet branch attends the leading text tokens only (the reference's
+                # CNAttnProcessor2_0, attention_processor.py:585-586)
+                ehs0 = ehs0[:, : c.adapter_num_tokens].contiguous()
 
-        def trow(name):
-            return temb_rows.get(name) if temb_rows is not None else None
+            def trow(name):
+                return temb_rows.get(name) if temb_rows is not None else None
 
-        # under remat each resnet and attention group is one checkpointed
-        # segment (the JAX nn.remat units); the non-reentrant form keeps the
-        # gradients of the adapter weights inside a segment whose tensor
-        # inputs need none (the first adapter site's group)
-        remat = c.remat and torch.is_grad_enabled()
+            # under remat each resnet and attention group is one checkpointed
+            # segment (the JAX nn.remat units); the non-reentrant form keeps the
+            # gradients of the adapter weights inside a segment whose tensor
+            # inputs need none (the first adapter site's group)
+            remat = c.remat and torch.is_grad_enabled()
 
-        def segment(fn, *args):
-            if remat:
-                return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
-            return fn(*args)
+            def segment(fn, *args):
+                if remat:
+                    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+                return fn(*args)
 
-        def resnet(res, x, name):
-            return segment(res, x, temb, trow(name))
+            def resnet(res, x, name):
+                with trace.span("ap.unet.resnet"):
+                    return segment(res, x, temb, trow(name))
 
-        def group(blk, li, name, x):
-            kv = ctx_kv.get(name) if ctx_kv is not None else None
-            return segment(attention_group, blk.group(li, n), c.cross_attention_dims, x, ehs0, ehs1,
-                           bias1, ip_scale, kv)
+            def group(blk, li, name, x):
+                kv = ctx_kv.get(name) if ctx_kv is not None else None
+                with trace.span("ap.unet.attn"):
+                    return segment(attention_group, blk.group(li, n), c.cross_attention_dims, x, ehs0, ehs1,
+                                   bias1, ip_scale, kv)
 
-        x = self.conv_in(sample.permute(0, 3, 1, 2).to(dtype))
-        skips = [x]
-        for bi, blk in enumerate(self.down_blocks):
-            for li, res in enumerate(blk.resnets):
-                x = resnet(res, x, f"down_{bi}_resnet_{li}")
-                if len(blk.attentions):
-                    x = group(blk, li, f"down_{bi}_attn_{li}", x)
-                skips.append(x)
-            if hasattr(blk, "downsamplers"):
-                x = blk.downsamplers[0](x)
-                skips.append(x)
+            x = self.conv_in(sample.permute(0, 3, 1, 2).to(dtype))
+            skips = [x]
+            for bi, blk in enumerate(self.down_blocks):
+                for li, res in enumerate(blk.resnets):
+                    x = resnet(res, x, f"down_{bi}_resnet_{li}")
+                    if len(blk.attentions):
+                        x = group(blk, li, f"down_{bi}_attn_{li}", x)
+                    skips.append(x)
+                if hasattr(blk, "downsamplers"):
+                    x = blk.downsamplers[0](x)
+                    skips.append(x)
 
-        mid = self.mid_block
-        x = resnet(mid.resnets[0], x, "mid_resnet_0")
-        x = group(mid, 0, "mid_attn_0", x)
-        x = resnet(mid.resnets[1], x, "mid_resnet_1")
+            mid = self.mid_block
+            x = resnet(mid.resnets[0], x, "mid_resnet_0")
+            x = group(mid, 0, "mid_attn_0", x)
+            x = resnet(mid.resnets[1], x, "mid_resnet_1")
 
-        for bi, blk in enumerate(self.up_blocks):
-            for li, res in enumerate(blk.resnets):
-                x = torch.cat([x, skips.pop()], dim=1)
-                x = resnet(res, x, f"up_{bi}_resnet_{li}")
-                if len(blk.attentions):
-                    x = group(blk, li, f"up_{bi}_attn_{li}", x)
-            if hasattr(blk, "upsamplers"):
-                # to the next skip's spatial size (odd latent sizes)
-                x = blk.upsamplers[0](x, skips[-1].shape[2:])
+            for bi, blk in enumerate(self.up_blocks):
+                for li, res in enumerate(blk.resnets):
+                    x = torch.cat([x, skips.pop()], dim=1)
+                    x = resnet(res, x, f"up_{bi}_resnet_{li}")
+                    if len(blk.attentions):
+                        x = group(blk, li, f"up_{bi}_attn_{li}", x)
+                if hasattr(blk, "upsamplers"):
+                    # to the next skip's spatial size (odd latent sizes)
+                    x = blk.upsamplers[0](x, skips[-1].shape[2:])
 
-        x = self.conv_out(F.silu(self.conv_norm_out(x)))
-        return x.permute(0, 2, 3, 1)
+            x = self.conv_out(F.silu(self.conv_norm_out(x)))
+            return x.permute(0, 2, 3, 1)
 
 
 def prepare_resnet_kernel_weights_(unet: AudioLDM2UNet) -> AudioLDM2UNet:

@@ -24,6 +24,7 @@ from ap_adapter_torch.models.unet import AudioLDM2UNet
 from ap_adapter_torch.models.vae import AutoencoderKL
 from ap_adapter_torch.models.vocoder import HiFiGAN
 from ap_adapter_torch.pipeline.pipeline import Submodels, TextBatch
+from ap_adapter_torch.utils import trace
 
 
 def v1_unet_config(config: PipelineConfig) -> UNetConfig:
@@ -99,27 +100,32 @@ class AudioLDMv1Pipeline:
         ``torch.Generator`` seeded with ``seed`` on the pipeline's device),
         the VAE decode and the vocoder."""
 
-        c, m = self.config, self.modules
-        dev, dtype = m.device, m.dtype
-        frame_s = c.vocoder.upsample_factor / c.vocoder.sampling_rate
-        scale = c.vae.scale_factor
-        latent_time = (int(audio_length_in_s / frame_s) + scale - 1) // scale
         b = text_pos.clap_ids.shape[0]
-        if latents is None:
-            gen = torch.Generator(device=dev).manual_seed(seed)
-            latents = torch.randn(b, latent_time, c.vocoder.model_in_dim // scale, self.unet_config.in_channels,
-                                  generator=gen, device=dev, dtype=torch.float32)
-        else:
-            latents = torch.as_tensor(latents, dtype=torch.float32, device=dev)
+        with trace.span("ap.generate", rows=b, steps=num_inference_steps):
+            c, m = self.config, self.modules
+            dev, dtype = m.device, m.dtype
+            frame_s = c.vocoder.upsample_factor / c.vocoder.sampling_rate
+            scale = c.vae.scale_factor
+            latent_time = (int(audio_length_in_s / frame_s) + scale - 1) // scale
+            if latents is None:
+                gen = torch.Generator(device=dev).manual_seed(seed)
+                latents = torch.randn(b, latent_time, c.vocoder.model_in_dim // scale, self.unet_config.in_channels,
+                                      generator=gen, device=dev, dtype=torch.float32)
+            else:
+                latents = torch.as_tensor(latents, dtype=torch.float32, device=dev)
 
-        text = TextBatch.cat(text_neg.to(dev), text_pos.to(dev))        # CFG order: uncond (negative) first
-        class_labels = m.clap(text.clap_ids, text.clap_mask)
+            text = TextBatch.cat(text_neg.to(dev), text_pos.to(dev))        # CFG order: uncond (negative) first
+            with trace.span("ap.text"):
+                class_labels = m.clap(text.clap_ids, text.clap_mask)
 
-        def unet_fn(model_in, t, i):
-            t_batch = torch.full((model_in.shape[0],), float(t), device=dev)
-            return m.unet(model_in.to(dtype), t_batch, class_labels=class_labels)
+            def unet_fn(model_in, t, i):
+                t_batch = torch.full((model_in.shape[0],), float(t), device=dev)
+                return m.unet(model_in.to(dtype), t_batch, class_labels=class_labels)
 
-        latents = ddim_sample_loop(unet_fn, latents, c.scheduler, num_inference_steps, guidance_scale)
-        mel = m.vae.decode((latents / c.vae.scaling_factor).to(dtype))   # [B, T, F, 1]
-        wav = m.vocoder(mel[..., 0].float()).float()
-        return wav[:, : int(audio_length_in_s * c.vocoder.sampling_rate)].cpu().numpy()
+            latents = ddim_sample_loop(unet_fn, latents, c.scheduler, num_inference_steps, guidance_scale)
+            with trace.span("ap.vae_decode"):
+                mel = m.vae.decode((latents / c.vae.scaling_factor).to(dtype))   # [B, T, F, 1]
+            with trace.span("ap.vocoder"):
+                wav = m.vocoder(mel[..., 0].float()).float()
+            with trace.span("ap.to_host"):
+                return wav[:, : int(audio_length_in_s * c.vocoder.sampling_rate)].cpu().numpy()

@@ -34,6 +34,7 @@ from ap_adapter_torch.models.unet import AudioLDM2UNet, prepare_resnet_kernel_we
 from ap_adapter_torch.models.vae import AutoencoderKL
 from ap_adapter_torch.models.vocoder import HiFiGAN
 from ap_adapter_torch.parallel.tp import tp_shard_unet_
+from ap_adapter_torch.utils import trace
 
 _ONES = ("scale", "sos_embed", "eos_embed", "sos_embed_1", "eos_embed_1")
 
@@ -148,18 +149,20 @@ class PipelineModules(Submodels):
     def encode_prompt(self, text: TextBatch):
         """(t5_hidden [B, St, D1], t5_mask [B, St], gpt2_tokens [B, 8, D0])."""
 
-        clap_feat = self.clap(text.clap_ids, text.clap_mask)[:, None, :]
-        clap_mask = torch.ones(clap_feat.shape[0], 1, dtype=text.t5_mask.dtype, device=clap_feat.device)
-        t5_hidden = self.t5(text.t5_ids, text.t5_mask)
-        proj, proj_mask = self.projection(clap_feat, t5_hidden, clap_mask, text.t5_mask)
-        gpt2_tokens = generate_hidden_states(self.gpt2, proj, proj_mask, self.config.gpt2.max_new_tokens)
+        with trace.span("ap.text"):
+            clap_feat = self.clap(text.clap_ids, text.clap_mask)[:, None, :]
+            clap_mask = torch.ones(clap_feat.shape[0], 1, dtype=text.t5_mask.dtype, device=clap_feat.device)
+            t5_hidden = self.t5(text.t5_ids, text.t5_mask)
+            proj, proj_mask = self.projection(clap_feat, t5_hidden, clap_mask, text.t5_mask)
+            gpt2_tokens = generate_hidden_states(self.gpt2, proj, proj_mask, self.config.gpt2.max_new_tokens)
         return t5_hidden, text.t5_mask, gpt2_tokens
 
     def encode_audio(self, fbank: torch.Tensor, time_pool: int, freq_pool: int) -> torch.Tensor:
         """Pooled AudioMAE tokens of [zeros; fbank]: the zeros fbank is the
         unconditional branch of classifier-free guidance."""
 
-        return self.audiomae(torch.cat([torch.zeros_like(fbank), fbank]), time_pool, freq_pool)
+        with trace.span("ap.audiomae"):
+            return self.audiomae(torch.cat([torch.zeros_like(fbank), fbank]), time_pool, freq_pool)
 
     # -- generation ----------------------------------------------------------
 
@@ -232,11 +235,12 @@ class PipelineModules(Submodels):
 
         ctx_kv = temb = None
         if c.hoist_step_invariants:
-            if not c.unet.use_int8:
-                # int8 sites project K/V in the step, with the T5 bias built
-                # from the mask (JAX pipeline.py:272-277)
-                ctx_kv = precompute_cross_kv(self.unet, ehs0, t5_hidden, t5_mask)
-            temb = precompute_temb_rows(self.unet, ts)
+            with trace.span("ap.hoist"):
+                if not c.unet.use_int8:
+                    # int8 sites project K/V in the step, with the T5 bias built
+                    # from the mask (JAX pipeline.py:272-277)
+                    ctx_kv = precompute_cross_kv(self.unet, ehs0, t5_hidden, t5_mask)
+                temb = precompute_temb_rows(self.unet, ts)
 
         def unet_fn(model_in, t, i):
             t_batch = torch.full((model_in.shape[0],), float(t), device=dev)
@@ -246,8 +250,10 @@ class PipelineModules(Submodels):
 
         latents = ddim_sample_loop(unet_fn, latents, c.scheduler, num_inference_steps, guidance_scale,
                                    timesteps=ts)
-        mel = self.vae.decode((latents / c.vae.scaling_factor).to(dtype))   # [B, T, F, 1]
-        return self.vocoder(mel[..., 0].float()).float()
+        with trace.span("ap.vae_decode"):
+            mel = self.vae.decode((latents / c.vae.scaling_factor).to(dtype))   # [B, T, F, 1]
+        with trace.span("ap.vocoder"):
+            return self.vocoder(mel[..., 0].float()).float()
 
 
 def read_checkpoint_dir(directory: str) -> Dict[str, Dict[str, np.ndarray]]:
@@ -322,10 +328,11 @@ class AudioLDM2Pipeline:
         ``prepare_fbank`` (pipeline.py:471), which also keeps this off the
         accelerator."""
 
-        wav = torch.as_tensor(np.atleast_2d(waveform).mean(axis=0), dtype=torch.float32)
-        if sample_rate != self.config.fbank.sample_rate:
-            wav = resample(wav, sample_rate, self.config.fbank.sample_rate)
-        return audiomae_fbank(wav, self.config.fbank)[None]
+        with trace.span("ap.fbank"):
+            wav = torch.as_tensor(np.atleast_2d(waveform).mean(axis=0), dtype=torch.float32)
+            if sample_rate != self.config.fbank.sample_rate:
+                wav = resample(wav, sample_rate, self.config.fbank.sample_rate)
+            return audiomae_fbank(wav, self.config.fbank)[None]
 
     def generate(
         self,
@@ -351,15 +358,19 @@ class AudioLDM2Pipeline:
         ``seed``."""
 
         dev = self.modules.device
-        gen = torch.Generator(device=dev).manual_seed(seed)
         b = np.shape(text_pos.clap_ids)[0]
-        wav = self.modules.generate_waveform(
-            fbank, text_pos, text_neg, num_inference_steps=num_inference_steps,
-            guidance_scale=guidance_scale, ap_scale=ap_scale, time_pool=time_pool,
-            freq_pool=freq_pool, latent_time=self.latent_time_for_seconds(audio_length_in_s),
-            generator=gen, rows=None if self.mesh is None else self.mesh.rows(b))
-        samples = int(audio_length_in_s * self.config.vocoder.sampling_rate)
-        return wav[:, :samples].cpu().numpy() if materialize else wav[:, :samples]
+        with trace.span("ap.generate", rows=b, steps=num_inference_steps):
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            wav = self.modules.generate_waveform(
+                fbank, text_pos, text_neg, num_inference_steps=num_inference_steps,
+                guidance_scale=guidance_scale, ap_scale=ap_scale, time_pool=time_pool,
+                freq_pool=freq_pool, latent_time=self.latent_time_for_seconds(audio_length_in_s),
+                generator=gen, rows=None if self.mesh is None else self.mesh.rows(b))
+            samples = int(audio_length_in_s * self.config.vocoder.sampling_rate)
+            if not materialize:
+                return wav[:, :samples]
+            with trace.span("ap.to_host"):
+                return wav[:, :samples].cpu().numpy()
 
     def generate_ranked(self, text_pos: TextBatch, text_neg: TextBatch, fbank=None, *,
                         num_waveforms_per_prompt: int = 1, scorer=None, **kwargs) -> np.ndarray:
