@@ -37,7 +37,94 @@ from ap_adapter_torch.models.unet_blocks import (
     Upsample2D,
     attention_group,
 )
+from ap_adapter_torch.ops.cuda_kernels import LAUNCHES, UNET_FORWARDS
 from ap_adapter_torch.utils import trace
+
+# a signature's value in the UNet's graph cache after its first, eager forward
+_WARMED = "warmed"
+
+
+class _NotCapturable(Exception):
+    pass
+
+
+def _structure(obj, device: torch.device, leaves: List[torch.Tensor]):
+    if isinstance(obj, torch.Tensor):
+        if obj.device != device:
+            raise _NotCapturable
+        leaves.append(obj)
+        return obj.shape, obj.stride(), obj.dtype
+    if obj is None:
+        return None
+    if isinstance(obj, dict):
+        return dict, tuple((k, _structure(v, device, leaves)) for k, v in obj.items())
+    if isinstance(obj, (tuple, list)):
+        return tuple, tuple(_structure(v, device, leaves) for v in obj)
+    raise _NotCapturable
+
+
+def graph_signature(inputs: tuple, ip_scale: float, device: torch.device,
+                    leaves: List[torch.Tensor]) -> Optional[tuple]:
+    """The key of a forward's captured graph: the nest of ``inputs`` (tensors,
+    Nones, dicts and tuples, ``ctx_kv`` and ``temb_rows`` included) with each
+    tensor's shape, strides and dtype in its place, and ``ip_scale``, which
+    the kernels take as a number baked in at capture. The step is not part
+    of it. Appends the nest's tensors to ``leaves`` in order. None, and the
+    forward runs eager, where a tensor lies on another device than
+    ``device`` or the nest holds another value (a Python number as
+    ``timesteps`` would be baked in)."""
+
+    if not isinstance(ip_scale, (int, float)):
+        return None
+    try:
+        return _structure(inputs, device, leaves), float(ip_scale)
+    except _NotCapturable:
+        return None
+
+
+def _static_nest(obj, out: List[torch.Tensor]):
+    """``obj`` with a new tensor like each of its tensors in its place, each
+    appended to ``out`` in ``graph_signature``'s order."""
+
+    if isinstance(obj, torch.Tensor):
+        out.append(torch.empty_like(obj))
+        return out[-1]
+    if isinstance(obj, dict):
+        return {k: _static_nest(v, out) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_static_nest(v, out) for v in obj)
+    return obj
+
+
+class _Graph:
+    """One captured forward: the graph, its static inputs, its static output
+    and the kernel launches one replay makes."""
+
+    __slots__ = ("graph", "inputs", "out", "launches")
+
+    def __init__(self, graph, inputs: List[torch.Tensor], out: torch.Tensor, launches: Dict[str, int]):
+        self.graph, self.inputs, self.out, self.launches = graph, inputs, out, launches
+
+    def replay(self, leaves: List[torch.Tensor]) -> torch.Tensor:
+        """Copy ``leaves`` (``graph_signature``'s) into the static inputs,
+        replay, and return a copy of the output: the next replay overwrites
+        the static one."""
+
+        torch._foreach_copy_(self.inputs, leaves)
+        self.graph.replay()
+        for k, n in self.launches.items():
+            LAUNCHES[k] += n
+        return self.out.clone()
+
+
+class _GraphCache(dict):
+    """Signature -> ``_Graph`` (or ``_WARMED``), and the private memory pool
+    the graphs share. A copy of the module starts with none."""
+
+    pool = None
+
+    def __deepcopy__(self, memo):
+        return _GraphCache()
 
 
 class TimestepEmbedding(nn.Module):
@@ -71,6 +158,7 @@ class UNetBlock(nn.Module):
 class AudioLDM2UNet(nn.Module):
     def __init__(self, config: UNetConfig = UNetConfig()):
         super().__init__()
+        self._graphs = _GraphCache()
         c = self.config = config
         ch = c.block_out_channels
         groups, eps, ted = c.norm_num_groups, c.norm_eps, c.time_embed_dim
@@ -167,103 +255,173 @@ class AudioLDM2UNet(nn.Module):
         ctx_kv: Optional[Dict] = None,         # hoisted cross K/V (models/hoist.py)
         temb_rows: Optional[Dict[str, torch.Tensor]] = None,  # {resnet: [C]} this step's rows
     ) -> torch.Tensor:
+        """The noise prediction [B, H, W, C_out], NHWC.
+
+        A CUDA forward under ``no_grad`` replays a captured CUDA graph of
+        itself: the first forward of an input signature (``graph_signature``)
+        runs eager and warms the kernels' plans, the second captures the graph
+        and replays it, and every later one copies its inputs into the graph's
+        static buffers, replays it and returns a fresh copy of its output. The
+        graphs are dropped whenever a parameter or buffer is replaced
+        (``drop_graphs``). CPU, grad-mode and tensor-parallel forwards run
+        eager; the last carry collectives."""
+
         with trace.span("ap.unet"):
-            c = self.config
-            dtype = self.conv_in.weight.dtype
-            n = self._n_dims
+            inputs = (sample, timesteps, encoder_hidden_states, encoder_hidden_states_1, encoder_attention_mask_1,
+                      class_labels, ctx_kv, temb_rows)
+            leaves: List[torch.Tensor] = []
+            key = None
+            # tp_shard_unet_ sets tp_split: its forwards all-reduce across ranks, so they stay eager
+            if sample.is_cuda and not torch.is_grad_enabled() and not hasattr(self, "tp_split"):
+                key = graph_signature(inputs, ip_scale, sample.device, leaves)
+            entry = self._graphs.get(key) if key is not None else None
+            if entry is not None:
+                with trace.span("ap.unet.replay"):
+                    if entry is _WARMED:
+                        UNET_FORWARDS["captured"] += 1
+                        self._graphs[key] = entry = self._capture(inputs, ip_scale)
+                    else:
+                        UNET_FORWARDS["replayed"] += 1
+                    return entry.replay(leaves)
+            UNET_FORWARDS["eager"] += 1
+            out = self._forward(*inputs, ip_scale)
+            if key is not None:
+                self._graphs[key] = _WARMED
+            return out
 
-            if c.use_int8 and ctx_kv is not None:
-                # the int8 sites project K/V in the step; a hoisted bias would
-                # drop the T5 mask there (the JAX pipeline.py:272-277)
-                raise ValueError("a use_int8 UNet takes no hoisted K/V (ctx_kv)")
-            if c.cn_text_only and ctx_kv is not None:
-                # the rows would hold the audio tokens that this UNet strips (the JAX hoist.py:150-153)
-                raise ValueError("K/V hoisting is not supported for cn_text_only (ControlNet-branch) UNets; "
-                                 "pass ctx_kv=None")
-            # the T5 stream's padding bias [B, S1]; the GPT-2+AudioMAE stream is never masked
-            if ctx_kv is not None:
-                bias1 = ctx_kv["__bias1__"]
-            elif encoder_attention_mask_1 is not None:
-                bias1 = (1.0 - encoder_attention_mask_1.float()) * -10000.0
-            else:
-                bias1 = None
+    def drop_graphs(self) -> None:
+        """Forget every captured forward: the next forward of each signature
+        runs eager, and the one after it captures anew."""
 
-            temb = None
-            if temb_rows is None:
-                ts = torch.as_tensor(timesteps, device=sample.device).reshape(-1)
-                ts = ts.expand(sample.shape[0]) if ts.numel() == 1 else ts
-                t_emb = get_timestep_embedding(ts, c.block_out_channels[0], c.flip_sin_to_cos,
-                                               c.freq_shift).to(dtype)
-                temb = self.time_embedding(t_emb)
+        self._graphs = _GraphCache()
 
-            if c.class_embed_dim is not None and class_labels is not None:
-                if temb is None:
-                    raise ValueError(
-                        "class_labels conditioning is incompatible with hoisted temb_rows: the precomputed rows do "
-                        "not include the class embedding. Pass temb_rows=None for class-conditioned runs.")
-                cemb = self.class_embedding(class_labels.to(dtype))
-                temb = torch.cat([temb, cemb], dim=-1) if c.class_embeddings_concat else temb + cemb
+    def _apply(self, fn, *args, **kwargs):
+        # .to(), .cuda(), .half(), to_empty(): new parameter and buffer tensors
+        self.drop_graphs()
+        return super()._apply(fn, *args, **kwargs)
 
-            ehs0 = None if encoder_hidden_states is None else encoder_hidden_states.to(dtype)
-            ehs1 = None if encoder_hidden_states_1 is None else encoder_hidden_states_1.to(dtype)
-            if c.cn_text_only and ehs0 is not None and ehs0.shape[1] > c.adapter_num_tokens:
-                # the ControlNet branch attends the leading text tokens only (the reference's
-                # CNAttnProcessor2_0, attention_processor.py:585-586)
-                ehs0 = ehs0[:, : c.adapter_num_tokens].contiguous()
+    def _load_from_state_dict(self, *args, **kwargs):
+        # load_state_dict, on this module or on one that holds it (assign=True swaps the tensors)
+        self.drop_graphs()
+        super()._load_from_state_dict(*args, **kwargs)
 
-            def trow(name):
-                return temb_rows.get(name) if temb_rows is not None else None
+    def _capture(self, inputs: tuple, ip_scale: float) -> _Graph:
+        """Capture this forward on static copies of ``inputs`` into the
+        UNet's graph pool. The static inputs are allocated outside the pool;
+        the kernel launches the capture counted move from ``LAUNCHES`` to the
+        graph, which adds them back at every replay."""
 
-            # under remat each resnet and attention group is one checkpointed
-            # segment (the JAX nn.remat units); the non-reentrant form keeps the
-            # gradients of the adapter weights inside a segment whose tensor
-            # inputs need none (the first adapter site's group)
-            remat = c.remat and torch.is_grad_enabled()
+        static: List[torch.Tensor] = []
+        nest = _static_nest(inputs, static)
+        if self._graphs.pool is None:
+            self._graphs.pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        before = dict(LAUNCHES)
+        with torch.cuda.graph(graph, pool=self._graphs.pool, capture_error_mode="thread_local"):
+            out = self._forward(*nest, ip_scale)
+        launches = {k: n - before[k] for k, n in LAUNCHES.items() if n != before[k]}
+        for k, n in launches.items():
+            LAUNCHES[k] -= n
+        return _Graph(graph, static, out, launches)
 
-            def segment(fn, *args):
-                if remat:
-                    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
-                return fn(*args)
+    def _forward(self, sample, timesteps, encoder_hidden_states, encoder_hidden_states_1, encoder_attention_mask_1,
+                 class_labels, ctx_kv, temb_rows, ip_scale) -> torch.Tensor:
+        c = self.config
+        dtype = self.conv_in.weight.dtype
+        n = self._n_dims
 
-            def resnet(res, x, name):
-                with trace.span("ap.unet.resnet"):
-                    return segment(res, x, temb, trow(name))
+        if c.use_int8 and ctx_kv is not None:
+            # the int8 sites project K/V in the step; a hoisted bias would
+            # drop the T5 mask there (the JAX pipeline.py:272-277)
+            raise ValueError("a use_int8 UNet takes no hoisted K/V (ctx_kv)")
+        if c.cn_text_only and ctx_kv is not None:
+            # the rows would hold the audio tokens that this UNet strips (the JAX hoist.py:150-153)
+            raise ValueError("K/V hoisting is not supported for cn_text_only (ControlNet-branch) UNets; "
+                             "pass ctx_kv=None")
+        # the T5 stream's padding bias [B, S1]; the GPT-2+AudioMAE stream is never masked
+        if ctx_kv is not None:
+            bias1 = ctx_kv["__bias1__"]
+        elif encoder_attention_mask_1 is not None:
+            bias1 = (1.0 - encoder_attention_mask_1.float()) * -10000.0
+        else:
+            bias1 = None
 
-            def group(blk, li, name, x):
-                kv = ctx_kv.get(name) if ctx_kv is not None else None
-                with trace.span("ap.unet.attn"):
-                    return segment(attention_group, blk.group(li, n), c.cross_attention_dims, x, ehs0, ehs1,
-                                   bias1, ip_scale, kv)
+        temb = None
+        if temb_rows is None:
+            ts = torch.as_tensor(timesteps, device=sample.device).reshape(-1)
+            ts = ts.expand(sample.shape[0]) if ts.numel() == 1 else ts
+            t_emb = get_timestep_embedding(ts, c.block_out_channels[0], c.flip_sin_to_cos,
+                                           c.freq_shift).to(dtype)
+            temb = self.time_embedding(t_emb)
 
-            x = self.conv_in(sample.permute(0, 3, 1, 2).to(dtype))
-            skips = [x]
-            for bi, blk in enumerate(self.down_blocks):
-                for li, res in enumerate(blk.resnets):
-                    x = resnet(res, x, f"down_{bi}_resnet_{li}")
-                    if len(blk.attentions):
-                        x = group(blk, li, f"down_{bi}_attn_{li}", x)
-                    skips.append(x)
-                if hasattr(blk, "downsamplers"):
-                    x = blk.downsamplers[0](x)
-                    skips.append(x)
+        if c.class_embed_dim is not None and class_labels is not None:
+            if temb is None:
+                raise ValueError(
+                    "class_labels conditioning is incompatible with hoisted temb_rows: the precomputed rows do "
+                    "not include the class embedding. Pass temb_rows=None for class-conditioned runs.")
+            cemb = self.class_embedding(class_labels.to(dtype))
+            temb = torch.cat([temb, cemb], dim=-1) if c.class_embeddings_concat else temb + cemb
 
-            mid = self.mid_block
-            x = resnet(mid.resnets[0], x, "mid_resnet_0")
-            x = group(mid, 0, "mid_attn_0", x)
-            x = resnet(mid.resnets[1], x, "mid_resnet_1")
+        ehs0 = None if encoder_hidden_states is None else encoder_hidden_states.to(dtype)
+        ehs1 = None if encoder_hidden_states_1 is None else encoder_hidden_states_1.to(dtype)
+        if c.cn_text_only and ehs0 is not None and ehs0.shape[1] > c.adapter_num_tokens:
+            # the ControlNet branch attends the leading text tokens only (the reference's
+            # CNAttnProcessor2_0, attention_processor.py:585-586)
+            ehs0 = ehs0[:, : c.adapter_num_tokens].contiguous()
 
-            for bi, blk in enumerate(self.up_blocks):
-                for li, res in enumerate(blk.resnets):
-                    x = torch.cat([x, skips.pop()], dim=1)
-                    x = resnet(res, x, f"up_{bi}_resnet_{li}")
-                    if len(blk.attentions):
-                        x = group(blk, li, f"up_{bi}_attn_{li}", x)
-                if hasattr(blk, "upsamplers"):
-                    # to the next skip's spatial size (odd latent sizes)
-                    x = blk.upsamplers[0](x, skips[-1].shape[2:])
+        def trow(name):
+            return temb_rows.get(name) if temb_rows is not None else None
 
-            x = self.conv_out(F.silu(self.conv_norm_out(x)))
-            return x.permute(0, 2, 3, 1)
+        # under remat each resnet and attention group is one checkpointed
+        # segment (the JAX nn.remat units); the non-reentrant form keeps the
+        # gradients of the adapter weights inside a segment whose tensor
+        # inputs need none (the first adapter site's group)
+        remat = c.remat and torch.is_grad_enabled()
+
+        def segment(fn, *args):
+            if remat:
+                return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+            return fn(*args)
+
+        def resnet(res, x, name):
+            with trace.span("ap.unet.resnet"):
+                return segment(res, x, temb, trow(name))
+
+        def group(blk, li, name, x):
+            kv = ctx_kv.get(name) if ctx_kv is not None else None
+            with trace.span("ap.unet.attn"):
+                return segment(attention_group, blk.group(li, n), c.cross_attention_dims, x, ehs0, ehs1,
+                               bias1, ip_scale, kv)
+
+        x = self.conv_in(sample.permute(0, 3, 1, 2).to(dtype))
+        skips = [x]
+        for bi, blk in enumerate(self.down_blocks):
+            for li, res in enumerate(blk.resnets):
+                x = resnet(res, x, f"down_{bi}_resnet_{li}")
+                if len(blk.attentions):
+                    x = group(blk, li, f"down_{bi}_attn_{li}", x)
+                skips.append(x)
+            if hasattr(blk, "downsamplers"):
+                x = blk.downsamplers[0](x)
+                skips.append(x)
+
+        mid = self.mid_block
+        x = resnet(mid.resnets[0], x, "mid_resnet_0")
+        x = group(mid, 0, "mid_attn_0", x)
+        x = resnet(mid.resnets[1], x, "mid_resnet_1")
+
+        for bi, blk in enumerate(self.up_blocks):
+            for li, res in enumerate(blk.resnets):
+                x = torch.cat([x, skips.pop()], dim=1)
+                x = resnet(res, x, f"up_{bi}_resnet_{li}")
+                if len(blk.attentions):
+                    x = group(blk, li, f"up_{bi}_attn_{li}", x)
+            if hasattr(blk, "upsamplers"):
+                # to the next skip's spatial size (odd latent sizes)
+                x = blk.upsamplers[0](x, skips[-1].shape[2:])
+
+        x = self.conv_out(F.silu(self.conv_norm_out(x)))
+        return x.permute(0, 2, 3, 1)
 
 
 def prepare_resnet_kernel_weights_(unet: AudioLDM2UNet) -> AudioLDM2UNet:
@@ -276,6 +434,7 @@ def prepare_resnet_kernel_weights_(unet: AudioLDM2UNet) -> AudioLDM2UNet:
         raise ValueError("prepare_resnet_kernel_weights_: the UNet's config has use_pallas_resnet off")
     for _, res in unet.resnet_blocks():
         res.prepare_kernel_weights_()
+    unet.drop_graphs()
     return unet
 
 
@@ -293,4 +452,5 @@ def quantize_unet_int8_(unet: AudioLDM2UNet) -> AudioLDM2UNet:
     for module in unet.modules():
         if isinstance(module, (CrossAttention, FeedForward)):
             module.quantize_int8_()
+    unet.drop_graphs()
     return unet

@@ -71,14 +71,22 @@ LAUNCHES: Dict[str, int] = {
     "dual_kv_attention": 0,
 }
 
+# UNet forwards by how they ran (``models/unet.py::AudioLDM2UNet.forward``):
+# "captured" a CUDA graph of a new input signature and replayed it,
+# "replayed" a graph captured before, or "eager" (every CPU, grad-mode and
+# tensor-parallel forward, and the first of each signature). A replay adds
+# its graph's kernel launches to LAUNCHES, as an eager forward would.
+UNET_FORWARDS: Dict[str, int] = {"captured": 0, "replayed": 0, "eager": 0}
+
 _lock = threading.Lock()
 _lib = None
 _entries: Dict[str, Callable] = {}      # op -> the library's bound apk_<op>
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, UNET_FORWARDS):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:

@@ -101,6 +101,7 @@ def tp_shard_unet_(unet, mesh) -> None:
         if isinstance(m, CrossAttention):
             m.heads //= n
     unet.tp_split = tuple(split)
+    unet.drop_graphs()
 
 
 def count_sharded_leaves(unet) -> int:

@@ -97,6 +97,7 @@ def split_unet_params(unet) -> Dict[str, torch.nn.Parameter]:
     for p in adapter.values():
         p.data = p.data.float()
         p.requires_grad_(True)
+    unet.drop_graphs()
     return adapter
 
 

@@ -1084,3 +1084,174 @@ def test_cn_request_launch_counts(cuda_device):
             "self_attention": 1}
     assert wavs[0].shape == (1, 160000) and np.all(np.isfinite(wavs[0]))
     assert np.array_equal(wavs[0], wavs[1])
+
+
+# -- the UNet's CUDA graph (models/unet.py::AudioLDM2UNet.forward) ------------
+
+GRAPH_CASES = {"a2l-128": ("a2l", 128, 0.5), "a2l-32": ("a2l", 32, 0.55), "v1": ("v1", 0, 0.0)}
+
+
+@pytest.fixture(scope="module")
+def graph_unets():
+    """Full-width bf16 UNets with N(0, 0.02) weights, built once: AudioLDM2's
+    and v1's (class labels, double self-attention)."""
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA)")
+    from ap_adapter_torch.configs import UNetConfig, audioldm_v1_unet_config
+    from ap_adapter_torch.models.unet import AudioLDM2UNet
+    from ap_adapter_torch.pipeline.pipeline import fill_random_
+
+    unets = {}
+    for name, config in (("a2l", UNetConfig()), ("v1", audioldm_v1_unet_config())):
+        with torch.device("cuda", 0):
+            unets[name] = fill_random_(AudioLDM2UNet(config).to(torch.bfloat16).eval(), 0)
+    return unets
+
+
+def _graph_step(unets, case, step, ip_scale=None):
+    """(the UNet, its keyword inputs at denoise step ``step`` of 50) at a 10 s
+    clip's shapes, CFG batch 2, as the pipelines pass them: the edit's
+    hoisted K/V (8 + 128 or 8 + 32 adapter keys, 64 T5 keys with padding)
+    and this step's temb rows, or v1's class labels."""
+
+    import numpy as np
+
+    from ap_adapter_torch.configs import SchedulerConfig
+    from ap_adapter_torch.diffusion.ddim import inference_timesteps
+    from ap_adapter_torch.models.hoist import precompute_cross_kv, precompute_temb_rows
+
+    kind, n_ip, scale = GRAPH_CASES[case]
+    unet, dev = unets[kind], torch.device("cuda", 0)
+    ts = inference_timesteps(SchedulerConfig(), 50)
+    g = torch.Generator(device=dev).manual_seed(step)
+    kw = dict(sample=torch.randn(2, 250, 16, 8, generator=g, device=dev).to(torch.bfloat16),
+              timesteps=torch.full((2,), float(ts[step]), device=dev),
+              ip_scale=scale if ip_scale is None else ip_scale)
+    with torch.no_grad():
+        if kind == "v1":
+            kw["class_labels"] = torch.nn.functional.normalize(torch.randn(2, 512, generator=g, device=dev), dim=-1)
+            return unet, kw
+        ehs0 = torch.randn(2, 8 + n_ip, 768, generator=torch.Generator(device=dev).manual_seed(n_ip),
+                           device=dev).to(torch.bfloat16)
+        ehs1 = torch.randn(2, 64, 1024, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+        mask = torch.ones(2, 64, dtype=torch.long, device=dev)
+        mask[:, 9:] = 0
+        rows = precompute_temb_rows(unet, np.asarray(ts))
+        kw.update(encoder_hidden_states=ehs0, encoder_hidden_states_1=ehs1.to(torch.bfloat16),
+                  encoder_attention_mask_1=mask, ctx_kv=precompute_cross_kv(unet, ehs0, ehs1, mask),
+                  temb_rows={k: v[step] for k, v in rows.items()})
+    return unet, kw
+
+
+def _eager(unet, kw):
+    """The same forward run eager, past the graph cache."""
+
+    full = dict(encoder_hidden_states=None, encoder_hidden_states_1=None, encoder_attention_mask_1=None,
+                class_labels=None, ctx_kv=None, temb_rows=None, ip_scale=0.0)
+    return unet._forward(**{**full, **kw})
+
+
+def _graph_outs(unet) -> list:
+    from ap_adapter_torch.models.unet import _Graph
+
+    return [e.out for e in unet._graphs.values() if isinstance(e, _Graph)]
+
+
+def _within_eager_spread(got, eager, eager_again):
+    """Bit-equal to the eager forward, or no farther from it than a second
+    eager forward is (kernels that sum across CTAs in no fixed order)."""
+
+    spread = (eager_again.float() - eager.float()).abs().max().item()
+    return torch.equal(got, eager) or (got.float() - eager.float()).abs().max().item() <= spread
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_unet_graph_replay_matches_eager(graph_unets, case):
+    """A signature's first forward runs eager, the second captures and
+    replays, the third replays: both replays match eager forwards of the
+    same inputs; the tensor a replay returned is no graph buffer and stays
+    as it was after a later replay (the output check's hooks keep it);
+    LAUNCHES after the three forwards reads three eager forwards' launches."""
+
+    unet, kw0 = _graph_step(graph_unets, case, 0)
+    _, kw1 = _graph_step(graph_unets, case, 17)
+    unet.drop_graphs()
+    cuda_kernels.reset_launch_counts()
+    with torch.no_grad():
+        eager0 = unet(**kw0)
+        once = {k: v for k, v in cuda_kernels.LAUNCHES.items() if v}
+        captured = unet(**kw0)
+        assert cuda_kernels.LAUNCHES == {k: 2 * once.get(k, 0) for k in cuda_kernels.LAUNCHES}
+        kept = captured.clone()
+        replayed = unet(**kw1)
+        assert cuda_kernels.LAUNCHES == {k: 3 * once.get(k, 0) for k in cuda_kernels.LAUNCHES}
+        assert cuda_kernels.UNET_FORWARDS == {"captured": 1, "replayed": 1, "eager": 1}
+        eager0_again, eager1, eager1_again = _eager(unet, kw0), _eager(unet, kw1), _eager(unet, kw1)
+    torch.cuda.synchronize()
+    assert once and torch.isfinite(eager0).all()
+    assert _within_eager_spread(captured, eager0, eager0_again)
+    assert _within_eager_spread(replayed, eager1, eager1_again)
+    assert torch.equal(captured, kept) and not torch.equal(captured, replayed)
+    outs = _graph_outs(unet)
+    assert len(outs) == 1 and all(t.data_ptr() != outs[0].data_ptr() for t in (captured, replayed))
+    unet.drop_graphs()
+
+
+@pytest.mark.gpu
+def test_unet_graph_new_ip_scale_captures_a_second_graph(graph_unets):
+    """``ip_scale`` is baked into the kernels' arguments at capture: a new
+    one is a new signature (eager once, then its own graph), and the first
+    graph still replays its own scale."""
+
+    unet, kw = _graph_step(graph_unets, "a2l-128", 3)
+    _, kw55 = _graph_step(graph_unets, "a2l-128", 3, ip_scale=0.55)
+    unet.drop_graphs()
+    cuda_kernels.reset_launch_counts()
+    with torch.no_grad():
+        outs = [unet(**kw), unet(**kw), unet(**kw55), unet(**kw55), unet(**kw)]
+        eager55_again = _eager(unet, kw55)
+    torch.cuda.synchronize()
+    assert cuda_kernels.UNET_FORWARDS == {"captured": 2, "replayed": 1, "eager": 2}
+    assert len(_graph_outs(unet)) == 2
+    assert _within_eager_spread(outs[3], outs[2], eager55_again)
+    assert torch.equal(outs[4], outs[1]) and not torch.equal(outs[3], outs[1])
+    unet.drop_graphs()
+
+
+@pytest.mark.gpu
+def test_unet_graph_follows_updated_and_reloaded_weights(graph_unets):
+    """Weights changed in place (as the optimizer changes the adapter
+    between validation rounds) are read at the next replay; a
+    ``load_state_dict`` drops the graphs, so the next forward runs eager on
+    the new weights and the one after captures them. conv_out's weight and
+    bias times a power of two scale the output exactly."""
+
+    unet, kw = _graph_step(graph_unets, "a2l-128", 5)
+    conv = unet.conv_out
+    w, b = conv.weight.detach().clone(), conv.bias.detach().clone()
+    conv.bias.data.normal_(0.0, 0.02)
+    unet.drop_graphs()
+    cuda_kernels.reset_launch_counts()
+    try:
+        with torch.no_grad():
+            base_eager, base = unet(**kw), unet(**kw)
+            conv.weight.mul_(2)
+            conv.bias.mul_(2)
+            doubled = unet(**kw)
+            assert cuda_kernels.UNET_FORWARDS == {"captured": 1, "replayed": 1, "eager": 1}
+            sd = unet.state_dict()
+            sd["conv_out.weight"], sd["conv_out.bias"] = conv.weight * 2, conv.bias * 2
+            unet.load_state_dict(sd)
+            assert not unet._graphs
+            reloaded = [unet(**kw), unet(**kw)]
+        torch.cuda.synchronize()
+        assert cuda_kernels.UNET_FORWARDS == {"captured": 2, "replayed": 1, "eager": 2}
+        assert torch.equal(doubled, 2 * base)
+        assert torch.equal(reloaded[0], 4 * base_eager) and torch.equal(reloaded[1], 4 * base)
+    finally:
+        with torch.no_grad():
+            conv.weight.copy_(w)
+            conv.bias.copy_(b)
+        unet.drop_graphs()
