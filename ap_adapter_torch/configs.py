@@ -14,6 +14,7 @@ adapter weights in ``copied_cross_attention/`` (hidden sizes 256/384/640) and
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional, Sequence, Tuple
 
 import torch
@@ -436,6 +437,98 @@ def audioldm_v1_unet_config(base: UNetConfig = UNetConfig(), clap_dim: int = 512
 # ---------------------------------------------------------------------------
 # Task templates — parity with reference config.py:1-83
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# MusicGen text-to-music (facebook/musicgen-large)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MusicGenDecoderConfig:
+    """The MusicGen decoder (transformers' ``MusicgenDecoderConfig``):
+    pre-LN blocks of causal self-attention, cross-attention to the
+    projected text states and a GELU feed-forward, none with biases; the
+    input is the sum of one embedding a codebook plus a sinusoidal position,
+    and one LM head a codebook reads the final LayerNorm. Id ``pad_token_id``
+    (the vocabulary's size) is both the BOS and the delay pattern's pad."""
+
+    vocab_size: int = 2048
+    num_codebooks: int = 4
+    hidden_size: int = 2048
+    num_hidden_layers: int = 48
+    num_attention_heads: int = 32
+    ffn_dim: int = 8192
+    max_position_embeddings: int = 2048
+    layer_norm_eps: float = 1e-5
+    pad_token_id: int = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class EncodecConfig:
+    """EnCodec's decoder side (transformers' ``EncodecConfig``): residual
+    vector quantizer codebooks and the SEANet decoder with weight-normed,
+    non-causal convolutions, an LSTM and transposed convolutions at
+    ``upsampling_ratios`` (their product samples a frame)."""
+
+    audio_channels: int = 1
+    num_filters: int = 64
+    hidden_size: int = 128
+    upsampling_ratios: Tuple[int, ...] = (8, 5, 4, 4)
+    num_lstm_layers: int = 2
+    kernel_size: int = 7
+    last_kernel_size: int = 7
+    residual_kernel_size: int = 3
+    dilation_growth_rate: int = 2
+    num_residual_layers: int = 1
+    compress: int = 2
+    codebook_size: int = 2048
+    num_quantizers: int = 4
+    sampling_rate: int = 32000
+    pad_mode: str = "reflect"
+
+    @property
+    def frame_rate(self) -> int:
+        """Codes a second: the sampling rate over the samples of a frame."""
+
+        return self.sampling_rate // math.prod(self.upsampling_ratios)
+
+
+@dataclasses.dataclass(frozen=True)
+class MusicGenConfig:
+    """MusicGen text-to-music: the T5 text encoder, ``enc_to_dec_proj``, the
+    decoder and EnCodec, with the published generation defaults (CFG 3.0,
+    top-k 250 at temperature 1). A sequence of ``frames`` codes
+    (``encodec.frame_rate`` a second) takes ``frames + num_codebooks``
+    positions."""
+
+    t5: T5Config = T5Config(d_model=768, d_kv=64, d_ff=3072, num_layers=12, num_heads=12,
+                            feed_forward_proj="relu")
+    decoder: MusicGenDecoderConfig = MusicGenDecoderConfig()
+    encodec: EncodecConfig = EncodecConfig()
+    guidance_scale: float = 3.0
+    top_k: int = 250
+    temperature: float = 1.0
+    dtype: Any = torch.bfloat16
+
+
+def musicgen_large() -> MusicGenConfig:
+    """facebook/musicgen-large at its published widths: T5-base, 48 decoder
+    layers of 2048, EnCodec 32 kHz."""
+
+    return MusicGenConfig()
+
+
+def tiny_musicgen_config(dtype: Any = torch.float32) -> MusicGenConfig:
+    """The same structure at widths the CPU tests run in milliseconds."""
+
+    return MusicGenConfig(
+        t5=T5Config(vocab_size=64, d_model=32, d_kv=8, d_ff=48, num_layers=2, num_heads=4, feed_forward_proj="relu"),
+        decoder=MusicGenDecoderConfig(vocab_size=16, hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+                                      ffn_dim=96, max_position_embeddings=64, pad_token_id=16),
+        encodec=EncodecConfig(num_filters=4, hidden_size=8, upsampling_ratios=(2, 2), codebook_size=16,
+                              sampling_rate=200),
+        top_k=5, dtype=dtype)
 
 
 @dataclasses.dataclass(frozen=True)

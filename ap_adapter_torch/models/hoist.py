@@ -7,7 +7,9 @@ layout that the K2 kernel reads.
 * every cross-attention site's K/V (text stream, and the adapter's audio
   stream) for every transformer block, stacked over the blocks: [L, B, Sk, C];
 * the T5 stream's additive padding bias [B, S1] (fp32, -10000 on padding);
-* the per-resnet time-embedding rows for the whole schedule ([T, C] tables).
+* the per-resnet time-embedding rows for the whole schedule ([T, C] tables);
+* the MusicGen decoder's cross K/V and padding bias, written into its
+  decode cache (``precompute_decoder_cross_kv``).
 """
 
 from __future__ import annotations
@@ -66,3 +68,18 @@ def precompute_temb_rows(unet: AudioLDM2UNet, timesteps: np.ndarray) -> Dict[str
     emb = get_timestep_embedding(ts, c.block_out_channels[0], c.flip_sin_to_cos, c.freq_shift).to(dtype)
     st = F.silu(unet.time_embedding(emb))
     return {name: res.time_emb_proj(st) for name, res in unet.resnet_blocks()}
+
+
+@torch.no_grad()
+def precompute_decoder_cross_kv(decoder, states: torch.Tensor, mask: torch.Tensor, state) -> None:
+    """The MusicGen decoder's step-invariant cross-attention inputs, once a
+    call, into its ``DecodeState`` in place: every layer's K/V of the
+    projected text states [R, S, C] (``cross_k``/``cross_v`` [L, R, S, C]),
+    and the padding bias of ``mask`` [R, S] (``cross_bias``, -10000 at
+    padding). A captured decode step reads them where they are."""
+
+    states = states.to(state.cross_k.dtype)
+    for li, layer in enumerate(decoder.model["decoder"].layers):
+        torch.matmul(states, layer.encoder_attn.k_proj.weight.t(), out=state.cross_k[li])
+        torch.matmul(states, layer.encoder_attn.v_proj.weight.t(), out=state.cross_v[li])
+    state.cross_bias.copy_((1.0 - mask.float()) * -10000.0)

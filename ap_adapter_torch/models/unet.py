@@ -37,94 +37,9 @@ from ap_adapter_torch.models.unet_blocks import (
     Upsample2D,
     attention_group,
 )
-from ap_adapter_torch.ops.cuda_kernels import LAUNCHES, UNET_FORWARDS
+from ap_adapter_torch.models.graphs import GraphedModule
+from ap_adapter_torch.ops.cuda_kernels import UNET_FORWARDS
 from ap_adapter_torch.utils import trace
-
-# a signature's value in the UNet's graph cache after its first, eager forward
-_WARMED = "warmed"
-
-
-class _NotCapturable(Exception):
-    pass
-
-
-def _structure(obj, device: torch.device, leaves: List[torch.Tensor]):
-    if isinstance(obj, torch.Tensor):
-        if obj.device != device:
-            raise _NotCapturable
-        leaves.append(obj)
-        return obj.shape, obj.stride(), obj.dtype
-    if obj is None:
-        return None
-    if isinstance(obj, dict):
-        return dict, tuple((k, _structure(v, device, leaves)) for k, v in obj.items())
-    if isinstance(obj, (tuple, list)):
-        return tuple, tuple(_structure(v, device, leaves) for v in obj)
-    raise _NotCapturable
-
-
-def graph_signature(inputs: tuple, ip_scale: float, device: torch.device,
-                    leaves: List[torch.Tensor]) -> Optional[tuple]:
-    """The key of a forward's captured graph: the nest of ``inputs`` (tensors,
-    Nones, dicts and tuples, ``ctx_kv`` and ``temb_rows`` included) with each
-    tensor's shape, strides and dtype in its place, and ``ip_scale``, which
-    the kernels take as a number baked in at capture. The step is not part
-    of it. Appends the nest's tensors to ``leaves`` in order. None, and the
-    forward runs eager, where a tensor lies on another device than
-    ``device`` or the nest holds another value (a Python number as
-    ``timesteps`` would be baked in)."""
-
-    if not isinstance(ip_scale, (int, float)):
-        return None
-    try:
-        return _structure(inputs, device, leaves), float(ip_scale)
-    except _NotCapturable:
-        return None
-
-
-def _static_nest(obj, out: List[torch.Tensor]):
-    """``obj`` with a new tensor like each of its tensors in its place, each
-    appended to ``out`` in ``graph_signature``'s order."""
-
-    if isinstance(obj, torch.Tensor):
-        out.append(torch.empty_like(obj))
-        return out[-1]
-    if isinstance(obj, dict):
-        return {k: _static_nest(v, out) for k, v in obj.items()}
-    if isinstance(obj, (tuple, list)):
-        return type(obj)(_static_nest(v, out) for v in obj)
-    return obj
-
-
-class _Graph:
-    """One captured forward: the graph, its static inputs, its static output
-    and the kernel launches one replay makes."""
-
-    __slots__ = ("graph", "inputs", "out", "launches")
-
-    def __init__(self, graph, inputs: List[torch.Tensor], out: torch.Tensor, launches: Dict[str, int]):
-        self.graph, self.inputs, self.out, self.launches = graph, inputs, out, launches
-
-    def replay(self, leaves: List[torch.Tensor]) -> torch.Tensor:
-        """Copy ``leaves`` (``graph_signature``'s) into the static inputs,
-        replay, and return a copy of the output: the next replay overwrites
-        the static one."""
-
-        torch._foreach_copy_(self.inputs, leaves)
-        self.graph.replay()
-        for k, n in self.launches.items():
-            LAUNCHES[k] += n
-        return self.out.clone()
-
-
-class _GraphCache(dict):
-    """Signature -> ``_Graph`` (or ``_WARMED``), and the private memory pool
-    the graphs share. A copy of the module starts with none."""
-
-    pool = None
-
-    def __deepcopy__(self, memo):
-        return _GraphCache()
 
 
 class TimestepEmbedding(nn.Module):
@@ -155,10 +70,9 @@ class UNetBlock(nn.Module):
         return list(self.attentions[layer * n:(layer + 1) * n])
 
 
-class AudioLDM2UNet(nn.Module):
+class AudioLDM2UNet(GraphedModule):
     def __init__(self, config: UNetConfig = UNetConfig()):
         super().__init__()
-        self._graphs = _GraphCache()
         c = self.config = config
         ch = c.block_out_channels
         groups, eps, ted = c.norm_num_groups, c.norm_eps, c.time_embed_dim
@@ -261,68 +175,18 @@ class AudioLDM2UNet(nn.Module):
         itself: the first forward of an input signature (``graph_signature``)
         runs eager and warms the kernels' plans, the second captures the graph
         and replays it, and every later one copies its inputs into the graph's
-        static buffers, replays it and returns a fresh copy of its output. The
-        graphs are dropped whenever a parameter or buffer is replaced
-        (``drop_graphs``). CPU, grad-mode and tensor-parallel forwards run
-        eager; the last carry collectives."""
+        static buffers, replays it and returns a fresh copy of its output
+        (``models/graphs.py``). The graphs are dropped whenever a parameter or
+        buffer is replaced (``drop_graphs``). CPU, grad-mode and
+        tensor-parallel forwards run eager; the last carry collectives."""
 
         with trace.span("ap.unet"):
             inputs = (sample, timesteps, encoder_hidden_states, encoder_hidden_states_1, encoder_attention_mask_1,
                       class_labels, ctx_kv, temb_rows)
-            leaves: List[torch.Tensor] = []
-            key = None
             # tp_shard_unet_ sets tp_split: its forwards all-reduce across ranks, so they stay eager
-            if sample.is_cuda and not torch.is_grad_enabled() and not hasattr(self, "tp_split"):
-                key = graph_signature(inputs, ip_scale, sample.device, leaves)
-            entry = self._graphs.get(key) if key is not None else None
-            if entry is not None:
-                with trace.span("ap.unet.replay"):
-                    if entry is _WARMED:
-                        UNET_FORWARDS["captured"] += 1
-                        self._graphs[key] = entry = self._capture(inputs, ip_scale)
-                    else:
-                        UNET_FORWARDS["replayed"] += 1
-                    return entry.replay(leaves)
-            UNET_FORWARDS["eager"] += 1
-            out = self._forward(*inputs, ip_scale)
-            if key is not None:
-                self._graphs[key] = _WARMED
-            return out
-
-    def drop_graphs(self) -> None:
-        """Forget every captured forward: the next forward of each signature
-        runs eager, and the one after it captures anew."""
-
-        self._graphs = _GraphCache()
-
-    def _apply(self, fn, *args, **kwargs):
-        # .to(), .cuda(), .half(), to_empty(): new parameter and buffer tensors
-        self.drop_graphs()
-        return super()._apply(fn, *args, **kwargs)
-
-    def _load_from_state_dict(self, *args, **kwargs):
-        # load_state_dict, on this module or on one that holds it (assign=True swaps the tensors)
-        self.drop_graphs()
-        super()._load_from_state_dict(*args, **kwargs)
-
-    def _capture(self, inputs: tuple, ip_scale: float) -> _Graph:
-        """Capture this forward on static copies of ``inputs`` into the
-        UNet's graph pool. The static inputs are allocated outside the pool;
-        the kernel launches the capture counted move from ``LAUNCHES`` to the
-        graph, which adds them back at every replay."""
-
-        static: List[torch.Tensor] = []
-        nest = _static_nest(inputs, static)
-        if self._graphs.pool is None:
-            self._graphs.pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        before = dict(LAUNCHES)
-        with torch.cuda.graph(graph, pool=self._graphs.pool, capture_error_mode="thread_local"):
-            out = self._forward(*nest, ip_scale)
-        launches = {k: n - before[k] for k, n in LAUNCHES.items() if n != before[k]}
-        for k, n in launches.items():
-            LAUNCHES[k] -= n
-        return _Graph(graph, static, out, launches)
+            capturable = sample.is_cuda and not torch.is_grad_enabled() and not hasattr(self, "tp_split")
+            return self.graphed(inputs, ip_scale, sample.device, capturable,
+                                lambda *a: self._forward(*a, ip_scale), UNET_FORWARDS, "ap.unet.replay")
 
     def _forward(self, sample, timesteps, encoder_hidden_states, encoder_hidden_states_1, encoder_attention_mask_1,
                  class_labels, ctx_kv, temb_rows, ip_scale) -> torch.Tensor:

@@ -78,13 +78,17 @@ LAUNCHES: Dict[str, int] = {
 # its graph's kernel launches to LAUNCHES, as an eager forward would.
 UNET_FORWARDS: Dict[str, int] = {"captured": 0, "replayed": 0, "eager": 0}
 
+# MusicGen decoder forwards (``models/musicgen.py::MusicgenForCausalLM.forward``),
+# one a decode step, counted as UNET_FORWARDS counts the UNet's.
+DECODE_FORWARDS: Dict[str, int] = {"captured": 0, "replayed": 0, "eager": 0}
+
 _lock = threading.Lock()
 _lib = None
 _entries: Dict[str, Callable] = {}      # op -> the library's bound apk_<op>
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, UNET_FORWARDS):
+    for counts in (LAUNCHES, UNET_FORWARDS, DECODE_FORWARDS):
         for k in counts:
             counts[k] = 0
 

@@ -18,7 +18,10 @@ prints its seconds:
    lists its device kernels with each one's device ms a call
    (torch.profiler), and K1's times ``F.scaled_dot_product_attention`` on
    q/k/v of its shape [2, S, 8, C/8] as information (K1 computes more than
-   attention, so it is not K1's library call);
+   attention, so it is not K1's library call); then K2 at MusicGen-large's
+   decode step (16 rows of one position, C 2048, 32 heads of 64, 64 T5
+   keys, keys past 20 masked on the cond rows and every key on the null
+   rows, whose K/V are zero and whose output must equal their input);
 4. training kernels: K4 (forward; adapter context 8 + 512 tokens, T5 with
    its bias), K7, K8 (dx, dk_ip/dv_ip and the adapter weight gradients) and
    K9 (dx) at the three training levels, B=8, against the plain version and
@@ -207,6 +210,7 @@ SHAPES = [(1000, 256), (252, 384), (64, 640)]   # (S, C) of the three UNet level
 TRAIN_SHAPES = [(1024, 256), (256, 384), (64, 640)]   # the same levels of a 10 s training clip, B=8
 TRAIN_B = 8
 HEADS = 8
+MG_ROWS, MG_WIDTH, MG_TEXT, MG_HEADS = 16, 2048, 64, 32   # MusicGen-large's decode step: 8 clips x CFG
 PEAK_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_INT8 = 1979e12     # H100 SXM dense int8 tensor-core peak (operations/s)
 LOGMEL_COS = 0.99       # int8 vs bf16 request, log-mel cosine (PARITY.md end-to-end row)
@@ -430,7 +434,39 @@ def kernel_phase(device) -> dict:
         for name, variant, keys, kernel, plain in cases:
             info = {"sdpa": lambda: F.scaled_dot_product_attention(qh, kh, vh)} if name == EDIT_KERNELS[0] else None
             run_case(results, name, variant, (2, s, c), keys, kernel, plain, TOL, split=name in REDESIGNED, info=info)
+    musicgen_k2_case(results, r, device)
     return results
+
+
+def musicgen_k2_case(results, r, device) -> None:
+    """K2 at MusicGen-large's decode step: 8 clips under CFG (16 rows of one
+    position), C 2048, 32 heads of 64, 64 padded T5 keys, no output bias.
+    The cond rows' keys past 20 are padding; the null rows (8-15) have every
+    key masked and K/V of exactly zero, as the pipeline hoists them, so K2
+    must return their input unchanged."""
+
+    import torch
+
+    from ap_adapter_torch.ops.fused_cross import fused_ln_cross_attention_kv, fused_ln_cross_attention_kv_plain
+
+    b, c, sk, heads = MG_ROWS, MG_WIDTH, MG_TEXT, MG_HEADS
+    x = r(b, 1, c)
+    ln_w, ln_b = 1 + r(c, scale=0.1), r(c, scale=0.1)
+    wq, wo = r(c, c, scale=c ** -0.5), r(c, c, scale=c ** -0.5)
+    bo = torch.zeros(c, device=device, dtype=torch.bfloat16)
+    k, v = r(b, sk, c), r(b, sk, c)
+    k[b // 2:], v[b // 2:] = 0, 0
+    bias = torch.zeros(b, sk, device=device)
+    bias[: b // 2, 20:] = -10000.0
+    bias[b // 2:] = -10000.0
+    kernel = lambda: fused_ln_cross_attention_kv(x, k, v, ln_w, ln_b, wq, wo, bo, heads, bias=bias)
+    got = kernel()
+    torch.cuda.synchronize()
+    if not torch.equal(got[b // 2:], x[b // 2:]):
+        raise RuntimeError("fused_ln_cross_attention_kv/musicgen: the null rows did not return their input")
+    run_case(results, "fused_ln_cross_attention_kv", "musicgen", (b, 1, c), dict(sk=sk), kernel,
+             lambda: fused_ln_cross_attention_kv_plain(x, k, v, ln_w, ln_b, wq, wo, bo, heads, bias=bias), TOL,
+             split=True)
 
 
 def int8_kernel_phase(device) -> dict:

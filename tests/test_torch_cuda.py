@@ -1153,7 +1153,7 @@ def _eager(unet, kw):
 
 
 def _graph_outs(unet) -> list:
-    from ap_adapter_torch.models.unet import _Graph
+    from ap_adapter_torch.models.graphs import _Graph
 
     return [e.out for e in unet._graphs.values() if isinstance(e, _Graph)]
 

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from ap_adapter_torch.configs import tiny_pipeline_config
+from ap_adapter_torch.models import graphs
 from ap_adapter_torch.models import unet as unet_mod
 from ap_adapter_torch.models.hoist import precompute_cross_kv, precompute_temb_rows
 from ap_adapter_torch.ops.cuda_kernels import UNET_FORWARDS
@@ -53,7 +54,7 @@ def step_inputs(unet, b=2, n_ip=16, steps=2, i=0, mask=True, hoist=True):
 
 
 def signature(inputs, ip_scale=0.5, device=CPU):
-    return unet_mod.graph_signature(inputs, ip_scale, device, [])
+    return graphs.graph_signature(inputs, ip_scale, device, [])
 
 
 def test_cpu_and_grad_mode_forwards_stay_eager(unet):
@@ -143,7 +144,7 @@ def _drop(what):
         "split_unet_params": split_unet_params,
     }
     u = tiny_unet(**switches.get(what, {}))
-    u._graphs["sentinel"] = unet_mod._WARMED
+    u._graphs["sentinel"] = graphs.WARMED
     u._graphs.pool = object()
     return u, ops[what]
 
@@ -158,10 +159,22 @@ def test_replacing_weights_drops_the_graphs(what):
 
 
 def test_a_copy_starts_without_graphs(unet):
-    unet._graphs["sentinel"] = unet_mod._WARMED
+    unet._graphs["sentinel"] = graphs.WARMED
     try:
         dup = copy.deepcopy(unet)
         assert not dup._graphs and dup._graphs.pool is None
         assert "sentinel" in unet._graphs
     finally:
         unet.drop_graphs()
+
+
+def test_graph_cache_keeps_the_newest_graphs():
+    """At most ``MAX_GRAPHS`` signatures a module; a lookup makes its entry
+    the newest, and the least recently used one goes first."""
+
+    cache = graphs._GraphCache()
+    for k in range(graphs.MAX_GRAPHS):
+        cache.put(k, graphs.WARMED)
+    assert cache.get(0) is graphs.WARMED and cache.get("absent") is None
+    cache.put("new", graphs.WARMED)
+    assert len(cache) == graphs.MAX_GRAPHS and 1 not in cache and 0 in cache and "new" in cache
